@@ -1,0 +1,265 @@
+"""Transformer building blocks.
+
+Module and parameter names follow the flax tree (qkv / attn_proj /
+pre_attn_ln / pre_mlp_ln / attention_layer / mlp_layer / pre_ln / final_ln /
+cls / cls_proj / intermediate / out), so ``utils/weights.py`` maps the two
+one to one. Parameters are f32; each module computes in its ``dtype`` (bf16
+under the model's bf16 policy), casting weights at use as flax does, with
+LayerNorm statistics in f32. Attention masks travel as per-position labels
+(is_valid, segment_ids) down to ``ops.attention``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from merlot_reserve_tpu_torch.ops import attention as attn_ops
+from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
+
+
+def kernel_stddev(flax_shape: Sequence[int]) -> float:
+    """Depth-scaled init scale min(18 / fan_in, 0.02) / sqrt(2), with fan_in
+    read off the flax kernel shape as the reference's DenseGeneral does: a
+    3-D kernel [a, b, c] has fan_in a, or a*b when a < c."""
+    if len(flax_shape) == 3:
+        fan_in = flax_shape[0]
+        if fan_in < flax_shape[2]:
+            fan_in *= flax_shape[1]
+    else:
+        fan_in = flax_shape[-2]
+    return min(18.0 / fan_in, 0.02) / math.sqrt(2)
+
+
+def kernel_init_(weight: torch.Tensor, flax_shape: Sequence[int],
+                 generator: torch.Generator) -> torch.Tensor:
+    """Truncated normal in [-2, 2] standard deviations of ``kernel_stddev``."""
+    std = kernel_stddev(flax_shape)
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def linear(x, layer: nn.Linear, dtype):
+    """``layer`` applied in ``dtype`` (the flax dtype policy)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm(x, layer: nn.LayerNorm, dtype):
+    """LayerNorm with f32 statistics, result in ``dtype``."""
+    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias,
+                        layer.eps).to(dtype)
+
+
+def my_gelu(x):
+    """Sigmoid-approximated GELU with the reference's 1.702 constant."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def init_linear(in_features, out_features, flax_shape, generator, bias=True):
+    """``nn.Linear`` with the flax kernel's init (``kernel_init_`` for the
+    flax kernel shape ``flax_shape``) and a zero bias."""
+    layer = nn.Linear(in_features, out_features, bias=bias)
+    kernel_init_(layer.weight, flax_shape, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+class AttentionLayer(nn.Module):
+    """Self-attention with a fused QKV projection; rotary rotates the query
+    and key heads together."""
+
+    def __init__(self, hidden_size: int, size_per_head: int, dtype, rotary_sign_quirk: bool,
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_heads = hidden_size // size_per_head
+        self.size_per_head = size_per_head
+        self.dtype = dtype
+        self.rotary_sign_quirk = rotary_sign_quirk
+        inner = 3 * self.num_heads * size_per_head
+        self.qkv = init_linear(hidden_size, inner,
+                               (hidden_size, 3 * self.num_heads, size_per_head), generator)
+        self.attn_proj = init_linear(self.num_heads * size_per_head, hidden_size,
+                                     (self.num_heads, size_per_head, hidden_size),
+                                     generator, bias=False)
+
+    def forward(self, x, *, impl: str = "auto", sinusoids=None, is_valid=None,
+                segment_ids=None, attention_bias=None):
+        *batch_dims, seq_len, _ = x.shape
+        heads, d = self.num_heads, self.size_per_head
+        qkv = linear(x, self.qkv, self.dtype).reshape(*batch_dims, seq_len, 3 * heads, d)
+        query_key, value = qkv[..., :2 * heads, :], qkv[..., 2 * heads:, :]
+        if sinusoids is not None:
+            query_key = rotary_ops.apply_rotary(query_key, sinusoids,
+                                                sign_quirk=self.rotary_sign_quirk)
+        query, key = query_key[..., :heads, :], query_key[..., heads:, :]
+
+        if len(batch_dims) != 1:  # attention() wants [B, L, heads, d]
+            flat_b = math.prod(batch_dims)
+            query, key, value = (t.reshape(flat_b, seq_len, heads, d)
+                                 for t in (query, key, value))
+            if is_valid is not None:
+                is_valid = is_valid.reshape(flat_b, seq_len)
+            if segment_ids is not None:
+                segment_ids = segment_ids.reshape(flat_b, seq_len)
+            if attention_bias is not None:
+                attention_bias = attention_bias.reshape(
+                    (flat_b,) + attention_bias.shape[len(batch_dims):])
+
+        x_att = attn_ops.attention(query, key, value, is_valid=is_valid,
+                                   segment_ids=segment_ids, bias=attention_bias,
+                                   impl=impl)
+        x_att = x_att.reshape(*batch_dims, seq_len, heads * d)
+        return linear(x_att, self.attn_proj, self.dtype)
+
+
+class MLPBlock(nn.Module):
+    def __init__(self, hidden_size: int, dtype, generator: torch.Generator,
+                 expansion_mult: int = 4):
+        super().__init__()
+        self.dtype = dtype
+        inner = hidden_size * expansion_mult
+        self.intermediate = init_linear(hidden_size, inner, (hidden_size, inner), generator)
+        self.out = init_linear(inner, hidden_size, (inner, hidden_size), generator,
+                               bias=False)
+
+    def forward(self, x):
+        return linear(my_gelu(linear(x, self.intermediate, self.dtype)), self.out, self.dtype)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-LN block: x + attn(LN(x)), then x + mlp(LN(x)), LN eps 1e-5."""
+
+    def __init__(self, hidden_size: int, size_per_head: int, dtype, rotary_sign_quirk: bool,
+                 generator: torch.Generator, expansion_mult: int = 4):
+        super().__init__()
+        self.dtype = dtype
+        self.pre_attn_ln = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.attention_layer = AttentionLayer(hidden_size, size_per_head, dtype,
+                                              rotary_sign_quirk, generator)
+        self.pre_mlp_ln = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.mlp_layer = MLPBlock(hidden_size, dtype, generator, expansion_mult)
+
+    def forward(self, x, *, impl: str = "auto", sinusoids=None, is_valid=None,
+                segment_ids=None, attention_bias=None):
+        x = x + self.attention_layer(layer_norm(x, self.pre_attn_ln, self.dtype), impl=impl,
+                                     sinusoids=sinusoids, is_valid=is_valid,
+                                     segment_ids=segment_ids, attention_bias=attention_bias)
+        return x + self.mlp_layer(layer_norm(x, self.pre_mlp_ln, self.dtype))
+
+
+class TransformerEncoder(nn.Module):
+    """1-D pre-LN encoder with an optional CLS token, rotary or learned
+    positions, and label-vector attention masking.
+
+    Mask inputs (provide at most one family):
+      * ``is_valid`` [.., L] and/or ``segment_ids`` [.., L] — label path;
+      * ``attention_mask`` [.., L, L] dense boolean.
+
+    ``pe_len`` gives the learned position table its length (sequence length
+    including CLS); the table is only used, and only needed, when forward
+    gets no rotary coordinates. The layer stack is one ``nn.ModuleList``
+    whichever flax layout (scan-stacked or ``layer_NN``) the weights came in.
+    """
+
+    def __init__(self, hidden_size: int, num_layers: int, *, generator: torch.Generator,
+                 dtype=torch.float32, size_per_head: int = 64, expansion_mult: int = 4,
+                 add_cls_token: bool = False, cls_output_size: Optional[int] = None,
+                 rotary_hsize: int = 32, attention_impl: str = "auto",
+                 rotary_sign_quirk: bool = True, pe_len: Optional[int] = None):
+        super().__init__()
+        if rotary_hsize > size_per_head:
+            raise ValueError("rotary_hsize exceeds size_per_head")
+        self.hidden_size = hidden_size
+        self.dtype = dtype
+        self.add_cls_token = add_cls_token
+        self.rotary_hsize = rotary_hsize
+        self.attention_impl = attention_impl
+        if add_cls_token:
+            self.cls = nn.Parameter(torch.empty(hidden_size))
+            with torch.no_grad():
+                nn.init.normal_(self.cls, std=0.02, generator=generator)
+            out_size = hidden_size if cls_output_size is None else cls_output_size
+            self.cls_proj = init_linear(hidden_size, out_size, (hidden_size, out_size),
+                                        generator)
+        if pe_len is not None:
+            self.pe = nn.Parameter(torch.empty(pe_len, hidden_size))
+            with torch.no_grad():
+                nn.init.normal_(self.pe, std=0.02, generator=generator)
+        self.pre_ln = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.layers = nn.ModuleList(
+            TransformerLayer(hidden_size, size_per_head, dtype, rotary_sign_quirk,
+                             generator, expansion_mult)
+            for _ in range(num_layers))
+        self.final_ln = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def forward(self, x, *, rotary_coords=None, attention_mask=None, is_valid=None,
+                segment_ids=None):
+        *batch_dims, seq_len, hsz = x.shape
+        if hsz != self.hidden_size:
+            raise ValueError(f"hidden size {hsz} != {self.hidden_size}")
+
+        if self.add_cls_token:
+            if attention_mask is not None:
+                raise ValueError("attention_mask can't be combined with add_cls_token")
+            if segment_ids is not None:
+                # CLS would attend globally only if everything shared a segment;
+                # the reference never combines CLS with packing
+                raise ValueError("segment_ids can't be combined with add_cls_token")
+            seq_len += 1
+            cls_tiled = self.cls.to(x.dtype).expand(*batch_dims, 1, self.hidden_size)
+            x = torch.cat([cls_tiled, x], -2)
+            if is_valid is not None:
+                is_valid = torch.cat([torch.ones_like(is_valid[..., :1]), is_valid], -1)
+            if rotary_coords is not None:
+                rotary_coords = torch.cat(
+                    [torch.zeros_like(rotary_coords[..., :1, :]), rotary_coords], -2)
+
+        if rotary_coords is not None:
+            if rotary_coords.shape[-2] != seq_len:
+                raise ValueError("rotary_coords length does not match the sequence")
+            sinusoids = rotary_ops.construct_rotary_sinusoids(
+                rotary_coords, rotary_hsize=self.rotary_hsize)
+        else:
+            if not hasattr(self, "pe"):
+                raise ValueError("no rotary_coords given and no learned positions (pe_len)")
+            if self.pe.shape[0] != seq_len:
+                raise ValueError(f"learned positions cover {self.pe.shape[0]} positions, "
+                                 f"got {seq_len}")
+            sinusoids = None
+            x = x + self.pe
+
+        if attention_mask is not None and is_valid is not None:
+            raise ValueError("provide only one of is_valid / attention_mask")
+        attention_bias = None
+        if attention_mask is not None:
+            attention_bias = attn_ops.make_attention_bias(attention_mask=attention_mask,
+                                                          dtype=self.dtype)
+
+        # resolve the impl once: on the dense path the additive bias is built
+        # here, once for all layers; on the flash path the labels go through
+        has_labels = is_valid is not None or segment_ids is not None
+        resolved = attn_ops.resolve_impl(self.attention_impl,
+                                         has_bias=attention_bias is not None,
+                                         has_labels=has_labels, on_cuda=x.is_cuda)
+        if resolved == "xla" and has_labels and attention_bias is None:
+            attention_bias = attn_ops.make_attention_bias(
+                is_valid=is_valid, segment_ids=segment_ids, dtype=self.dtype)
+            is_valid = segment_ids = None
+
+        x = layer_norm(x, self.pre_ln, self.dtype)
+        for layer in self.layers:
+            x = layer(x, impl=resolved, sinusoids=sinusoids, is_valid=is_valid,
+                      segment_ids=segment_ids, attention_bias=attention_bias)
+        x_ln = layer_norm(x, self.final_ln, self.dtype)
+
+        if self.add_cls_token:
+            return {"cls": linear(x_ln[..., 0, :], self.cls_proj, self.dtype),
+                    "seq": x_ln[..., 1:, :]}
+        return {"seq": x_ln}

@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of merlot_reserve_tpu_torch
+(and running chip_smoke.py) loads no JAX, flax or merlot_reserve_tpu module,
+and the entry points refuse to run on their default device, the CUDA card,
+where there is none: they never fall back to the CPU on their own."""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from merlot_reserve_tpu_torch import load_config
+from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
+from merlot_reserve_tpu_torch.serving import VideoEmbedService
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "merlot_reserve_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlot_reserve_tpu")
+TINY = dict(hidden_size=128, joint_num_layers=1, vit_num_layers=1, audio_num_layers=1,
+            span_num_layers=1, output_grid=(4, 4), use_bfloat16=False)
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = ("import importlib, json, sys\n"
+            f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "merlot_reserve_tpu_torch.models.model" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_no_source_imports_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert [n for n in names if _forbidden(n)] == []
+
+
+def test_entry_points_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    cfg = load_config("base", **TINY)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MerlotReserve(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        VideoEmbedService(MerlotReserve(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        PretrainedMerlotReserve.from_params("base", {})
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = dict(os.environ, PYTHONPATH="")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    res = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True,
+                         cwd=tmp_path, env=env, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
