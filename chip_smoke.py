@@ -4,15 +4,26 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: every CUDA source of the serving path, with nvcc's register,
-   shared-memory and spill report;
+2. build: every CUDA source of the port (``flash_fwd``, ``flash_bwd``), one
+   nvcc each, all started together, with nvcc's register, shared-memory and
+   spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it and a few more, with its time, the
-   plain version's, the nearest single PyTorch call's, and its bound;
+   the serving shapes and a few more, with its time, the plain version's,
+   the nearest single PyTorch call's, and its bound: the flash forward,
+   then the two backward kernels (dq; dk/dv);
 4. slice: a full-width base model (random weights from a seed) behind
    ``VideoEmbedService`` answers a full batch, an underfilled batch and
    concurrent requests through ``DynamicBatcher``; checks shapes, norms,
-   kernel launch counts, and agreement with the plain attention path.
+   kernel launch counts, and agreement with the plain attention path;
+5. train: a full-width base ``MerlotReservePretrainer`` (random weights
+   from a seed) takes a few steps through ``run_pretraining`` on the
+   port's dummy batch of 8 examples; checks finite losses near ln N at
+   step 0, 16 launches of each kernel per step, a falling loss on the
+   repeated batch, and the kernel path's losses and gradients against the
+   plain path's; times the step;
+6. kernels at the training shapes: the three kernels again, on the labels
+   the training step gave the joint (48 rows of 640) and span (384 rows of
+   16) attention.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -23,6 +34,8 @@ nonzero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -43,6 +56,29 @@ PEAK_BYTES_PER_S = 3.35e12
 # order of f32 sums; lse is compared on valid rows only
 TOL = {"bf16": {"out": 8e-3, "lse": 1e-3}, "f32": {"out": 1e-5, "lse": 1e-3}}
 MIN_COSINE = 0.995
+# backward kernels vs plain, max |err| over max |plain| of each of dq, dk,
+# dv: in bf16 p and ds enter their products as bf16 and the outputs are
+# rounded to bf16 (about 4e-3 when those roundings are emulated on the
+# CPU); f32 differs only in the order of f32 sums
+BWD_REL_TOL = {"bf16": 1e-2, "f32": 1e-4}
+# the training step, kernel path vs plain path (same weights, batch and
+# draws; both bf16): each head's loss within TRAIN_LOSS_TOL; the cosine of
+# the whole gradient (every tensor, concatenated) at least TRAIN_MIN_COSINE;
+# and per tensor at least TRAIN_MIN_TENSOR_COSINE, with two exceptions.
+# The vision tower is held as one vector to TRAIN_MIN_VISION_COSINE: at
+# random init the imgs <-> audio head sits at ln N to 1e-5, so the vision
+# gradient is a difference of nearly equal logits, which bf16 rounding of
+# the joint attention upstream turns around (measured 0.849, PR 2). The
+# attention-pool key biases (ZERO_GRAD) are not held: a bias added to every
+# key of a softmax cancels, so their gradient is zero and what the card
+# computes is rounding noise
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_MIN_COSINE = 0.99
+TRAIN_MIN_TENSOR_COSINE = 0.98
+TRAIN_MIN_VISION_COSINE = 0.7
+ZERO_GRAD = ("vision_encoder.seq_attnpool.key.bias", "audio_encoder.seq_attnpool.key.bias")
+TRAIN_STEPS = 6
+TRAIN_BATCH = 8
 
 
 def check(cond, msg):
@@ -86,7 +122,7 @@ def phase_build():
     from merlot_reserve_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(["flash_fwd"])
+    built = build.build(["flash_fwd", "flash_bwd"])
     out = {}
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines()
@@ -189,6 +225,122 @@ def phase_kernels():
                 del q, k, v, out, lse, ref_out, ref_lse, mask, qt, kt, vt
             del qkv32
             torch.cuda.empty_cache()
+    return results
+
+
+def _pair_counts(valid, seg):
+    """(attended pairs, rows that see no key) for these labels."""
+    v = valid > 0
+    pairs = ((v[:, :, None] & v[:, None, :]) & (seg[:, :, None] == seg[:, None, :])).sum()
+    return int(pairs), int((~v).sum())
+
+
+def _bound(ops, nbytes, dtype):
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _bwd_bounds(valid, seg, H, D, dtype, element_size):
+    """Bounds of dq, dk/dv and both, from the products each needs over the
+    pairs with nonzero p: the attended pairs, plus all L keys of each row
+    that sees no key (p = 1 there), except q.k, which those rows skip.
+    dq: q.k, dO.v, ds.k (3 products); dk/dv: q.k and dO.v again, p.dO,
+    ds.q (4); both as one function: 5. Bytes: q, k, v, dO read and the
+    gradients written once, plus lse, delta and the labels."""
+    B, L = valid.shape
+    pairs, blind = _pair_counts(valid, seg)
+    live = pairs + L * blind
+    unit = 2 * D * H
+    side = B * L * H * D * element_size
+    stats = 2 * B * H * L * 4 + 2 * B * L * 4
+    work = {"dq": (unit * (pairs + 2 * live), 5 * side + stats),
+            "dkv": (unit * (pairs + 3 * live), 6 * side + stats),
+            "both": (unit * (pairs + 4 * live), 7 * side + stats)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        bound_ms, bound_by = _bound(ops, nbytes, dtype)
+        out[name] = {"ops": ops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def check_bwd(case, valid, seg, H, D, generator):
+    """The two backward kernels against ``flash_attention_backward_reference``
+    on the card at one shape, in bf16 and f32 (random q, k, v and dO on
+    every row; out and lse from the forward kernel), with their times, the
+    plain version's, SDPA's backward and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    dev = valid.device
+    B, L = valid.shape
+    mask = ((valid > 0)[:, :, None] & (valid > 0)[:, None, :]
+            & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    results = []
+    qkvo32 = torch.randn((4, B, L, H, D), generator=generator, device=dev)
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q, k, v, do = qkvo32.to(dtype).unbind(0)
+        with torch.no_grad():
+            out, lse = attn_ops.flash_forward(q, k, v, valid, seg)
+            delta = torch.einsum("blhd,blhd->bhl", do.float(), out.float()).contiguous()
+            dq = attn_ops.flash_bwd_dq(q, k, v, do, lse, delta, valid, seg)
+            dk, dv = attn_ops.flash_bwd_dkv(q, k, v, do, lse, delta, valid, seg)
+            torch.cuda.synchronize()
+            ref = attn_ops.flash_attention_backward_reference(
+                q.float(), k.float(), v.float(), do.float(), out.float(), lse, valid, seg)
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                err = (a.float() - b).abs().max().item()
+                scale = b.abs().max().item()
+                errs[name] = {"max_abs_err": err, "max_abs_ref": scale, "rel": err / scale}
+                check(math.isfinite(err) and err <= BWD_REL_TOL[dname] * scale,
+                      f"bwd {case}/{dname} {name} max abs {err} > {BWD_REL_TOL[dname]} x {scale}")
+            del ref
+            ms_dq = cuda_time_ms(lambda: attn_ops.flash_bwd_dq(q, k, v, do, lse, delta, valid, seg))
+            ms_dkv = cuda_time_ms(
+                lambda: attn_ops.flash_bwd_dkv(q, k, v, do, lse, delta, valid, seg))
+            plain_ms = cuda_time_ms(lambda: attn_ops.flash_attention_backward_reference(
+                q, k, v, do, out, lse, valid, seg), iters=3, warmup=1)
+        # the library yardstick: SDPA's backward (dq, dk, dv in one call) on
+        # a saved forward with the same boolean mask; the port never calls it
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        do_t = do.transpose(1, 2)
+        sdpa_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True))
+        bounds = _bwd_bounds(valid, seg, H, D, dname, q.element_size())
+        r = {"case": case, "dtype": dname, "B": B, "L": L, "H": H, "D": D, "errors": errs,
+             "dq_ms": ms_dq, "dkv_ms": ms_dkv, "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+             "bounds": bounds}
+        results.append(r)
+        print(f"[kernel] flash_bwd {case:8s} {dname} B={B} L={L}: max abs err (rel) dq "
+              f"{errs['dq']['max_abs_err']:.3e} ({errs['dq']['rel']:.2e}) dk "
+              f"{errs['dk']['max_abs_err']:.3e} ({errs['dk']['rel']:.2e}) dv "
+              f"{errs['dv']['max_abs_err']:.3e} ({errs['dv']['rel']:.2e}) | "
+              f"dq {ms_dq * 1e3:.1f} us (bound {bounds['dq']['bound_ms'] * 1e3:.1f} by "
+              f"{bounds['dq']['bound_by']}), dkv {ms_dkv * 1e3:.1f} us (bound "
+              f"{bounds['dkv']['bound_ms'] * 1e3:.1f} by {bounds['dkv']['bound_by']}); "
+              f"plain {plain_ms * 1e3:.1f} us, sdpa bwd {sdpa_bwd_ms * 1e3:.1f} us "
+              f"vs dq+dkv {(ms_dq + ms_dkv) * 1e3:.1f} us", flush=True)
+        del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, o, do_t
+    del qkvo32, mask
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_bwd_kernels():
+    import torch
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    results = []
+    for case, B, L in (("serving", 8, 640), ("packed", 8, 640), ("ragged", 8, 600),
+                       ("long", 2, 2560)):
+        valid, seg = _labels(case, B, L, dev)
+        results += check_bwd(case, valid, seg, 12, 64, g)
     return results
 
 
@@ -311,6 +463,217 @@ def phase_slice(card):
     return res
 
 
+def _capture_labels(model, batch):
+    """The (is_valid, segment_ids) each flash attention call of one no-grad
+    forward of ``model`` on ``batch`` gets, by sequence length: the joint
+    tower's (L 640) and the span tower's (L 16)."""
+    import torch
+
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    seen = {}
+    original = attn_ops.flash_attention
+
+    def record(q, k, v, is_valid, segment_ids):
+        seen.setdefault(q.shape[1], (is_valid.to(torch.int32), segment_ids.to(torch.int32)))
+        return original(q, k, v, is_valid, segment_ids)
+
+    with torch.no_grad(), mock.patch.object(attn_ops, "flash_attention", record):
+        model(batch)
+    return seen
+
+
+def _plain_flash():
+    """Patches that send the flash forward and backward to their plain
+    versions (on the same card), for the plain path of a comparison."""
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    return (mock.patch.object(attn_ops, "flash_forward", attn_ops.flash_attention_reference),
+            mock.patch.object(attn_ops, "flash_backward",
+                              attn_ops.flash_attention_backward_reference))
+
+
+def _expected_init_losses(cfg, batch_size):
+    """ln N per head at init: each side's number of candidates."""
+    d = cfg.data
+    audio_spans = d.num_segments * d.num_audio_subsegments
+    targets = int(audio_spans * d.mask_rate) * d.num_text2audio_seqs
+    return {"imgs_to_audio": math.log(batch_size * d.num_segments),
+            "text_to_audio": (math.log(batch_size * audio_spans)
+                              + math.log(batch_size * targets)) / 2,
+            "stuff_to_span": math.log(batch_size * d.num_text_spans_to_include)}
+
+
+def phase_train(card):
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import loss_and_grads, train_step
+
+    cfg = load_config("base", joint_attention_impl="flash")
+    # warmup 1: the first update has lr scale 0, every later one the full
+    # lr. lr 1e-5 keeps Adam's first updates (about lr * sign(grad) on
+    # every weight) in the first-order regime, so the loss on one repeated
+    # batch falls within a few steps
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+    batch = make_dummy_batch(cfg, TRAIN_BATCH, seed=0)
+    m, d = cfg.model, cfg.data
+    print(f"[train] base pretrainer, hidden {m.hidden_size}, {m.joint_num_layers}/"
+          f"{m.vit_num_layers}/{m.audio_num_layers}/{m.span_num_layers} joint/vision/audio/span "
+          f"layers; batch {TRAIN_BATCH}, {d.num_segments} segments of {m.output_grid[0]}x"
+          f"{m.output_grid[1]} patches, seq_len {d.seq_len}, lang_seq_len {d.lang_seq_len}, "
+          f"{d.num_text_spans_to_include} spans drawn per example", flush=True)
+
+    logged, stamps = [], []
+
+    def log_fn(step, metrics):
+        stamps.append(time.perf_counter())  # metrics are floats: the step has ended
+        logged.append(metrics)
+
+    # the training path, counted: every launch between the reset and the read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state = run_pretraining(cfg, itertools.repeat(batch), num_steps=TRAIN_STEPS, log_fn=log_fn,
+                            device="cuda", seed=0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    totals = [m_["total"] for m_ in logged]
+    print(f"[train] {TRAIN_STEPS} steps, kernel launches {launches}; total loss per step "
+          f"{[round(t, 5) for t in totals]}", flush=True)
+    per_step = m.joint_num_layers + m.span_num_layers  # every joint and span layer
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches.get(name, 0) == per_step * TRAIN_STEPS,
+              f"{name} launches {launches.get(name, 0)} != {per_step} x {TRAIN_STEPS} steps")
+    check(all(math.isfinite(v) for m_ in logged for v in m_.values()), "non-finite loss")
+    # an untrained model scores every candidate about equally
+    expected = _expected_init_losses(cfg, TRAIN_BATCH)
+    for head, ln_n in expected.items():
+        check(abs(logged[0][head] - ln_n) < 0.05,
+              f"step-0 {head} loss {logged[0][head]} is not near ln N = {ln_n}")
+    check(abs(totals[1] - totals[0]) <= 1e-4, "the first update (lr scale 0) changed the loss")
+    check(totals[-1] < totals[1], f"loss did not fall on the repeated batch: {totals}")
+
+    # kernel path vs plain path: the same weights, batch and draws
+    dev_batch = batch_to_tensors(batch, "cuda")
+    labels = _capture_labels(state.model, dev_batch)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    spg, rows = d.num_segments_per_group, TRAIN_BATCH * d.num_segment_groups
+    split_at = [state.model.draw_split_at(rows, spg, g) for _ in range(2)]
+    u = torch.rand((TRAIN_BATCH, batch["text_spans"].shape[1]), generator=g, device="cuda")
+    gumbel = -torch.log(-torch.log(u))
+    info_k, grads_k = loss_and_grads(state.model, dev_batch, split_at=split_at, gumbel=gumbel)
+    fwd_patch, bwd_patch = _plain_flash()
+    before = dict(kernels.LAUNCHES)
+    with fwd_patch, bwd_patch:
+        info_p, grads_p = loss_and_grads(state.model, dev_batch, split_at=split_at, gumbel=gumbel)
+    check(dict(kernels.LAUNCHES) == before, "the plain path launched a kernel")
+    loss_diff = {k: abs(float(info_k[k]) - float(info_p[k])) for k in info_k}
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+    cosines = {name: cosine(a, grads_p[name]) for name, a in grads_k.items()}
+    norms = {name: float(b.norm()) for name, b in grads_p.items()}
+    towers = {}
+    for tower in sorted({n.split(".")[0] for n in grads_k}):
+        names = [n for n in grads_k if n.split(".")[0] == tower]
+        towers[tower] = cosine(torch.cat([grads_k[n].flatten() for n in names]),
+                               torch.cat([grads_p[n].flatten() for n in names]))
+    whole = cosine(torch.cat([g_.flatten() for g_ in grads_k.values()]),
+                   torch.cat([grads_p[n].flatten() for n in grads_k]))
+    worst = sorted(cosines.items(), key=lambda kv: kv[1])[:8]
+    print(f"[train] kernel vs plain path: loss diffs "
+          f"{ {k: f'{v:.2e}' for k, v in loss_diff.items() if not k.startswith('_')} }; "
+          f"whole-gradient cosine {whole:.6f}; per tower "
+          f"{ {k: round(v, 6) for k, v in towers.items()} }; lowest per tensor "
+          f"{[(n, round(c, 4), f'{norms[n]:.1e}') for n, c in worst]}", flush=True)
+    for k in ("imgs_to_audio", "text_to_audio", "stuff_to_span", "total"):
+        check(loss_diff[k] <= TRAIN_LOSS_TOL,
+              f"{k} kernel vs plain {loss_diff[k]} > {TRAIN_LOSS_TOL}")
+    check(whole >= TRAIN_MIN_COSINE, f"whole-gradient cosine {whole} below {TRAIN_MIN_COSINE}")
+    check(towers["vision_encoder"] >= TRAIN_MIN_VISION_COSINE,
+          f"vision tower gradient cosine {towers['vision_encoder']} below "
+          f"{TRAIN_MIN_VISION_COSINE}")
+    held = {n: c for n, c in cosines.items()
+            if not n.startswith("vision_encoder.") and n not in ZERO_GRAD}
+    low = min(held.items(), key=lambda kv: kv[1])
+    check(low[1] >= TRAIN_MIN_TENSOR_COSINE,
+          f"gradient cosine of {low[0]} {low[1]} below {TRAIN_MIN_TENSOR_COSINE}")
+    del grads_k, grads_p
+
+    # the step on the device clock, on a batch already on the card
+    device_ms = cuda_time_ms(lambda: train_step(state, dev_batch), iters=3, warmup=1)
+    host_med = float(np.median(step_ms[2:]))
+    res = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "launches": launches,
+           "losses": logged, "expected_init_losses": expected,
+           "step_ms_host": step_ms, "step_ms_host_median": host_med,
+           "step_ms_device": device_ms, "examples_per_s": TRAIN_BATCH / host_med * 1e3,
+           "device_examples_per_s": TRAIN_BATCH / device_ms * 1e3,
+           "max_memory_allocated_bytes": peak_mem,
+           "kernel_vs_plain": {"loss_diff": loss_diff, "grad_cosine_whole": whole,
+                               "grad_cosine_min_held": low,
+                               "grad_cosine_by_tower": towers, "grad_cosine": cosines,
+                               "grad_norm_plain": norms},
+           "labels": {L: (v.shape[0], int((v > 0).sum()), int(s_.max()))
+                      for L, (v, s_) in labels.items()}}
+    print(f"[train] {card}: {host_med:.1f} ms per step on the host clock (median of steps "
+          f"3-{TRAIN_STEPS}), {device_ms:.1f} ms on the device clock; "
+          f"{res['examples_per_s']:.2f} examples/s; peak memory {peak_mem / 2**30:.2f} GiB",
+          flush=True)
+    del state, dev_batch
+    torch.cuda.empty_cache()
+    return res, labels
+
+
+def phase_train_kernels(labels):
+    """The three kernels at the training step's shapes, on its labels."""
+    import torch
+
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, D = 12, 64
+    fwd, bwd = [], []
+    for case, L in (("train_joint", 640), ("train_span", 16)):
+        valid, seg = labels[L]
+        B = valid.shape[0]
+        with torch.inference_mode():
+            q, k, v = torch.randn((3, B, L, H, D), generator=g, device=dev).to(
+                torch.bfloat16).unbind(0)
+            out, lse = attn_ops.flash_forward(q, k, v, valid, seg)
+            ref_out, _ = attn_ops.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                            valid, seg)
+            err = (out.float() - ref_out).abs().max().item()
+            # relative to the largest output: a span row averages 1 to 16
+            # keys, so its outputs reach several units, not a fraction of one
+            scale = max(1.0, ref_out.abs().max().item())
+            check(err <= TOL["bf16"]["out"] * scale, f"{case} fwd out max abs {err} > "
+                  f"{TOL['bf16']['out']} x {scale}")
+            ms = cuda_time_ms(lambda: attn_ops.flash_forward(q, k, v, valid, seg))
+            ops = _needed_work(valid, seg, H, D)
+            nbytes = 4 * B * L * H * D * 2 + 2 * B * L * 4 + B * H * L * 4
+            bound_ms, bound_by = _bound(ops, nbytes, "bf16")
+            fwd.append({"case": case, "dtype": "bf16", "B": B, "L": L, "max_abs_err_out": err,
+                        "max_abs_out": scale, "ms": ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+            print(f"[kernel] flash_fwd {case} bf16 B={B} L={L}: out err {err:.3e} (max |out| "
+                  f"{scale:.2f}) | "
+                  f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by {bound_by})", flush=True)
+            del q, k, v, out, lse, ref_out
+        bwd += check_bwd(case, valid, seg, H, D, g)
+    return fwd, bwd
+
+
 def main():
     import torch
 
@@ -329,20 +692,47 @@ def main():
     dev = phase_device()
     build = phase_build()
     kern = phase_kernels()
+    bwd = phase_bwd_kernels()
     sl = phase_slice(dev["nvidia_smi"])
+    train, labels = phase_train(dev["nvidia_smi"])
+    train_fwd, train_bwd = phase_train_kernels(labels)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
-    kernels_line = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "merlot_reserve_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "merlot_reserve_tpu/ops/attention.py:115",
-        "launches": sl["launches"].get("flash_fwd", 0),
-        "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": main_case["sdpa_ms"]}]}
+    joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
+    launches_by_path = {name: {"serving": sl["launches"].get(name, 0),
+                               "train": train["launches"].get(name, 0)}
+                        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def bwd_entry(name, kernel, errors):
+        return {"name": name, "route": "cuda",
+                "source": "merlot_reserve_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": f"merlot_reserve_tpu/ops/attention.py:{kernel}",
+                "launches": sum(launches_by_path[name].values()),
+                "launches_by_path": launches_by_path[name],
+                "case": "train_joint bf16",
+                "max_abs_err": max(joint["errors"][e]["max_abs_err"] for e in errors),
+                "ms": joint[f"{name.removeprefix('flash_bwd_')}_ms"],
+                "plain_ms": joint["plain_ms"],
+                "bound_ms": joint["bounds"][name.removeprefix("flash_bwd_")]["bound_ms"],
+                "bound_by": joint["bounds"][name.removeprefix("flash_bwd_")]["bound_by"],
+                "library_ms": joint["sdpa_bwd_ms"]}
+
+    kernels_line = {"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "merlot_reserve_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "merlot_reserve_tpu/ops/attention.py:115",
+         "launches": sum(launches_by_path["flash_fwd"].values()),
+         "launches_by_path": launches_by_path["flash_fwd"], "case": "serving bf16",
+         "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["ms"],
+         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+         "bound_by": main_case["bound_by"], "library_ms": main_case["sdpa_ms"]},
+        bwd_entry("flash_bwd_dq", 281, ("dq",)),
+        bwd_entry("flash_bwd_dkv", 320, ("dk", "dv")),
+    ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    record = {"device": dev, "build": build, "kernels": kern, "slice": sl,
+    record = {"device": dev, "build": build, "kernels": kern, "bwd_kernels": bwd, "slice": sl,
+              "train": train, "train_fwd_kernels": train_fwd, "train_bwd_kernels": train_bwd,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

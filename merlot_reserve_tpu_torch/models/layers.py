@@ -51,9 +51,11 @@ def linear(x, layer: nn.Linear, dtype):
 
 
 def layer_norm(x, layer: nn.LayerNorm, dtype):
-    """LayerNorm with f32 statistics, result in ``dtype``."""
-    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias,
-                        layer.eps).to(dtype)
+    """LayerNorm computed in f32, result in ``dtype``. Like flax, it takes
+    the scale and bias at the precision they are held in (bf16 under a bf16
+    training step) and applies them in f32."""
+    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight.float(),
+                        layer.bias.float(), layer.eps).to(dtype)
 
 
 def my_gelu(x):

@@ -9,10 +9,11 @@ passes those labels to a kernel that rebuilds the mask per tile; the dense
 path broadcasts them into an additive [B, 1, L, L] bias of 0 / -1e10.
 
 ``attention(...)`` is the single entry point; ``impl`` picks:
-  * 'flash': the label-masked flash forward. On a CUDA tensor it launches
-    the hand-written kernel ``csrc/flash_fwd.cu``; on a CPU tensor it runs
-    ``flash_attention_reference``, the kernel's plain PyTorch version.
-    Forward only: there is no backward kernel yet.
+  * 'flash': label-masked flash attention. On a CUDA tensor the forward
+    launches the hand-written kernel ``csrc/flash_fwd.cu`` and the backward
+    the two kernels of ``csrc/flash_bwd.cu`` (dq; dk and dv); on a CPU
+    tensor they run their plain PyTorch versions,
+    ``flash_attention_reference`` and ``flash_attention_backward_reference``.
   * 'xla': dense attention (the JAX package's name for it is kept so that
     one config string means the same thing in both packages).
   * 'auto': flash for label-masked attention on a CUDA tensor, else dense.
@@ -63,8 +64,18 @@ def xla_attention(q, k, v, bias=None):
 
 
 # ---------------------------------------------------------------------------
-# flash forward: plain version and kernel wrapper
+# flash attention: plain versions, kernel wrappers, autograd
 # ---------------------------------------------------------------------------
+
+
+def _masked_scores(q, k, is_valid, segment_ids):
+    """f32 scores (q . k) / sqrt(d) [B, heads, L, L], -1e10 where masked."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    valid = is_valid > 0
+    mask = ((valid[:, :, None] & valid[:, None, :])
+            & (segment_ids[:, :, None] == segment_ids[:, None, :]))
+    return torch.where(mask[:, None], s, NEG_INF)
 
 
 def flash_attention_reference(q, k, v, is_valid, segment_ids):
@@ -78,17 +89,35 @@ def flash_attention_reference(q, k, v, is_valid, segment_ids):
     Computes in f32. Masked scores are -1e10, so a row that sees no key
     (a padding row) is the mean of V over all L keys, with lse = -1e10 + log L.
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    valid = is_valid > 0
-    mask = ((valid[:, :, None] & valid[:, None, :])
-            & (segment_ids[:, :, None] == segment_ids[:, None, :]))
-    s = torch.where(mask[:, None], s, NEG_INF)
+    s = _masked_scores(q, k, is_valid, segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.transpose(1, 2)[..., None]
     return out.to(q.dtype), m[..., 0] + torch.log(l)
+
+
+def flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids):
+    """Plain PyTorch version of the two flash backward kernels.
+
+    :param do: [B, L, heads, d], the gradient of ``out``
+    :param out, lse: the forward's outputs (``flash_attention_reference``)
+    :return: (dq, dk, dv) [B, L, heads, d] in the dtypes of q, k, v
+
+    Computes in f32 what the kernels compute: p is recomputed as
+    exp(s - lse) from the saved lse, so a row that saw no key (lse = -1e10
+    in f32) gets p = 1 for every key, as in the JAX package's kernels.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    do = do.float()
+    delta = torch.einsum("blhd,blhd->bhl", do, out.float())
+    p = torch.exp(_masked_scores(q, k, is_valid, segment_ids) - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashParams(ctypes.Structure):
@@ -105,72 +134,160 @@ class _FlashParams(ctypes.Structure):
     ]
 
 
-@functools.lru_cache(maxsize=None)
-def _flash_lib() -> ctypes.CDLL:
-    lib = build.load("flash_fwd")
-    lib.flash_fwd_params_size.argtypes = []
-    lib.flash_fwd_params_size.restype = ctypes.c_size_t
-    if lib.flash_fwd_params_size() != ctypes.sizeof(_FlashParams):
-        raise RuntimeError("csrc/flash_fwd.cu FlashParams does not match _FlashParams")
-    for fn in (lib.flash_fwd_bf16, lib.flash_fwd_f32):
+class _FlashBwdParams(ctypes.Structure):
+    """Field for field the ``FlashBwdParams`` struct of csrc/flash_bwd.cu."""
+
+    _fields_ = [
+        ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
+        ("dout", ctypes.c_void_p), ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p),
+        ("is_valid", ctypes.c_void_p), ("segment_ids", ctypes.c_void_p),
+        ("dq", ctypes.c_void_p), ("dk", ctypes.c_void_p), ("dv", ctypes.c_void_p),
+        ("q_strides", ctypes.c_int64 * 3), ("k_strides", ctypes.c_int64 * 3),
+        ("v_strides", ctypes.c_int64 * 3), ("do_strides", ctypes.c_int64 * 3),
+        ("batch", ctypes.c_int32), ("seq_len", ctypes.c_int32),
+        ("heads", ctypes.c_int32), ("scale", ctypes.c_float),
+    ]
+
+
+def _load_lib(name, params, launchers) -> ctypes.CDLL:
+    lib = build.load(name)
+    size = getattr(lib, f"{name}_params_size")
+    size.argtypes = []
+    size.restype = ctypes.c_size_t
+    if size() != ctypes.sizeof(params):
+        raise RuntimeError(f"csrc/{name}.cu's params struct does not match {params.__name__}")
+    for launcher in launchers:
+        fn = getattr(lib, launcher)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _flash_forward_cuda(q, k, v, is_valid, segment_ids):
-    """Launch csrc/flash_fwd.cu on PyTorch's current stream."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash: q, k, v must share one [B, L, H, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+@functools.lru_cache(maxsize=None)
+def _flash_lib() -> ctypes.CDLL:
+    return _load_lib("flash_fwd", _FlashParams, ("flash_fwd_bf16", "flash_fwd_f32"))
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_lib() -> ctypes.CDLL:
+    return _load_lib("flash_bwd", _FlashBwdParams,
+                     ("flash_bwd_dq_bf16", "flash_bwd_dq_f32",
+                      "flash_bwd_dkv_bf16", "flash_bwd_dkv_f32"))
+
+
+def _check_operands(named, is_valid, segment_ids):
+    """Raise on what the kernels do not take; returns the int32 labels on
+    the operands' device. ``named``: (name, [B, L, H, D] tensor) pairs."""
+    (_, q), *_ = named
+    if q.dim() != 4 or any(x.shape != q.shape for _, x in named):
+        raise ValueError("flash: " + ", ".join(n for n, _ in named) + " must share one "
+                         f"[B, L, H, D] shape, got {[tuple(x.shape) for _, x in named]}")
     B, L, H, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"flash: the kernel is built for head dim {HEAD_DIM}, got {D}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash: q, k, v must all be bf16 or all f32, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("flash: q, k, v must be on one device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(x.dtype != q.dtype for _, x in named):
+        raise ValueError("flash: " + ", ".join(n for n, _ in named) + " must all be bf16 or "
+                         f"all f32, got {[x.dtype for _, x in named]}")
+    if any(x.device != q.device for _, x in named):
+        raise ValueError("flash: the operands must be on one device")
     if B > 65535 or H > 65535:
         raise ValueError(f"flash: batch and heads must be <= 65535, got {B}, {H}")
     # 16-byte vector loads: aligned base, unit head-dim stride, and every
     # other stride a whole number of 16-byte chunks
     chunk = 16 // q.element_size()
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named:
         if x.stride(3) != 1 or x.data_ptr() % 16 or any(s % chunk for s in x.stride()[:3]):
             raise ValueError(f"flash: {name} needs a unit last stride, a 16-byte aligned "
                              f"base and strides in multiples of {chunk}, got {x.stride()}")
     if tuple(is_valid.shape) != (B, L) or tuple(segment_ids.shape) != (B, L):
         raise ValueError(f"flash: labels must be [B, L] = {(B, L)}")
-    is_valid = is_valid.to(device=q.device, dtype=torch.int32).contiguous()
-    segment_ids = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    return (is_valid.to(device=q.device, dtype=torch.int32).contiguous(),
+            segment_ids.to(device=q.device, dtype=torch.int32).contiguous())
 
+
+def _strides(x):
+    return (ctypes.c_int64 * 3)(*x.stride()[:3])
+
+
+def _launch(launcher, params, device, name):
+    with torch.cuda.device(device):
+        err = launcher(ctypes.byref(params), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+    kernels.LAUNCHES[name] += 1
+
+
+def _flash_forward_cuda(q, k, v, is_valid, segment_ids):
+    """Launch csrc/flash_fwd.cu on PyTorch's current stream."""
+    is_valid, segment_ids = _check_operands((("q", q), ("k", k), ("v", v)), is_valid,
+                                            segment_ids)
+    B, L, H, D = q.shape
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     params = _FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), is_valid.data_ptr(),
         segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        (ctypes.c_int64 * 3)(*q.stride()[:3]), (ctypes.c_int64 * 3)(*k.stride()[:3]),
-        (ctypes.c_int64 * 3)(*v.stride()[:3]), B, L, H, 1.0 / math.sqrt(D))
+        _strides(q), _strides(k), _strides(v), B, L, H, 1.0 / math.sqrt(D))
     lib = _flash_lib()
-    launch = lib.flash_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_fwd_f32
-    with torch.cuda.device(q.device):
-        err = launch(ctypes.byref(params), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with cudaError_t {err}")
-    kernels.LAUNCHES["flash_fwd"] += 1
+    _launch(lib.flash_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_fwd_f32,
+            params, q.device, "flash_fwd")
     return out, lse
+
+
+def _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dq=None, dk=None, dv=None):
+    """Checked ``_FlashBwdParams`` for one backward launch."""
+    is_valid, segment_ids = _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)),
+                                            is_valid, segment_ids)
+    B, L, H, D = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (B, H, L) or not x.is_contiguous():
+            raise ValueError(f"flash: {name} must be contiguous f32 [B, H, L] = {(B, H, L)}")
+    ptr = [0 if x is None else x.data_ptr() for x in (dq, dk, dv)]
+    params = _FlashBwdParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), is_valid.data_ptr(), segment_ids.data_ptr(), *ptr,
+        _strides(q), _strides(k), _strides(v), _strides(do), B, L, H, 1.0 / math.sqrt(D))
+    return params, (is_valid, segment_ids)  # the labels stay alive through the launch
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, is_valid, segment_ids):
+    """Launch csrc/flash_bwd.cu's dq kernel: dq [B, L, H, D] in q's dtype.
+
+    :param lse, delta: contiguous f32 [B, H, L]; delta = rowsum(dO * out)
+    """
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    params, _keep = _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dq=dq)
+    lib = _flash_bwd_lib()
+    _launch(lib.flash_bwd_dq_bf16 if q.dtype == torch.bfloat16 else lib.flash_bwd_dq_f32,
+            params, q.device, "flash_bwd_dq")
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, is_valid, segment_ids):
+    """Launch csrc/flash_bwd.cu's dk/dv kernel: (dk, dv) [B, L, H, D]."""
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    params, _keep = _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dk=dk, dv=dv)
+    lib = _flash_bwd_lib()
+    _launch(lib.flash_bwd_dkv_bf16 if q.dtype == torch.bfloat16 else lib.flash_bwd_dkv_f32,
+            params, q.device, "flash_bwd_dkv")
+    return dk, dv
+
+
+def _records_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def flash_forward(q, k, v, is_valid, segment_ids):
     """Label-masked flash forward -> (out [B, L, heads, d], lse [B, heads, L]).
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version. Forward only: raises when an input requires grad.
+    The grad-free launcher: a CUDA tensor launches the kernel (or raises); a
+    CPU tensor runs the plain version. Raises when it would have to record a
+    gradient: ``flash_attention`` is the differentiable entry.
     """
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash attention has no backward kernel yet: run under "
-                           "torch.inference_mode() / torch.no_grad(), or use impl='xla'")
+    if _records_grad(q, k, v):
+        raise RuntimeError("flash_forward is the grad-free launcher and records no "
+                           "gradient: call flash_attention for a differentiable one")
     if q.device.type == "cuda":
         return _flash_forward_cuda(q, k, v, is_valid, segment_ids)
     if q.device.type == "cpu":
@@ -178,8 +295,52 @@ def flash_forward(q, k, v, is_valid, segment_ids):
     raise ValueError(f"flash: no path for device {q.device}")
 
 
+def flash_backward(q, k, v, do, out, lse, is_valid, segment_ids):
+    """Flash backward -> (dq, dk, dv) [B, L, heads, d].
+
+    delta = rowsum(dO * out) is one plain op before the kernels, as in the
+    JAX package. A CUDA tensor then launches the dq and the dk/dv kernels
+    (or raises); a CPU tensor runs ``flash_attention_backward_reference``.
+    """
+    if q.device.type == "cuda":
+        do = do.contiguous()
+        delta = torch.einsum("blhd,blhd->bhl", do.float(), out.float()).contiguous()
+        lse = lse.float().contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, is_valid, segment_ids)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_valid, segment_ids)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids)
+    raise ValueError(f"flash: no path for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The ``flash_attention`` custom_vjp of the JAX package: the forward
+    saves (q, k, v, out, lse, labels); the backward recomputes the
+    probabilities tile by tile from lse (``flash_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_valid, segment_ids):
+        out, lse = flash_forward(q.detach(), k.detach(), v.detach(), is_valid, segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, is_valid, segment_ids)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, is_valid, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, dout, out, lse, is_valid, segment_ids)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, is_valid, segment_ids):
-    """``flash_forward`` without the lse: [B, L, heads, d] in q.dtype."""
+    """Label-masked flash attention: [B, L, heads, d] in q.dtype.
+
+    Differentiable through ``FlashAttention`` when an input requires grad;
+    otherwise (serving) one forward launch and nothing saved.
+    """
+    if _records_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, is_valid, segment_ids)
     return flash_forward(q, k, v, is_valid, segment_ids)[0]
 
 

@@ -135,6 +135,30 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], size_per_head: int = 64) -
     return tree
 
 
+def flax_leaf_shapes(sd: Dict[str, torch.Tensor], size_per_head: int = 64,
+                     scan_layers: bool = True) -> Dict[str, Tuple[int, ...]]:
+    """The shape of the flax leaf that each state_dict entry maps to. With
+    ``scan_layers`` (the JAX package's default layout) a per-layer entry's
+    leaf carries the stacked [num_layers] axis in front."""
+    num_layers: Dict[Tuple[str, ...], int] = {}
+    for key in sd:
+        *modules, _ = key.split(".")
+        if "layers" in modules:
+            i = modules.index("layers")
+            stack = tuple(modules[:i])
+            num_layers[stack] = max(num_layers.get(stack, 0), int(modules[i + 1]) + 1)
+    shapes = {}
+    for key, tensor in sd.items():
+        *modules, name = key.split(".")
+        _, leaf = _flax_leaf(modules, name, np.empty(tuple(tensor.shape), np.bool_),
+                             size_per_head)
+        shape = leaf.shape
+        if scan_layers and "layers" in modules:
+            shape = (num_layers[tuple(modules[:modules.index("layers")])],) + shape
+        shapes[key] = shape
+    return shapes
+
+
 def load_flax_params(model: torch.nn.Module, params) -> None:
     """Copy a flax tree into ``model``. Raises on a missing, unused or
     mis-shaped parameter."""

@@ -143,6 +143,8 @@ def test_flash_rejects_cross_attention_lengths():
 
 
 def test_flash_refuses_gradients():
+    """The raw launcher records no gradient: a grad-enabled call raises there
+    (flash_attention is the differentiable entry, test_torch_attention_bwd.py)."""
     q, k, v, valid, seg = _t(*_case("padding"))
-    with pytest.raises(RuntimeError, match="no backward"):
-        tattn.flash_attention(q.requires_grad_(), k, v, valid, seg)
+    with pytest.raises(RuntimeError, match="grad-free launcher"):
+        tattn.flash_forward(q.requires_grad_(), k, v, valid, seg)

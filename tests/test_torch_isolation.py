@@ -16,7 +16,9 @@ import torch
 
 from merlot_reserve_tpu_torch import load_config
 from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
+from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
 from merlot_reserve_tpu_torch.serving import VideoEmbedService
+from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "merlot_reserve_tpu_torch"
@@ -66,6 +68,10 @@ def test_entry_points_refuse_a_missing_card():
         VideoEmbedService(MerlotReserve(cfg, device="cpu"))
     with pytest.raises(RuntimeError, match="cuda"):
         PretrainedMerlotReserve.from_params("base", {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        MerlotReservePretrainer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pretraining(cfg, iter([]), num_steps=1)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -1,30 +1,42 @@
-"""The port's CUDA kernel against its plain PyTorch version, and the wrapper
-and build around it. No JAX here: the card-only tests (marked ``cuda``) run
-on the machine with the card, which has no JAX, with
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+wrappers and build around them. No JAX here: the card-only tests (marked
+``cuda``) run on the machine with the card, which has no JAX, with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Without a card they skip. Tolerances on the card: out within 8e-3 in bf16
-(probabilities enter the second product as bf16, out is rounded to bf16)
-and 1e-5 in f32; lse within 1e-3 on valid rows."""
+Without a card they skip. Tolerances on the card:
+  * forward: out within 8e-3 in bf16 (probabilities enter the second
+    product as bf16, out is rounded to bf16) and 1e-5 in f32; lse within
+    1e-3 on valid rows;
+  * backward: max |err| of dq, dk, dv within 1e-2 of the reference's max
+    |value| in bf16 (p and ds enter their products as bf16 and the outputs
+    are rounded to bf16: about 4e-3 when those roundings are emulated on
+    the CPU) and within 1e-4 of it in f32 (another summation order).
+    dO is random on every row, so rows that see no key (p = 1 for every
+    key) dominate the largest values."""
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from merlot_reserve_tpu_torch import kernels, load_config
+from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
 from merlot_reserve_tpu_torch.kernels import build
-from merlot_reserve_tpu_torch.models import MerlotReserve
+from merlot_reserve_tpu_torch.models import MerlotReserve, MerlotReservePretrainer
+from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
 from merlot_reserve_tpu_torch.ops import attention as tattn
+from merlot_reserve_tpu_torch.training.trainer import create_train_state, train_step
 
 TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
 def _case(name, device, seed=0):
     rng = np.random.RandomState(seed)
-    B, H, L = 2, 3, {"padding": 48, "packed": 130, "ragged": 200, "short": 5}[name]
+    B, H, L = 2, 3, {"padding": 48, "packed": 130, "ragged": 200, "short": 5, "span": 16}[name]
     qkv = rng.randn(3, B, L, H, 64).astype(np.float32)
     valid = np.ones((B, L), np.int32)
     seg = np.zeros((B, L), np.int32)
@@ -37,6 +49,9 @@ def _case(name, device, seed=0):
     elif name == "ragged":
         valid = (rng.rand(B, L) > 0.15).astype(np.int32)
         seg[:, 120:] = 1
+    elif name == "span":  # CLS + a 15-token span padded after its length
+        valid[0, 9:] = 0
+        valid[1, 2:] = 0
     t = [torch.from_numpy(x).to(device) for x in (*qkv, valid, seg)]
     return t
 
@@ -56,6 +71,14 @@ def test_params_struct_matches_the_c_layout():
     assert P.q_strides.offset == 56 and P.batch.offset == 128 and P.scale.offset == 140
 
 
+def test_bwd_params_struct_matches_the_c_layout():
+    # FlashBwdParams in csrc/flash_bwd.cu: 11 pointers, 4 x int64[3], 3 x int32, float
+    P = tattn._FlashBwdParams
+    assert ctypes.sizeof(P) == 11 * 8 + 12 * 8 + 3 * 4 + 4
+    assert P.q_strides.offset == 88 and P.do_strides.offset == 160
+    assert P.batch.offset == 184 and P.scale.offset == 196
+
+
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -68,6 +91,11 @@ def test_build_target_is_keyed_by_source_and_flags():
     a = build._target("flash_fwd")
     assert a.parent == build.BUILD_DIR and a.name.startswith("libflash_fwd-") and a.suffix == ".so"
     assert build._target("flash_fwd") == a
+
+
+def test_each_source_has_its_own_build_target():
+    fwd, bwd = build._target("flash_fwd"), build._target("flash_bwd")
+    assert bwd.name.startswith("libflash_bwd-") and bwd.parent == fwd.parent and bwd != fwd
 
 
 @pytest.mark.cuda
@@ -114,8 +142,78 @@ def test_flash_kernel_wrapper_rejects_bad_inputs(cuda_device):
             tattn.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, valid, seg)
         with pytest.raises(ValueError, match="labels"):
             tattn.flash_forward(q, k, v, valid[:, :10], seg)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="grad-free launcher"):
         tattn.flash_forward(q.requires_grad_(), k, v, valid, seg)
+
+
+def _bwd_inputs(name, device, dtype):
+    """q, k, v, dO (random on every row), the kernel forward's out and lse,
+    and the labels, for one case."""
+    q, k, v, valid, seg = _case(name, device)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    do = torch.from_numpy(np.random.RandomState(7).randn(*q.shape).astype(np.float32))
+    do = do.to(device=device, dtype=dtype)
+    with torch.no_grad():
+        out, lse = tattn.flash_forward(q, k, v, valid, seg)
+    return q, k, v, do, out, lse, valid, seg
+
+
+def _assert_grads_close(got, ref, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_REL_TOL[dtype] * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["padding", "packed", "ragged", "short", "span"])
+def test_flash_bwd_kernels_match_reference_on_card(cuda_device, name, dtype):
+    q, k, v, do, out, lse, valid, seg = _bwd_inputs(name, cuda_device, dtype)
+    before = dict(kernels.LAUNCHES)
+    got = tattn.flash_backward(q, k, v, do, out, lse, valid, seg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 1
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before.get("flash_bwd_dkv", 0) + 1
+    ref = tattn.flash_attention_backward_reference(q.float(), k.float(), v.float(), do.float(),
+                                                   out.float(), lse, valid, seg)
+    _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_read_strided_views(cuda_device):
+    """q, k, v as the model hands them over (views into one QKV projection),
+    and a dO view: the same gradients as from contiguous copies."""
+    q, k, v, do, out, lse, valid, seg = _bwd_inputs("packed", cuda_device, torch.bfloat16)
+    H = q.shape[2]
+    qkv = torch.cat([q, k, v], dim=2)
+    views = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    do_view = torch.cat([do, do], dim=2)[:, :, H:]
+    got = tattn.flash_backward(*views, do_view, out, lse, valid, seg)
+    ref = tattn.flash_backward(*(x.contiguous() for x in views), do, out, lse, valid, seg)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_grad_launches_the_backward_kernels(cuda_device):
+    """A grad-enabled call goes through FlashAttention: one forward launch,
+    then one launch of each backward kernel, with the plain version's grads."""
+    q, k, v, valid, seg = _case("ragged", cuda_device)
+    q, k, v = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    before = dict(kernels.LAUNCHES)
+    out = tattn.flash_attention(q, k, v, valid, seg)
+    do = torch.randn_like(out) * (valid > 0)[..., None, None]
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, name
+    _, ref_lse = tattn.flash_attention_reference(q.detach().float(), k.detach().float(),
+                                                       v.detach().float(), valid, seg)
+    ref = tattn.flash_attention_backward_reference(
+        q.detach().float(), k.detach().float(), v.detach().float(), do.float(),
+        out.detach().float(), ref_lse, valid, seg)
+    _assert_grads_close(grads, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -142,3 +240,41 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
         cpu = on_cpu.embed_video(*[torch.from_numpy(a) for a in args])
     assert kernels.LAUNCHES["flash_fwd"] == before + cfg.model.joint_num_layers
     torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tiny_pretrainer_step_on_card_matches_cpu(cuda_device):
+    """One f32 train_step from the same weights, batch and draws: the kernel
+    path on the card (joint and span attention through flash_fwd, dq and
+    dk/dv) against the plain path on the CPU. Tolerances as for the JAX
+    parity of the step (tests/test_torch_training.py): losses within 2e-6
+    plus f32 summation order, 1e-5, and every parameter within 1e-5."""
+    cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
+                      audio_num_layers=2, span_num_layers=2, output_grid=(4, 4),
+                      use_bfloat16=False, joint_attention_impl="flash")
+    cfg = cfg.replace_data(num_segments=4, seq_len=80, lang_seq_len=40,
+                           num_text_spans_to_include=8)
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                                 num_warmup_steps=0))
+    batch = make_dummy_batch(cfg, 2, seed=0, num_text_spans=16)
+    card_batch, cpu_batch = (batch_to_tensors(batch, d) for d in (cuda_device, "cpu"))
+    card = create_train_state(cfg, MerlotReservePretrainer(cfg, device=cuda_device))
+    cpu_model = MerlotReservePretrainer(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    cpu = create_train_state(cfg, cpu_model)
+    g = torch.Generator().manual_seed(3)
+    split_at = [1 + torch.randint(0, 2, (4,), generator=g) for _ in range(2)]
+    gumbel = -torch.log(-torch.log(torch.rand((2, 16), generator=g)))
+    before = dict(kernels.LAUNCHES)
+    card, card_info = train_step(card, card_batch, use_bfloat16_grads=False, split_at=split_at,
+                                 gumbel=gumbel)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):  # 2 joint + 2 span layers
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + 4, name
+    cpu, cpu_info = train_step(cpu, cpu_batch, use_bfloat16_grads=False, split_at=split_at,
+                               gumbel=gumbel)
+    for k, v in cpu_info.items():
+        assert abs(float(card_info[k]) - float(v)) <= 1e-5, k
+    card_params = dict(card.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        assert (card_params[name].detach().cpu() - p.detach()).abs().max().item() <= 1e-5, name
