@@ -8,6 +8,11 @@ the differentiated function, so the gradient is taken at the bf16 copy,
 summed in bf16 where a parameter is used more than once, and cast up to f32
 by the cast's backward. Then ``nan_to_num``, then the optimizer updates the
 f32 masters in place.
+
+Each part of a step runs in a ``torch.profiler.record_function`` range named
+``train_step/<part>``: cast, forward (the model and the loss), backward,
+grads (the f32 cast and ``nan_to_num``) and optimizer. A trace splits the
+step's host and device time by them (``scripts/profile_torch_training.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call
+from torch.profiler import record_function
 
 from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer, loss_fn_given_preds
 from merlot_reserve_tpu_torch.training.optimization import PretrainOptimizer
@@ -67,15 +73,19 @@ def loss_and_grads(model: MerlotReservePretrainer, batch: Dict[str, torch.Tensor
         by default the model draws them from the batch's content
     """
     params = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
-    used = ({n: p.to(torch.bfloat16) for n, p in params.items()} if use_bfloat16_grads
-            else params)
-    preds = functional_call(model, used, (batch,), {"split_at": split_at, "gumbel": gumbel})
-    loss, loss_info = loss_fn_given_preds(preds)
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
-             for (n, p), g in zip(params.items(), grads)}
-    info = {k: torch.as_tensor(v).detach().float() for k, v in loss_info.items()}
-    info["total"] = loss.detach().float()
+    with record_function("train_step/cast"):
+        used = ({n: p.to(torch.bfloat16) for n, p in params.items()} if use_bfloat16_grads
+                else params)
+    with record_function("train_step/forward"):
+        preds = functional_call(model, used, (batch,), {"split_at": split_at, "gumbel": gumbel})
+        loss, loss_info = loss_fn_given_preds(preds)
+    with record_function("train_step/backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    with record_function("train_step/grads"):
+        grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
+                 for (n, p), g in zip(params.items(), grads)}
+        info = {k: torch.as_tensor(v).detach().float() for k, v in loss_info.items()}
+        info["total"] = loss.detach().float()
     return info, grads
 
 
@@ -86,6 +96,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     the loss terms (0-d f32 tensors on the model's device, not synchronised).
     Arguments as for ``loss_and_grads``."""
     info, grads = loss_and_grads(state.model, batch, use_bfloat16_grads, split_at, gumbel)
-    state.optimizer.step(grads)
+    with record_function("train_step/optimizer"):
+        state.optimizer.step(grads)
     state.step += 1
     return state, info

@@ -7,16 +7,19 @@ Builds the full-width base ``MerlotReservePretrainer`` (``joint_attention_impl
 the port's dummy batch of 8 examples, takes two warm-up steps, and measures:
 
 * the whole ``train_step`` on the device clock (CUDA events, 3 steps);
-* each part alone on the device clock, forward and backward, at the
-  step's shapes: the vision tower (128 frames), the audio tower (384
-  subsegments), the joint transformer with its projection (48 rows of 640,
-  on the step's own labels) and the span tower (384 spans of 16), each
-  with a random upstream gradient; the bf16 cast of the parameters; and
-  the optimizer update. What the parts leave of the step is the rest:
-  embedding, stream fusion, pooling, the heads and the loss;
-* under ``torch.profiler`` over two steps: device operations per step, the
-  device's busy share of the wall-clock window, and the device operations
-  that take the most time.
+* one ``torch.profiler`` trace of two steps, split into parts that add up
+  to the step. The parts are ``train_step``'s own ranges (cast, forward,
+  backward, grads, optimizer; see ``training/trainer.py``) and, inside the
+  forward and the backward, one part per tower (vision, audio, token
+  embedding, joint, span) and the rest (stream fusion, pooling, heads,
+  loss). A tower's forward is the range that forward hooks put around its
+  call; a backward node belongs to the tower whose forward op made it (they
+  share a sequence number). Each part gets its host ms (wall time of its
+  ranges on the host) and its device ms (the kernels and copies launched
+  from inside it). Device time launched outside every range is reported as
+  ``outside``;
+* from the same trace: the device's busy share of the traced window,
+  device ops per step, and the device ops that take the most time.
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_training.py``.
 Prints a summary and writes ``chiprun_out/profile_torch_training.json``.
@@ -24,48 +27,140 @@ Prints a summary and writes ``chiprun_out/profile_torch_training.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
-from chip_smoke import _capture_labels, cuda_time_ms  # noqa: E402
+from chip_smoke import cuda_time_ms  # noqa: E402
+
+TOWERS = {"vision_encoder": "vision", "audio_encoder": "audio", "token_encoder": "tokens",
+          "joint_transformer": "joint", "span_encoder": "span"}
+RANGES = ("train_step/", "tower/")
+EVALUATE = "autograd::engine::evaluate_function: "
 
 
-def fwd_bwd_ms(fn, iters=3):
-    """(forward ms, backward ms) of ``fn() -> list of outputs`` on the
-    device clock, the backward from random upstream gradients."""
-    fwd, bwd = [], []
-    for i in range(iters + 1):
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        e[0].record()
-        outs = fn()
-        e[1].record()
-        grads = [torch.randn_like(o) for o in outs]
-        torch.cuda.synchronize()
-        e[2].record()
-        torch.autograd.backward(outs, grads)
-        e[3].record()
-        torch.cuda.synchronize()
-        if i:  # the first is a warm-up
-            fwd.append(e[0].elapsed_time(e[1]))
-            bwd.append(e[2].elapsed_time(e[3]))
-        del outs, grads
-    return sum(fwd) / iters, sum(bwd) / iters
+@contextlib.contextmanager
+def tower_ranges(model):
+    """Runs each tower's forward inside a ``record_function`` range named
+    ``tower/<name>``."""
+    open_ranges, handles = defaultdict(list), []
+    for attr, name in TOWERS.items():
+        def enter(module, args, name=name):
+            rf = record_function(f"tower/{name}")
+            rf.__enter__()
+            open_ranges[name].append(rf)
+
+        def leave(module, args, out, name=name):
+            open_ranges[name].pop().__exit__(None, None, None)
+
+        module = getattr(model, attr)
+        handles += [module.register_forward_pre_hook(enter), module.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _ancestors(e):
+    while e is not None:
+        yield e
+        e = e.cpu_parent
+
+
+def _is_annotation(e):
+    """A range's own span on the device timeline, not a kernel (``e`` is an
+    event or an average of events)."""
+    name = e.key if hasattr(e, "key") else e.name
+    return getattr(e, "is_user_annotation", False) or name.startswith(RANGES)
+
+
+def split_step(events, steps):
+    """Host and device ms per step for each part of ``train_step``, from a
+    trace's ``events()``. Returns ({part: {"host_ms", "device_ms"}}, total
+    device ms per step)."""
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    # the op that made each autograd node is the last forward op to record
+    # its sequence number; the node's tower is that op's tower
+    maker = {}
+    for e in sorted(cpu, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and not any(a.name.startswith(EVALUATE) for a in _ancestors(e)):
+            maker[e.sequence_nr] = e
+
+    def tower_of(e):
+        return next((a.name[len("tower/"):] for a in _ancestors(e)
+                     if a.name.startswith("tower/")), "other")
+
+    node_tower = {}
+    for e in cpu:
+        if e.name.startswith(EVALUATE):
+            node = next((c for c in e.cpu_children if c.name == e.name[len(EVALUATE):]), None)
+            seq = node.sequence_nr if node is not None else -1
+            node_tower[e.id] = tower_of(maker[seq]) if seq in maker else "other"
+
+    def part_of(e):
+        for a in _ancestors(e):
+            if a.name.startswith(EVALUATE):
+                return "backward/" + node_tower[a.id]
+            if a.name.startswith("tower/"):
+                return "forward/" + a.name[len("tower/"):]
+            if a.name.startswith("train_step/"):
+                part = a.name[len("train_step/"):]
+                return part + "/other" if part in ("forward", "backward") else part
+        return "outside"
+
+    host, device = defaultdict(float), defaultdict(float)
+    for e in cpu:
+        device[part_of(e)] += sum(k.duration for k in e.kernels if k.name != e.name)
+        if e.name.startswith("train_step/"):
+            part = e.name[len("train_step/"):]
+            host[part + "/other" if part in ("forward", "backward") else part] += e.cpu_time_total
+        elif e.name.startswith("tower/"):
+            host["forward/" + e.name[len("tower/"):]] += e.cpu_time_total
+            host["forward/other"] -= e.cpu_time_total
+        elif e.name.startswith(EVALUATE) and not any(
+                a.name.startswith(EVALUATE) for a in _ancestors(e.cpu_parent)):
+            host["backward/" + node_tower[e.id]] += e.cpu_time_total
+            host["backward/other"] -= e.cpu_time_total
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA and not _is_annotation(e))
+    device["outside"] += total - sum(device.values())
+    parts = {p: {"host_ms": host[p] / 1e3 / steps, "device_ms": device[p] / 1e3 / steps}
+             for p in sorted(set(host) | set(device))}
+    return parts, total / 1e3 / steps
+
+
+def trace_steps(state, batch, steps, activities):
+    """``steps`` train steps under ``torch.profiler`` with the tower ranges
+    on. Returns (profiler, wall ms of the window)."""
+    from merlot_reserve_tpu_torch.training.trainer import train_step
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    with tower_ranges(state.model), profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(state, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
 
 
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_training: needs a CUDA card", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from merlot_reserve_tpu_torch import load_config
     from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
     from merlot_reserve_tpu_torch.models.pretrainer import (MerlotReservePretrainer,
@@ -76,7 +171,6 @@ def main():
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
     cfg = load_config("base", joint_attention_impl="flash")
-    m, d = cfg.model, cfg.data
     B = 8
     model = MerlotReservePretrainer(cfg, device="cuda", seed=0)
     state = create_train_state(cfg, model)
@@ -86,72 +180,38 @@ def main():
     torch.cuda.synchronize()
     step_ms = cuda_time_ms(lambda: train_step(state, batch), iters=3, warmup=0)
 
-    labels = _capture_labels(model, batch)
-    H, S = m.hidden_size, d.num_segments
-    g = torch.Generator(device="cuda").manual_seed(0)
-    images = batch["images"].reshape(B * S, m.vit_seq_len, -1)
-    audio = batch["audio_clips"].reshape(B * S * d.num_audio_subsegments, m.audio_seq_length, -1)
-    j_valid, j_seg = labels[d.seq_len]
-    s_valid, _ = labels[m.text_span_length + 1]
-    joint_x = torch.randn((j_valid.shape[0], d.seq_len, H), generator=g, device="cuda",
-                          dtype=torch.bfloat16).requires_grad_()
-    joint_coords = torch.rand((j_valid.shape[0], d.seq_len, 4), generator=g, device="cuda"
-                              ).to(torch.bfloat16)
-    span_x = torch.randn((s_valid.shape[0], m.text_span_length, H), generator=g, device="cuda",
-                         dtype=torch.bfloat16).requires_grad_()
-
-    def joint():
-        seq = model.joint_transformer(joint_x, rotary_coords=joint_coords, is_valid=j_valid,
-                                      segment_ids=j_seg)["seq"]
-        return [torch.nn.functional.linear(seq, model.head.weight.to(seq.dtype),
-                                           model.head.bias.to(seq.dtype))]
-
-    parts = {}
-    for name, fn in (("vision", lambda: list(model.vision_encoder(images).values())),
-                     ("audio", lambda: list(model.audio_encoder(audio).values())),
-                     ("joint", joint),
-                     ("span", lambda: [model.span_encoder(span_x, s_valid[:, 1:] > 0)])):
-        parts[f"{name}_fwd_ms"], parts[f"{name}_bwd_ms"] = fwd_bwd_ms(fn)
-    for p in model.parameters():
-        p.grad = None
-    params = dict(model.named_parameters())
-    parts["bf16_cast_ms"] = cuda_time_ms(
-        lambda: {n: p.to(torch.bfloat16) for n, p in params.items()}, iters=3, warmup=1)
-    zeros = {n: torch.zeros_like(p) for n, p in params.items()}
-    parts["optimizer_ms"] = cuda_time_ms(lambda: state.optimizer.step(zeros), iters=3, warmup=1)
-    del zeros
-    parts["rest_ms"] = step_ms - sum(parts.values())
-
     steps = 2
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = trace_steps(state, batch, steps,
+                                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    parts, device_ms = split_step(prof.events(), steps)
     # device-side events only (kernels and copies); CPU ops carry their kernels' time too
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and not _is_annotation(e)]
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     res = {
-        "card": card, "batch": B, "step_ms_device": step_ms, **parts,
-        "profiled_steps": steps, "profiled_wall_ms": wall_ms,
-        "device_kernel_ms": device_ms, "device_busy_share": device_ms / wall_ms,
-        "device_ops_per_step": sum(e.count for e in events) / steps,
+        "card": card, "batch": B, "step_ms_device": step_ms,
+        "profiled_steps": steps, "profiled_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": device_ms, "device_busy_share": device_ms * steps / wall_ms,
+        "device_ops_per_step": sum(e.count for e in ops) / steps,
+        "parts": parts,
+        "host_ms_sum_of_parts": sum(p["host_ms"] for p in parts.values()),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "top_kernels": [{"name": e.key[:120], "calls_per_step": e.count / steps,
                          "ms_per_step": e.self_device_time_total / 1e3 / steps,
-                         "share": e.self_device_time_total / 1e3 / device_ms} for e in top],
+                         "share": e.self_device_time_total / 1e3 / (device_ms * steps)}
+                        for e in top],
     }
     print(f"[profile] {card}")
     print(f"[profile] train_step: {step_ms:.2f} ms on the device clock, batch {B}")
-    for k, v in parts.items():
-        print(f"[profile] {k}: {v:.3f}")
     print(f"[profile] under the profiler: {wall_ms / steps:.2f} ms per step, device busy "
-          f"{100 * res['device_busy_share']:.1f}% ({device_ms / steps:.2f} ms of kernels), "
+          f"{100 * res['device_busy_share']:.1f}% ({device_ms:.2f} ms of kernels and copies), "
           f"{res['device_ops_per_step']:.0f} kernels and copies per step")
+    print(f"[profile] {'part':18s} {'host ms':>9s} {'device ms':>10s}   (per step)")
+    for name, p in sorted(parts.items(), key=lambda kv: -kv[1]["device_ms"]):
+        print(f"[profile] {name:18s} {p['host_ms']:9.2f} {p['device_ms']:10.2f}")
+    print(f"[profile] {'sum':18s} {res['host_ms_sum_of_parts']:9.2f} "
+          f"{sum(p['device_ms'] for p in parts.values()):10.2f}")
     for k in res["top_kernels"]:
         print(f"[profile]   {k['ms_per_step']:8.3f} ms {100 * k['share']:5.1f}% "
               f"x{k['calls_per_step']:.0f}  {k['name']}")

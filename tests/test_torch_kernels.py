@@ -12,8 +12,9 @@ Without a card they skip. Tolerances on the card:
     |value| in bf16 (p and ds enter their products as bf16 and the outputs
     are rounded to bf16: about 4e-3 when those roundings are emulated on
     the CPU) and within 1e-4 of it in f32 (another summation order).
-    dO is random on every row, so rows that see no key (p = 1 for every
-    key) dominate the largest values."""
+    dO is random on valid rows and 0 on rows that see no key, as in the
+    model: such a row has p = 1 for every key, and a random dO there would
+    feed gradients far larger than the valid rows' and set the scale."""
 
 import ctypes
 import dataclasses
@@ -147,12 +148,12 @@ def test_flash_kernel_wrapper_rejects_bad_inputs(cuda_device):
 
 
 def _bwd_inputs(name, device, dtype):
-    """q, k, v, dO (random on every row), the kernel forward's out and lse,
-    and the labels, for one case."""
+    """q, k, v, dO (random on valid rows, 0 on rows that see no key), the
+    kernel forward's out and lse, and the labels, for one case."""
     q, k, v, valid, seg = _case(name, device)
     q, k, v = (x.to(dtype) for x in (q, k, v))
     do = torch.from_numpy(np.random.RandomState(7).randn(*q.shape).astype(np.float32))
-    do = do.to(device=device, dtype=dtype)
+    do = (do.to(device) * (valid > 0)[..., None, None]).to(dtype)
     with torch.no_grad():
         out, lse = tattn.flash_forward(q, k, v, valid, seg)
     return q, k, v, do, out, lse, valid, seg
