@@ -4,9 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: every CUDA source of the port (``flash_fwd``, ``flash_bwd``), one
-   nvcc each, all started together, with nvcc's register, shared-memory and
-   spill report;
+2. build: every CUDA source of the port (``flash_fwd``, ``flash_bwd``,
+   ``ring_fwd``), one nvcc each, all started together, with nvcc's
+   register, shared-memory and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and a few more, with its time, the plain version's,
    the nearest single PyTorch call's, and its bound: the flash forward,
@@ -25,7 +25,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    vision tower's outputs); times the step;
 6. kernels at the training shapes: the three kernels again, on the labels
    the training step gave the joint (48 rows of 640) and span (384 rows of
-   16) attention.
+   16) attention;
+7. ring kernels: the ring kernel (``csrc/ring_fwd.cu``, n virtual ranks on
+   the card) against the plain ring, in bf16 and f32, at n = 2, 3, 4 and 8,
+   at the long-video shape and with more ring members than fit on the card
+   at once, on label cases that cross the shards; the flash forward with
+   keys labelled apart from the queries; times at the long-video shape
+   beside the bound, SDPA, the flash forward over the full sequence and the
+   plain ring;
+8. sequence-parallel serving: a full-width base model with
+   ``joint_attention_impl="ring:rdma"`` behind ``VideoEmbedService`` under
+   ``activate_mesh(make_mesh(sp=4))`` answers batches of 8 long videos (40
+   segments, joint L 2560), and the entry's 8-segment videos at sp = 2;
+   checks ring launches, agreement with the ``flash`` path, and times both.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -136,7 +148,7 @@ def phase_build():
     from merlot_reserve_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(["flash_fwd", "flash_bwd"])
+    built = build.build(["flash_fwd", "flash_bwd", "ring_fwd"])
     out = {}
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines()
@@ -366,17 +378,18 @@ def phase_kernels(cases, seed):
     return fwd, bwd
 
 
-def make_requests(cfg, n, seed):
-    """``n`` preprocessed videos shaped like the serving entry example: 8
-    segments of 12x20 patches, 24 audio subsegments, 160 tokens of which the
-    first 144 are AUDIOSPAN (odd videos carry text in the last 48) and the
-    rest PADDING."""
+def make_requests(cfg, n, seed, n_seg=8):
+    """``n`` preprocessed videos shaped like the serving entry example:
+    ``n_seg`` segments of 12x20 patches (8 in the entry; 40 for a 200-second
+    video), 3 audio subsegments per segment, 160 tokens of which the first
+    144 are AUDIOSPAN (odd videos carry text in the last 48) and the rest
+    PADDING."""
     import numpy as np
 
     from merlot_reserve_tpu_torch.tokenizer import AUDIOSPAN
 
     rng = np.random.RandomState(seed)
-    n_seg, grid = 8, cfg.model.vit_seq_len
+    grid = cfg.model.vit_seq_len
     out = []
     for i in range(n):
         tokens = np.zeros(160, np.int32)
@@ -735,6 +748,305 @@ def phase_train(card):
     return res, labels
 
 
+# ring kernel vs the plain ring, relative to the plain ring's max |out|:
+# bf16 as flash_fwd (bf16 probabilities and output), f32 another order of
+# f32 sums
+RING_REL_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# (case, n ranks, B, L) of the ring kernel checks; "long_video" is the
+# slice's shape, "persistent" has 2304 ring members, more than fit at once
+RING_CASES = (("tail", 2, 8, 640), ("tail", 4, 8, 640), ("tail", 8, 8, 640),
+              ("odd_n", 3, 8, 768), ("packed", 4, 8, 640), ("blind_shard", 4, 8, 640),
+              ("segment_pads", 4, 8, 640), ("long_video", 4, 8, 2560),
+              ("persistent", 4, 48, 640))
+LONG_SEGMENTS = 40
+LONG_BATCHES = 3
+
+
+def _ring_labels(case, B, L, device):
+    """(is_valid, segment_ids) int32 [B, L] for one ring kernel case."""
+    import torch
+
+    valid = torch.ones((B, L), dtype=torch.int32, device=device)
+    seg = torch.zeros((B, L), dtype=torch.int32, device=device)
+    if case in ("tail", "odd_n"):
+        valid[:, 144:160] = 0  # the entry's PADDING tokens
+        valid[:, L - 40:] = 0  # and a padded tail inside the last shard
+    elif case == "packed":  # three videos; boundaries inside shards 1 and 3 of 160 rows
+        seg[:, 250:] = 1
+        seg[:, 500:] = 2
+        valid[:, 240:250] = 0
+    elif case == "blind_shard":  # every key of rank 1's shard is invalid
+        valid[:, 160:320] = 0
+    elif case == "segment_pads":  # as prepare_multimodal_inputs pads: valid 0, segment -1
+        seg[:, 330:] = 1
+        valid[:, 600:] = 0
+        seg[:, 600:] = -1
+    else:  # "long_video", "persistent": 144 AUDIOSPAN, 16 PADDING, then image tokens
+        valid[:, 144:160] = 0
+    return valid, seg
+
+
+def _ring_bounds(valid, seg, n, H, D, element_size):
+    """Two bounds of the ring forward. "function": the contract's, each
+    input read once and out written once, against the operations these
+    labels need (as ``_fwd_bound``). "ring": with the ring's own traffic,
+    q and out once, each rank reading all n shards, and n (n - 1) shard
+    copies written and read."""
+    B, L = valid.shape
+    pairs, blind = _pair_counts(valid, seg)
+    ops = 2 * D * H * (2 * pairs + L * blind)
+    unit = B * L * H * D * element_size  # one of q, k, v, out
+    labels = 2 * B * L * 4
+    traffic = {"function": 4 * unit + labels,
+               "ring": 2 * unit + n * (2 * unit + labels) + 2 * (n - 1) * (2 * unit + labels)}
+    out = {}
+    for name, nbytes in traffic.items():
+        bound_ms, bound_by = _bound(ops, nbytes, "bf16" if element_size == 2 else "f32")
+        out[name] = {"ops": ops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def check_ring(case, n, valid, seg, H, D, generator, timed):
+    """The ring kernel (n virtual ranks) against ``ring_attention_reference``
+    on the card, in bf16 and f32, on q, k, v as the model hands them over
+    (strided views of one projection). Held on every row and on valid rows,
+    relative to the plain ring's largest |out| there. ``timed``: also its
+    time, the plain ring's, SDPA's and the flash forward's over the full L,
+    and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+
+    B, L = valid.shape
+    rows = valid > 0
+    results = []
+    with torch.inference_mode():
+        qkv32 = torch.randn((B, L, 3, H, D), generator=generator, device=valid.device)
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q, k, v = qkv32.to(dtype).unbind(2)
+            out = ring_ops.ring_fwd(q, k, v, valid, seg, n)
+            torch.cuda.synchronize()
+            ref = ring_ops.ring_attention_reference(q.float(), k.float(), v.float(), valid,
+                                                    seg, n)
+            err = (out.float() - ref).abs()
+            r = {"case": case, "dtype": dname, "n": n, "B": B, "L": L, "H": H, "D": D,
+                 "max_abs_err": err.max().item(), "max_abs_out": ref.abs().max().item(),
+                 "max_abs_err_valid": err[rows].max().item(),
+                 "max_abs_out_valid": ref[rows].abs().max().item()}
+            for key in ("", "_valid"):
+                e, scale = r[f"max_abs_err{key}"], r[f"max_abs_out{key}"]
+                check(math.isfinite(e) and e <= RING_REL_TOL[dname] * scale,
+                      f"ring {case} n={n}/{dname} max abs err{key} {e} > "
+                      f"{RING_REL_TOL[dname]} x {scale}")
+            msg = ""
+            if dname == "bf16":
+                r["ms"] = cuda_time_ms(lambda: ring_ops.ring_fwd(q, k, v, valid, seg, n))
+                msg = f" | {r['ms'] * 1e3:.1f} us"
+            if timed and dname == "bf16":
+                r["plain_ms"] = cuda_time_ms(lambda: ring_ops.ring_attention_reference(
+                    q, k, v, valid, seg, n), iters=3, warmup=1)
+                r["flash_full_ms"] = cuda_time_ms(
+                    lambda: attn_ops.flash_forward(q, k, v, valid, seg))
+                mask = _attn_mask(valid, seg)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                r["sdpa_ms"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+                r["bounds"] = _ring_bounds(valid, seg, n, H, D, q.element_size())
+                r["bound_ms"] = r["bounds"]["function"]["bound_ms"]
+                r["bound_by"] = r["bounds"]["function"]["bound_by"]
+                del mask, qt, kt, vt
+                msg += (f" (plain ring {r['plain_ms'] * 1e3:.1f} us, flash_fwd over the full L "
+                        f"{r['flash_full_ms'] * 1e3:.1f} us, sdpa {r['sdpa_ms'] * 1e3:.1f} us; "
+                        f"bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, with the "
+                        f"ring's traffic {r['bounds']['ring']['bound_ms'] * 1e3:.1f} us by "
+                        f"{r['bounds']['ring']['bound_by']})")
+            results.append(r)
+            print(f"[ring] ring_fwd {case:12s} {dname} n={n} B={B} L={L}: max abs err "
+                  f"{r['max_abs_err']:.3e} (max |out| {r['max_abs_out']:.2f}), valid rows "
+                  f"{r['max_abs_err_valid']:.3e}{msg}", flush=True)
+            del q, k, v, out, ref, err
+    del qkv32
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_fwd_k_labels(valid, seg, H, D, generator):
+    """The flash forward with the keys labelled apart from the queries (a
+    ring hop's call) against the plain version, bf16 and f32."""
+    import torch
+
+    from merlot_reserve_tpu_torch.ops.attention import flash_attention_reference, flash_forward
+
+    B, L = valid.shape
+    g = torch.Generator(device="cpu").manual_seed(4)
+    k_valid = (torch.rand((B, L), generator=g) > 0.2).to(torch.int32).to(valid.device)
+    k_seg = (torch.arange(L, device=valid.device) >= L // 3).to(torch.int32)[None].expand(B, L)
+    k_valid[0] = 0  # batch row 0 sees no key
+    results = []
+    with torch.inference_mode():
+        qkv32 = torch.randn((3, B, L, H, D), generator=generator, device=valid.device)
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q, k, v = qkv32.to(dtype).unbind(0)
+            out, _ = flash_forward(q, k, v, valid, seg, k_is_valid=k_valid,
+                                   k_segment_ids=k_seg.contiguous())
+            ref, _ = flash_attention_reference(q.float(), k.float(), v.float(), valid, seg,
+                                               k_valid, k_seg)
+            err = (out.float() - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            check(math.isfinite(err) and err <= TOL[dname]["out"] * scale,
+                  f"flash_fwd with key labels/{dname} out max abs {err} > "
+                  f"{TOL[dname]['out']} x {scale}")
+            results.append({"dtype": dname, "B": B, "L": L, "max_abs_err_out": err,
+                            "max_abs_out": scale})
+            print(f"[ring] flash_fwd with key labels {dname} B={B} L={L}: out err {err:.3e}",
+                  flush=True)
+    return results
+
+
+def phase_ring_kernels(seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ring = []
+    for case, n, B, L in RING_CASES:
+        valid, seg = _ring_labels(case, B, L, "cuda")
+        ring += check_ring(case, n, valid, seg, 12, 64, g, timed=case == "long_video")
+    k_labels = check_fwd_k_labels(*_ring_labels("packed", 8, 640, "cuda"), 12, 64, g)
+    return ring, k_labels
+
+
+def _worst_one_minus_cos(a, b, rows):
+    """max over the rows ``rows`` (bool [N, L]) of 1 - cos(a, b), [N, L, H]."""
+    import numpy as np
+
+    a, b = a[rows].astype(np.float64), b[rows].astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    return float((1 - cos).max())
+
+
+def phase_slice_sp(card):
+    """Long videos through the ring: base widths, ``joint_attention_impl=
+    "ring:rdma"``, 4 virtual sp ranks on the card."""
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.models import MerlotReserve
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+    from merlot_reserve_tpu_torch.serving import VideoEmbedService
+    from merlot_reserve_tpu_torch.tokenizer import PADDING
+
+    cfg = load_config("base", joint_attention_impl="ring:rdma", seq_shard_axis="sp")
+    model = MerlotReserve(cfg, device="cuda", seed=0)
+    service = VideoEmbedService(model, batch_size=8, device="cuda")
+    flash_model = MerlotReserve(load_config("base", joint_attention_impl="flash"),
+                                device="cuda", seed=0)
+    flash_model.load_state_dict(model.state_dict())
+    flash_service = VideoEmbedService(flash_model, batch_size=8, device="cuda")
+    joint_layers = cfg.model.joint_num_layers
+    long_reqs = [make_requests(cfg, 8, 20 + i, n_seg=LONG_SEGMENTS) for i in range(LONG_BATCHES)]
+    entry_reqs = make_requests(cfg, 8, 30)
+    joint_len = 160 + LONG_SEGMENTS * cfg.model.vit_pooled_seq_len
+    print(f"[sp] base model, joint_attention_impl={cfg.model.joint_attention_impl!r}, "
+          f"seq_shard_axis={cfg.model.seq_shard_axis!r}; {LONG_BATCHES} batches of 8 videos of "
+          f"{LONG_SEGMENTS} segments (joint L {joint_len}) at sp=4, one batch of the entry's "
+          f"8-segment videos (L 640) at sp=2", flush=True)
+
+    # the sequence-parallel serving path, counted, once per mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()
+    with activate_mesh(make_mesh(sp=4)):
+        long_outs = [service.embed(r) for r in long_reqs]
+    torch.cuda.synchronize()
+    launches_long = dict(kernels.LAUNCHES)
+    peak_long = torch.cuda.max_memory_allocated()
+    kernels.LAUNCHES.clear()
+    with activate_mesh(make_mesh(sp=2)):
+        entry_out = service.embed(entry_reqs)
+    torch.cuda.synchronize()
+    launches_entry = dict(kernels.LAUNCHES)
+    print(f"[sp] kernel launches: long videos at sp=4 {launches_long}; entry videos at sp=2 "
+          f"{launches_entry}; peak memory {peak_long / 2**30:.2f} GiB", flush=True)
+    for launches, batches in ((launches_long, LONG_BATCHES), (launches_entry, 1)):
+        check(launches.get("ring_fwd", 0) == joint_layers * batches,
+              f"ring_fwd launches {launches.get('ring_fwd', 0)} != {joint_layers} x {batches}")
+        check(launches.get("flash_fwd", 0) == 0, "the joint tower launched flash_fwd under a ring")
+    for o in long_outs + [entry_out]:
+        check(o.shape == (8, 160, cfg.model.hidden_size), f"output shape {o.shape}")
+        check(np.isfinite(o).all(), "non-finite embeddings")
+        check(np.abs(np.linalg.norm(o, axis=-1) - 1).max() < 1e-2, "row norms off 1")
+
+    # agreement on valid rows with the flash path (same weights, no mesh).
+    # The limit comes from the spread of the plain bf16 path against itself:
+    # the ring model with the plain ring in place of the kernel against the
+    # flash model with the plain flash attention, s (one attention in f32,
+    # summed in two orders, in a model that rounds to bf16 around it). The
+    # kernel paths may sit twice that angle apart: 1 - cos <= 4 s
+    def plain_flash(q, k, v, is_valid, segment_ids):
+        return attn_ops.flash_attention_reference(q, k, v, is_valid, segment_ids)[0]
+
+    agreement = {}
+    for name, reqs, sp, kernel_out in (("long", long_reqs[0], 4, long_outs[0]),
+                                       ("entry", entry_reqs, 2, entry_out)):
+        rows = np.stack([np.asarray(r["tokens"]) != PADDING for r in reqs])
+        flash_out = flash_service.embed(reqs)
+        with mock.patch.object(attn_ops, "flash_attention", plain_flash):
+            plain_out = flash_service.embed(reqs)
+        with activate_mesh(make_mesh(sp=sp)), \
+                mock.patch.object(ring_ops, "ring_fwd", ring_ops.ring_attention_reference):
+            plain_ring_out = service.embed(reqs)
+        a = {"ring_vs_flash": _worst_one_minus_cos(kernel_out, flash_out, rows),
+             "flash_vs_plain": _worst_one_minus_cos(flash_out, plain_out, rows),
+             "ring_vs_plain": _worst_one_minus_cos(kernel_out, plain_out, rows),
+             "plain_ring_vs_plain": _worst_one_minus_cos(plain_ring_out, plain_out, rows),
+             "max_abs_diff_ring_vs_flash": float(np.abs(kernel_out - flash_out)[rows].max())}
+        a["limit"] = 4 * a["plain_ring_vs_plain"]
+        agreement[name] = a
+        print(f"[sp] {name}: worst valid-row 1 - cos: ring kernel vs flash kernel path "
+              f"{a['ring_vs_flash']:.3e} (limit 4 x {a['plain_ring_vs_plain']:.3e}, the plain "
+              f"ring path vs the plain flash path); ring kernel vs plain flash "
+              f"{a['ring_vs_plain']:.3e}; flash kernel vs plain flash "
+              f"{a['flash_vs_plain']:.3e}; max abs diff ring vs flash "
+              f"{a['max_abs_diff_ring_vs_flash']:.3e}", flush=True)
+        check(a["ring_vs_flash"] <= a["limit"],
+              f"{name}: ring vs flash path 1 - cos {a['ring_vs_flash']} > {a['limit']}")
+
+    # service time per batch, ring:rdma at sp=4 against flash without a mesh
+    times = {}
+    for name, svc, mesh in (("ring_rdma_sp4", service, make_mesh(sp=4)),
+                            ("flash", flash_service, None)):
+        runs = []
+        for reqs in long_reqs + long_reqs:
+            with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+                t = time.perf_counter()
+                svc.embed(reqs)
+                runs.append((time.perf_counter() - t) * 1e3)
+        times[name] = {"service_ms_runs": runs, "service_ms_median": float(np.median(runs))}
+        with torch.inference_mode(), (activate_mesh(mesh) if mesh is not None
+                                      else contextlib.nullcontext()):
+            images, audio, tokens, subseg = stack_requests(long_reqs[0], "cuda")
+            times[name]["device_ms"] = cuda_time_ms(
+                lambda: svc.model.batch_embed_video(images, audio, tokens, subseg),
+                iters=3, warmup=1)
+        del images, audio, tokens, subseg
+    for name, t in times.items():
+        print(f"[sp] {card}: {name}: {t['service_ms_median']:.2f} ms per batch of 8 long "
+              f"videos through the service (median of {len(t['service_ms_runs'])}), "
+              f"{t['device_ms']:.2f} ms on the device clock", flush=True)
+    res = {"joint_len": joint_len, "segments_per_video": LONG_SEGMENTS,
+           "batches": LONG_BATCHES, "launches_long_sp4": launches_long,
+           "launches_entry_sp2": launches_entry, "max_memory_allocated_bytes": peak_long,
+           "agreement": agreement, "times": times}
+    del model, flash_model, service, flash_service
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -758,12 +1070,17 @@ def main():
     train, labels = phase_train(dev["nvidia_smi"])
     train_fwd, train_bwd = phase_kernels([("train_joint", *labels[640]),
                                           ("train_span", *labels[16])], seed=2)
+    ring, k_labels = phase_ring_kernels(seed=3)
+    sp = phase_slice_sp(dev["nvidia_smi"])
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
+    long_ring = next(r for r in ring if r["case"] == "long_video" and r["dtype"] == "bf16")
     launches_by_path = {name: {"serving": sl["launches"].get(name, 0),
-                               "train": train["launches"].get(name, 0)}
-                        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                               "train": train["launches"].get(name, 0),
+                               "serving_sp4_long": sp["launches_long_sp4"].get(name, 0),
+                               "serving_sp2_entry": sp["launches_entry_sp2"].get(name, 0)}
+                        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ring_fwd")}
 
     def bwd_entry(name, kernel, errors):
         return {"name": name, "route": "cuda",
@@ -790,11 +1107,21 @@ def main():
          "bound_by": main_case["bound_by"], "library_ms": main_case["sdpa_ms"]},
         bwd_entry("flash_bwd_dq", 281, ("dq",)),
         bwd_entry("flash_bwd_dkv", 320, ("dk", "dv")),
+        {"name": "ring_fwd", "route": "cuda",
+         "source": "merlot_reserve_tpu_torch/csrc/ring_fwd.cu",
+         "replaces": "merlot_reserve_tpu/ops/ring_attention.py:454",
+         "launches": sum(launches_by_path["ring_fwd"].values()),
+         "launches_by_path": launches_by_path["ring_fwd"],
+         "case": "long_video bf16 n=4 B=8 L=2560",
+         "max_abs_err": long_ring["max_abs_err"], "ms": long_ring["ms"],
+         "plain_ms": long_ring["plain_ms"], "bound_ms": long_ring["bound_ms"],
+         "bound_by": long_ring["bound_by"], "library_ms": long_ring["sdpa_ms"]},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record = {"device": dev, "build": build, "kernels": kern, "bwd_kernels": bwd, "slice": sl,
               "train": train, "train_fwd_kernels": train_fwd, "train_bwd_kernels": train_bwd,
+              "ring_kernels": ring, "fwd_kernel_key_labels": k_labels, "slice_sp": sp,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

@@ -4,15 +4,19 @@
 // `_flash_kernel` (launched by `_flash_forward`). Per (batch b, head h):
 //
 //   s(i, j)   = (q_i . k_j) * scale
-//   mask(i,j) = valid(i) > 0 && valid(j) > 0 && seg(i) == seg(j)
+//   mask(i,j) = valid(i) > 0 && k_valid(j) > 0 && seg(i) == k_seg(j)
 //   s(i, j)   = -1e10 where the mask is false (not -inf: a row with no
 //               visible key averages V over all L keys, as the dense path does)
 //   out_i     = sum_j softmax_j(s(i, .)) v_j,   lse_i = m_i + log l_i
 //
-// with the online-softmax state (m, l, acc) in f32. Keys at index >= L are
-// skipped (probability exactly 0), never scored at -1e10: the TPU kernel
-// padded L to its block size and so averaged masked rows over the padded
-// length; this kernel averages them over exactly L keys, like the dense path.
+// with the online-softmax state (m, l, acc) in f32. The keys carry labels of
+// their own (k_valid, k_seg; the queries' own labels for self-attention): a
+// ring hop of the sequence-parallel attention scores its local queries
+// against another rank's K/V shard, as `_flash_forward`'s k_is_valid /
+// k_segment_ids do. Keys at index >= L are skipped (probability exactly 0),
+// never scored at -1e10: the TPU kernel padded L to its block size and so
+// averaged masked rows over the padded length; this kernel averages them
+// over exactly L keys, like the dense path.
 //
 // Bound on an H100 at the serving shape (B=8, L=640, H=12, D=64, bf16): the
 // two products do 4*B*H*L^2*D = 10.07 GFLOP (10.2 us at 989 TFLOP/s) and the
@@ -33,8 +37,9 @@
 // (one thread per query row) that exists so the card can be checked in f32.
 //
 // Interface: q, k, v are [B, L, H, 64] read through their (batch, seq, head)
-// strides with a unit head-dim stride; labels are contiguous int32 [B, L];
-// out is [B, L, H, 64] contiguous in q's dtype; lse is contiguous f32 [B, H, L].
+// strides with a unit head-dim stride; the four label arrays are contiguous
+// int32 [B, L]; out is [B, L, H, 64] contiguous in q's dtype; lse is
+// contiguous f32 [B, H, L].
 // The launchers return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
@@ -47,11 +52,13 @@ struct FlashParams {
   const void* q;
   const void* k;
   const void* v;
-  const int32_t* is_valid;     // [B, L]
-  const int32_t* segment_ids;  // [B, L]
-  void* out;                   // [B, L, H, D]
-  float* lse;                  // [B, H, L]
-  int64_t q_strides[3];        // batch, seq, head (elements)
+  const int32_t* is_valid;       // [B, L], the queries'
+  const int32_t* segment_ids;    // [B, L]
+  const int32_t* k_is_valid;     // [B, L], the keys'
+  const int32_t* k_segment_ids;  // [B, L]
+  void* out;                     // [B, L, H, D]
+  float* lse;                    // [B, H, L]
+  int64_t q_strides[3];          // batch, seq, head (elements)
   int64_t k_strides[3];
   int64_t v_strides[3];
   int32_t batch;
@@ -148,6 +155,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const FlashParams p
                             b * p.v_strides[0] + h * p.v_strides[2];
   const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
   const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
+  const int32_t* key_valid = p.k_is_valid + static_cast<int64_t>(b) * L;
+  const int32_t* key_seg = p.k_segment_ids + static_cast<int64_t>(b) * L;
 
   // rows past L are zero-filled (source size 0), their addresses clamped to row 0
   auto load_kv_tile = [&](int k0, int buf) {
@@ -161,7 +170,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const FlashParams p
     }
     if (tid < kBlockK) {
       const int j = k0 + tid;
-      sKLab[buf][tid] = j < L ? make_int2(valid[j] > 0 ? 1 : 0, seg[j]) : make_int2(-1, 0);
+      sKLab[buf][tid] = j < L ? make_int2(key_valid[j] > 0 ? 1 : 0, key_seg[j]) : make_int2(-1, 0);
     }
   };
 
@@ -340,6 +349,8 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_f32_kernel(const FlashParam
   const float* vg = static_cast<const float*>(p.v) + b * p.v_strides[0] + h * p.v_strides[2];
   const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
   const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
+  const int32_t* key_valid = p.k_is_valid + static_cast<int64_t>(b) * L;
+  const int32_t* key_seg = p.k_segment_ids + static_cast<int64_t>(b) * L;
 
   const bool in = row < L;
   float q[kD];
@@ -377,8 +388,8 @@ __global__ void __launch_bounds__(kBlockQ) flash_fwd_f32_kernel(const FlashParam
     }
     if (tid < kBlockK) {
       const bool kin = k0 + tid < L;
-      sKValid[tid] = kin ? valid[k0 + tid] : 0;
-      sKSeg[tid] = kin ? seg[k0 + tid] : -1;
+      sKValid[tid] = kin ? key_valid[k0 + tid] : 0;
+      sKSeg[tid] = kin ? key_seg[k0 + tid] : -1;
     }
     __syncthreads();
 

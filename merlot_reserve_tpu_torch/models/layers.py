@@ -20,6 +20,7 @@ from torch import nn
 
 from merlot_reserve_tpu_torch.ops import attention as attn_ops
 from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
+from merlot_reserve_tpu_torch.parallel.mesh import current_mesh
 
 
 def kernel_stddev(flax_shape: Sequence[int]) -> float:
@@ -166,15 +167,21 @@ class TransformerEncoder(nn.Module):
 
     ``pe_len`` gives the learned position table its length (sequence length
     including CLS); the table is only used, and only needed, when forward
-    gets no rotary coordinates. The layer stack is one ``nn.ModuleList``
-    whichever flax layout (scan-stacked or ``layer_NN``) the weights came in.
+    gets no rotary coordinates. ``seq_shard_axis`` names the mesh axis the
+    sequence is split over; in the JAX package it is a sharding hint for
+    GSPMD, which changes no number, so here it is only checked against the
+    active mesh (``parallel.mesh.activate_mesh``) when there is one. The
+    split itself is the attention's (``attention_impl='ring...'``). The
+    layer stack is one ``nn.ModuleList`` whichever flax layout
+    (scan-stacked or ``layer_NN``) the weights came in.
     """
 
     def __init__(self, hidden_size: int, num_layers: int, *, generator: torch.Generator,
                  dtype=torch.float32, size_per_head: int = 64, expansion_mult: int = 4,
                  add_cls_token: bool = False, cls_output_size: Optional[int] = None,
                  rotary_hsize: int = 32, attention_impl: str = "auto",
-                 rotary_sign_quirk: bool = True, pe_len: Optional[int] = None):
+                 rotary_sign_quirk: bool = True, pe_len: Optional[int] = None,
+                 seq_shard_axis: Optional[str] = None):
         super().__init__()
         if rotary_hsize > size_per_head:
             raise ValueError("rotary_hsize exceeds size_per_head")
@@ -183,6 +190,7 @@ class TransformerEncoder(nn.Module):
         self.add_cls_token = add_cls_token
         self.rotary_hsize = rotary_hsize
         self.attention_impl = attention_impl
+        self.seq_shard_axis = seq_shard_axis
         if add_cls_token:
             self.cls = nn.Parameter(torch.empty(hidden_size))
             with torch.no_grad():
@@ -256,6 +264,10 @@ class TransformerEncoder(nn.Module):
             is_valid = segment_ids = None
 
         x = layer_norm(x, self.pre_ln, self.dtype)
+        mesh = current_mesh()
+        if self.seq_shard_axis and mesh is not None and self.seq_shard_axis not in mesh.shape:
+            raise ValueError(f"seq_shard_axis {self.seq_shard_axis!r} not in the active "
+                             f"mesh's axes {tuple(mesh.shape)}")
         for layer in self.layers:
             x = layer(x, impl=resolved, sinusoids=sinusoids, is_valid=is_valid,
                       segment_ids=segment_ids, attention_bias=attention_bias)

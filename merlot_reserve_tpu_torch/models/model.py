@@ -6,7 +6,9 @@ block-diagonal masking both factor through them, which is the form the
 flash kernel consumes. ``batch_embed_video`` is the serving path: one batch
 of videos through the vision and audio towers, the fusion, and the joint
 transformer, whose attention is the flash kernel on the card when the
-config asks for ``joint_attention_impl="flash"`` (or leaves 'auto').
+config asks for ``joint_attention_impl="flash"`` (or leaves 'auto'), and
+the ring kernel over the active mesh's sp ranks under
+``joint_attention_impl="ring:rdma"``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from merlot_reserve_tpu_torch.utils.device import resolve_device
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
 # config knobs of the JAX package that the port does not implement yet
-_UNPORTED = ("gradient_checkpoint", "tower_gradient_checkpoint", "seq_shard_axis",
-             "pipeline_axis", "segment_shard_axis")
+_UNPORTED = ("gradient_checkpoint", "tower_gradient_checkpoint", "pipeline_axis",
+             "segment_shard_axis")
 
 
 class MerlotReserve(nn.Module):
@@ -63,7 +65,8 @@ class MerlotReserve(nn.Module):
                 cfg.hidden_size, cfg.joint_num_layers, generator=generator, dtype=self.dtype,
                 size_per_head=cfg.size_per_head, rotary_hsize=cfg.rotary_hsize,
                 attention_impl=joint_impl, rotary_sign_quirk=cfg.rotary_sign_quirk,
-                pe_len=None if cfg.do_rotary else config.joint_seq_len)
+                pe_len=None if cfg.do_rotary else config.joint_seq_len,
+                seq_shard_axis=cfg.seq_shard_axis)
             # named "head" like the flax param; the JAX module calls it joint_proj
             self.head = init_linear(cfg.hidden_size, cfg.hidden_size,
                                     (cfg.hidden_size, cfg.hidden_size), generator)

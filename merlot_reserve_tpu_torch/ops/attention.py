@@ -17,7 +17,10 @@ path broadcasts them into an additive [B, 1, L, L] bias of 0 / -1e10.
   * 'xla': dense attention (the JAX package's name for it is kept so that
     one config string means the same thing in both packages).
   * 'auto': flash for label-masked attention on a CUDA tensor, else dense.
-  * 'ring*' / 'ulysses*': sequence-parallel attention, not ported yet.
+  * 'ring[:lax|flash|rdma][:AXIS]' / 'ulysses[:xla|flash][:AXIS]':
+    sequence-parallel attention over a mesh axis ('sp' by default) of the
+    active mesh (``ops/ring_attention.py``); with no mesh, or an axis of
+    size 1, the dense path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,28 +71,33 @@ def xla_attention(q, k, v, bias=None):
 # ---------------------------------------------------------------------------
 
 
-def _masked_scores(q, k, is_valid, segment_ids):
-    """f32 scores (q . k) / sqrt(d) [B, heads, L, L], -1e10 where masked."""
+def _masked_scores(q, k, is_valid, segment_ids, k_is_valid=None, k_segment_ids=None):
+    """f32 scores (q . k) / sqrt(d) [B, heads, L, L], -1e10 where masked.
+    The keys' labels default to the queries'."""
+    if k_is_valid is None:
+        k_is_valid, k_segment_ids = is_valid, segment_ids
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    valid = is_valid > 0
-    mask = ((valid[:, :, None] & valid[:, None, :])
-            & (segment_ids[:, :, None] == segment_ids[:, None, :]))
+    mask = (((is_valid > 0)[:, :, None] & (k_is_valid > 0)[:, None, :])
+            & (segment_ids[:, :, None] == k_segment_ids[:, None, :]))
     return torch.where(mask[:, None], s, NEG_INF)
 
 
-def flash_attention_reference(q, k, v, is_valid, segment_ids):
+def flash_attention_reference(q, k, v, is_valid, segment_ids, k_is_valid=None,
+                              k_segment_ids=None):
     """Plain PyTorch version of the flash forward kernel.
 
     :param q, k, v: [B, L, heads, d]
     :param is_valid: [B, L] bool/int; a position is valid where > 0
     :param segment_ids: [B, L] int; positions attend only within equal ids
+    :param k_is_valid, k_segment_ids: the keys' own labels (a ring hop's K/V
+        shard); default: the queries' (self-attention)
     :return: (out [B, L, heads, d] in q.dtype, lse [B, heads, L] f32)
 
     Computes in f32. Masked scores are -1e10, so a row that sees no key
     (a padding row) is the mean of V over all L keys, with lse = -1e10 + log L.
     """
-    s = _masked_scores(q, k, is_valid, segment_ids)
+    s = _masked_scores(q, k, is_valid, segment_ids, k_is_valid, k_segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)
@@ -126,6 +134,7 @@ class _FlashParams(ctypes.Structure):
     _fields_ = [
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
         ("is_valid", ctypes.c_void_p), ("segment_ids", ctypes.c_void_p),
+        ("k_is_valid", ctypes.c_void_p), ("k_segment_ids", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("lse", ctypes.c_void_p),
         ("q_strides", ctypes.c_int64 * 3), ("k_strides", ctypes.c_int64 * 3),
         ("v_strides", ctypes.c_int64 * 3),
@@ -217,16 +226,21 @@ def _launch(launcher, params, device, name):
     kernels.LAUNCHES[name] += 1
 
 
-def _flash_forward_cuda(q, k, v, is_valid, segment_ids):
+def _flash_forward_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids):
     """Launch csrc/flash_fwd.cu on PyTorch's current stream."""
-    is_valid, segment_ids = _check_operands((("q", q), ("k", k), ("v", v)), is_valid,
-                                            segment_ids)
+    named = (("q", q), ("k", k), ("v", v))
+    is_valid, segment_ids = _check_operands(named, is_valid, segment_ids)
+    if k_is_valid is None:
+        k_is_valid, k_segment_ids = is_valid, segment_ids
+    else:
+        k_is_valid, k_segment_ids = _check_operands(named, k_is_valid, k_segment_ids)
     B, L, H, D = q.shape
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     params = _FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), is_valid.data_ptr(),
-        segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        segment_ids.data_ptr(), k_is_valid.data_ptr(), k_segment_ids.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
         _strides(q), _strides(k), _strides(v), B, L, H, 1.0 / math.sqrt(D))
     lib = _flash_lib()
     _launch(lib.flash_fwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_fwd_f32,
@@ -278,9 +292,11 @@ def _records_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def flash_forward(q, k, v, is_valid, segment_ids):
+def flash_forward(q, k, v, is_valid, segment_ids, k_is_valid=None, k_segment_ids=None):
     """Label-masked flash forward -> (out [B, L, heads, d], lse [B, heads, L]).
 
+    ``k_is_valid`` / ``k_segment_ids`` give the keys labels of their own
+    (both or neither; default the queries'), as a ring hop needs.
     The grad-free launcher: a CUDA tensor launches the kernel (or raises); a
     CPU tensor runs the plain version. Raises when it would have to record a
     gradient: ``flash_attention`` is the differentiable entry.
@@ -288,10 +304,13 @@ def flash_forward(q, k, v, is_valid, segment_ids):
     if _records_grad(q, k, v):
         raise RuntimeError("flash_forward is the grad-free launcher and records no "
                            "gradient: call flash_attention for a differentiable one")
+    if (k_is_valid is None) != (k_segment_ids is None):
+        raise ValueError("flash: give both k_is_valid and k_segment_ids, or neither")
     if q.device.type == "cuda":
-        return _flash_forward_cuda(q, k, v, is_valid, segment_ids)
+        return _flash_forward_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, is_valid, segment_ids)
+        return flash_attention_reference(q, k, v, is_valid, segment_ids, k_is_valid,
+                                         k_segment_ids)
     raise ValueError(f"flash: no path for device {q.device}")
 
 
@@ -363,8 +382,23 @@ def attention(q, k, v, *, is_valid=None, segment_ids=None,
     impl = resolve_impl(impl, has_bias=bias is not None, has_labels=has_labels,
                         on_cuda=q.is_cuda)
     if impl.startswith(("ring", "ulysses")):
-        raise NotImplementedError(f"attention impl {impl!r}: sequence-parallel "
-                                  "attention is not ported yet")
+        if bias is not None:
+            raise ValueError("sequence-parallel attention consumes per-position labels, "
+                             "not a dense bias: pass is_valid/segment_ids or use impl='xla'")
+        from merlot_reserve_tpu_torch.ops.ring_attention import (
+            parse_sequence_parallel_impl, sequence_parallel_attention)
+        from merlot_reserve_tpu_torch.parallel.mesh import current_mesh
+
+        sub, axis = parse_sequence_parallel_impl(impl)
+        mesh = current_mesh()
+        if mesh is not None and axis not in mesh.shape:
+            raise ValueError(f"impl {impl!r}: axis {axis!r} not in mesh axes "
+                             f"{tuple(mesh.shape)}")
+        if mesh is not None and mesh.shape[axis] > 1:
+            return sequence_parallel_attention(mesh, q, k, v, is_valid=is_valid,
+                                               segment_ids=segment_ids, axis_name=axis,
+                                               impl=sub)
+        impl = "xla"  # no sequence axis to shard over
     if impl == "flash":
         if bias is not None:
             raise ValueError("flash attention consumes per-position labels, not a "
@@ -379,7 +413,8 @@ def attention(q, k, v, *, is_valid=None, segment_ids=None,
             segment_ids = torch.zeros((B, L), dtype=torch.int32, device=q.device)
         return flash_attention(q, k, v, is_valid, segment_ids)
     if impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r}; want 'auto', 'flash' or 'xla'")
+        raise ValueError(f"unknown attention impl {impl!r}; want 'auto', 'flash', 'xla', "
+                         "'ring[:lax|flash|rdma][:AXIS]' or 'ulysses[:xla|flash][:AXIS]'")
     if bias is None and has_labels:
         bias = make_attention_bias(is_valid=is_valid, segment_ids=segment_ids)
     return xla_attention(q, k, v, bias=bias)

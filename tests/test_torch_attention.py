@@ -122,8 +122,8 @@ def test_resolve_impl_policy():
 
 
 @pytest.mark.parametrize("impl,kwargs,error", [
-    ("ring", {}, NotImplementedError),
-    ("ulysses:flash", {}, NotImplementedError),
+    ("ring", {"bias": "dense"}, ValueError),
+    ("ulysses:bogus:sp", {}, ValueError),
     ("flash:128:128", {}, ValueError),
     ("bogus", {}, ValueError),
     ("flash", {"bias": "dense"}, ValueError),

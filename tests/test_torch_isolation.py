@@ -17,6 +17,7 @@ import torch
 from merlot_reserve_tpu_torch import load_config
 from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
 from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
+from merlot_reserve_tpu_torch.parallel.mesh import make_mesh
 from merlot_reserve_tpu_torch.serving import VideoEmbedService
 from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
 
@@ -46,6 +47,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert res.returncode == 0, res.stderr
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert "merlot_reserve_tpu_torch.models.model" in loaded
+    assert "merlot_reserve_tpu_torch.ops.ring_attention" in loaded
+    assert "merlot_reserve_tpu_torch.parallel.mesh" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -72,6 +75,20 @@ def test_entry_points_refuse_a_missing_card():
         MerlotReservePretrainer(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         run_pretraining(cfg, iter([]), num_steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh(sp=4)  # its default devices: the card, once per rank
+
+
+def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):
+    """make_mesh's default devices are resolve_device('cuda'), repeated once
+    per rank: on one card, make_mesh(sp=4) is 4 virtual ranks on it."""
+    import merlot_reserve_tpu_torch.parallel.mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod, "resolve_device", lambda d: torch.device("cuda", 0))
+    mesh = make_mesh(sp=4)
+    assert mesh.shape == {"dcn": 1, "dp": 1, "sp": 4, "pp": 1, "tp": 1}
+    assert mesh.distinct_devices() == [torch.device("cuda", 0)]
+    assert make_mesh(dp=2, sp=2).devices.size == 4
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

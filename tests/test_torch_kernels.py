@@ -14,7 +14,11 @@ Without a card they skip. Tolerances on the card:
     the CPU) and within 1e-4 of it in f32 (another summation order).
     dO is random on valid rows and 0 on rows that see no key, as in the
     model: such a row has p = 1 for every key, and a random dO there would
-    feed gradients far larger than the valid rows' and set the scale."""
+    feed gradients far larger than the valid rows' and set the scale;
+  * the ring kernel: out within 1e-2 of the plain ring's max |value| on
+    valid rows in bf16 (as flash_fwd: bf16 probabilities and output) and
+    within 1e-5 of it in f32 (the online softmax merges the n shards in
+    another order than the plain ring's per-shard merge)."""
 
 import ctypes
 import dataclasses
@@ -29,10 +33,12 @@ from merlot_reserve_tpu_torch.kernels import build
 from merlot_reserve_tpu_torch.models import MerlotReserve, MerlotReservePretrainer
 from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
 from merlot_reserve_tpu_torch.ops import attention as tattn
+from merlot_reserve_tpu_torch.ops import ring_attention as tring
 from merlot_reserve_tpu_torch.training.trainer import create_train_state, train_step
 
 TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
 BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+RING_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
 def _case(name, device, seed=0):
@@ -66,10 +72,30 @@ def cuda_device():
 
 
 def test_params_struct_matches_the_c_layout():
-    # FlashParams in csrc/flash_fwd.cu: 7 pointers, 3 x int64[3], 3 x int32, float
+    # FlashParams in csrc/flash_fwd.cu: 9 pointers, 3 x int64[3], 3 x int32, float
     P = tattn._FlashParams
-    assert ctypes.sizeof(P) == 7 * 8 + 9 * 8 + 3 * 4 + 4
-    assert P.q_strides.offset == 56 and P.batch.offset == 128 and P.scale.offset == 140
+    assert ctypes.sizeof(P) == 9 * 8 + 9 * 8 + 3 * 4 + 4
+    assert P.k_is_valid.offset == 40 and P.k_segment_ids.offset == 48
+    assert P.q_strides.offset == 72 and P.batch.offset == 144 and P.scale.offset == 156
+
+
+def test_ring_params_struct_matches_the_c_layout():
+    # RingParams in csrc/ring_fwd.cu: 11 pointers, 3 x int64[3], 5 x int32, float, int64
+    P = tring._RingParams
+    assert ctypes.sizeof(P) == 11 * 8 + 9 * 8 + 5 * 4 + 4 + 8
+    assert P.q_strides.offset == 88 and P.batch.offset == 160 and P.grid.offset == 176
+    assert P.scale.offset == 180 and P.timeout_ns.offset == 184
+
+
+@pytest.mark.parametrize("max_blocks,n,members,grid", [
+    (528, 4, 384, 384),     # every member resident at once
+    (528, 4, 2304, 528),    # the persistent walk: 132 rings at a time
+    (530, 4, 2304, 528),    # whole rings only
+    (528, 3, 2304, 528),
+    (3, 4, 8, 0),           # not one ring fits: the wrapper raises
+])
+def test_ring_grid_holds_whole_rings(max_blocks, n, members, grid):
+    assert tring.ring_grid(max_blocks, n, members) == grid
 
 
 def test_bwd_params_struct_matches_the_c_layout():
@@ -95,8 +121,10 @@ def test_build_target_is_keyed_by_source_and_flags():
 
 
 def test_each_source_has_its_own_build_target():
-    fwd, bwd = build._target("flash_fwd"), build._target("flash_bwd")
+    fwd, bwd, ring = build._target("flash_fwd"), build._target("flash_bwd"), \
+        build._target("ring_fwd")
     assert bwd.name.startswith("libflash_bwd-") and bwd.parent == fwd.parent and bwd != fwd
+    assert ring.name.startswith("libring_fwd-") and ring.parent == fwd.parent
 
 
 @pytest.mark.cuda
@@ -279,3 +307,122 @@ def test_tiny_pretrainer_step_on_card_matches_cpu(cuda_device):
     card_params = dict(card.model.named_parameters())
     for name, p in cpu.model.named_parameters():
         assert (card_params[name].detach().cpu() - p.detach()).abs().max().item() <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_with_key_labels_on_card(cuda_device, dtype):
+    """A ring hop's call: the keys carry labels of their own."""
+    q, k, v, valid, seg = _case("ragged", cuda_device)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    g = torch.Generator().manual_seed(3)
+    k_valid = (torch.rand(valid.shape, generator=g) > 0.3).int().to(cuda_device)
+    k_seg = torch.randint(0, 2, valid.shape, generator=g).int().to(cuda_device)
+    k_valid[1] = 0  # batch row 1 sees no key
+    with torch.inference_mode():
+        out, lse = tattn.flash_forward(q, k, v, valid, seg, k_is_valid=k_valid,
+                                       k_segment_ids=k_seg)
+        ref_out, ref_lse = tattn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                           valid, seg, k_valid, k_seg)
+    torch.testing.assert_close(out.float(), ref_out, atol=TOL[dtype], rtol=0)
+    rows = (valid > 0)[:, None, :].expand_as(lse).clone()
+    rows[1] = False
+    torch.testing.assert_close(lse[rows], ref_lse[rows], atol=1e-3, rtol=0)
+
+
+def _ring_case(name, device, dtype):
+    """(q, k, v [B, L, H, 64], is_valid, segment_ids [B, L] int32, n ranks).
+    "heads" has 96 rings of 4 members whose heads share their labels."""
+    n, B, L, H = {"tail": (2, 2, 96, 3), "packed": (4, 2, 200, 3), "blind_shard": (3, 2, 192, 3),
+                  "segment_pads": (4, 1, 256, 3), "ragged": (8, 2, 640, 3),
+                  "heads": (4, 8, 640, 12)}[name]
+    rng = np.random.RandomState(1)
+    qkv = torch.from_numpy(rng.randn(3, B, L, H, 64).astype(np.float32)).to(device, dtype)
+    valid = np.ones((B, L), np.int32)
+    seg = np.zeros((B, L), np.int32)
+    if name in ("tail", "heads"):
+        valid[:, L - L // 6:] = 0
+    elif name == "packed":  # boundaries inside shards 0, 1 and 3 of 50 rows
+        seg[:, 30:120] = 1
+        seg[:, 120:] = 2
+        valid[:, 110:120] = 0
+    elif name == "blind_shard":  # the keys of rank 1's shard are all invalid
+        valid[:, 64:128] = 0
+    elif name == "segment_pads":  # as prepare_multimodal_inputs pads: valid 0, segment -1
+        seg[:, 100:] = 1
+        valid[:, 230:] = 0
+        seg[:, 230:] = -1
+    else:
+        valid = (rng.rand(B, L) > 0.15).astype(np.int32)
+        seg[:, 300:] = 1
+    labels = [torch.from_numpy(x).to(device) for x in (valid, seg)]
+    return (*qkv.unbind(0), *labels, n)
+
+
+def _assert_ring_close(out, ref, valid, dtype):
+    rows = valid > 0
+    err = (out.float() - ref.float())[rows].abs().max().item()
+    assert err <= RING_REL_TOL[dtype] * ref.float()[rows].abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["tail", "packed", "blind_shard", "segment_pads", "ragged",
+                                  "heads"])
+def test_ring_kernel_matches_plain_ring_on_card(cuda_device, name, dtype):
+    q, k, v, valid, seg, n = _ring_case(name, cuda_device, dtype)
+    before = kernels.LAUNCHES["ring_fwd"]
+    with torch.inference_mode():
+        out = tring.ring_flash_attention_rdma(q, k, v, valid, seg, n)
+        ref = tring.ring_attention_reference(q.float(), k.float(), v.float(), valid, seg, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_fwd"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_ring_close(out, ref, valid, dtype)
+    blind = valid == 0  # rows that see no key: the mean of V over all L
+    if blind.any():
+        mean_v = v.float().mean(1, keepdim=True).expand_as(ref)
+        torch.testing.assert_close(out.float()[blind], mean_v[blind],
+                                   atol=2e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_persistent_walk_on_card(cuda_device, monkeypatch):
+    """A grid of two rings' blocks walks all B * H rings of the case."""
+    q, k, v, valid, seg, n = _ring_case("packed", cuda_device, torch.bfloat16)
+    max_blocks, floats = tring._launch_info(q.device, False)
+    monkeypatch.setattr(tring, "_launch_info", lambda device, f32: (2 * n, floats))
+    with torch.inference_mode():
+        out = tring.ring_fwd(q, k, v, valid, seg, n)
+        ref = tring.ring_attention_reference(q.float(), k.float(), v.float(), valid, seg, n)
+    torch.cuda.synchronize()
+    assert max_blocks >= 2 * n
+    _assert_ring_close(out, ref, valid, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_reads_strided_views(cuda_device):
+    q, k, v, valid, seg, n = _ring_case("packed", cuda_device, torch.bfloat16)
+    H = q.shape[2]
+    qkv = torch.cat([q, k, v], dim=2)
+    views = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    with torch.inference_mode():
+        got = tring.ring_fwd(*views, valid, seg, n)
+        ref = tring.ring_fwd(*(x.contiguous() for x in views), valid, seg, n)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ring_kernel_wrapper_rejects_bad_inputs(cuda_device):
+    q, k, v, valid, seg, n = _ring_case("tail", cuda_device, torch.bfloat16)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="not divisible"):
+            tring.ring_fwd(q, k, v, valid, seg, 5)
+        with pytest.raises(ValueError, match="head dim"):
+            tring.ring_fwd(q[..., :32], k[..., :32], v[..., :32], valid, seg, n)
+        with pytest.raises(ValueError, match="bf16 or all f32"):
+            tring.ring_fwd(q.half(), k.half(), v.half(), valid, seg, n)
+        with pytest.raises(ValueError, match="n >= 2"):
+            tring.ring_fwd(q, k, v, valid, seg, 1)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tring.ring_flash_attention_rdma(q.requires_grad_(), k, v, valid, seg, n)

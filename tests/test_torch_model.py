@@ -181,10 +181,20 @@ def test_prepare_multimodal_inputs_packing_matches_jax(jax_params):
 
 @pytest.mark.parametrize("knob,value", [
     ("gradient_checkpoint", True), ("tower_gradient_checkpoint", True),
-    ("seq_shard_axis", "sp"), ("pipeline_axis", "pp"), ("segment_shard_axis", "sp")])
+    ("pipeline_axis", "pp"), ("segment_shard_axis", "sp")])
 def test_unported_config_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         MerlotReserve(load_config("base", **dict(TINY, **{knob: value})), device="cpu")
+
+
+def test_seq_shard_axis_reaches_the_joint_transformer(jax_params, jax_dense_video):
+    """seq_shard_axis is a sharding hint in the JAX package: the port takes
+    it, checks it against the active mesh, and computes the same numbers."""
+    model = MerlotReserve(load_config("base", seq_shard_axis="sp", **TINY), device="cpu")
+    load_flax_params(model, jax_params)
+    assert model.joint_transformer.seq_shard_axis == "sp"
+    np.testing.assert_allclose(_port_apply(model, "embed_video", *_video(0)), jax_dense_video,
+                               atol=ATOL, rtol=0)
 
 
 def test_pretrained_from_params_runs_under_inference_mode(jax_params, jax_dense_video, tmp_path):
