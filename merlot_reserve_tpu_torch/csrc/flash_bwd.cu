@@ -1,55 +1,84 @@
-// Label-masked flash-attention backward for Hopper (sm_90a): two kernels.
+// Label-masked flash-attention backward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels merlot_reserve_tpu/ops/attention.py
-// `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (launched by
-// `_flash_backward`). Per (batch b, head h), with lse from the forward and
-// delta_i = rowsum(dO_i * O_i) computed before the launch:
+// Replaces both Pallas TPU kernels of the backward,
+// merlot_reserve_tpu/ops/attention.py `_flash_bwd_dq_kernel` (:281) and
+// `_flash_bwd_dkv_kernel` (:320), launched by `_flash_backward` (:370). Per
+// (batch b, head h), with lse from the forward:
 //
+//   delta_i  = rowsum(dO_i * O_i)
 //   s(i, j)  = (q_i . k_j) * scale, -1e10 where the label mask is false
 //   p(i, j)  = exp(s(i, j) - lse_i)          (recomputed, never stored)
 //   dp(i, j) = dO_i . v_j
 //   ds(i, j) = p(i, j) * (dp(i, j) - delta_i)
-//   dq_i = scale * sum_j ds(i, j) k_j        (flash_bwd_dq)
-//   dk_j = scale * sum_i ds(i, j) q_i        (flash_bwd_dkv)
-//   dv_j = sum_i p(i, j) dO_i                (flash_bwd_dkv)
+//   dq_i = scale * sum_j ds(i, j) k_j
+//   dk_j = scale * sum_i ds(i, j) q_i
+//   dv_j = sum_i p(i, j) dO_i
 //
-// Keys and queries at index >= L are skipped (p = 0), as in flash_fwd.cu: no
-// padding to a block multiple. A row that sees no key has lse = -1e10 in f32
-// (the forward's -1e10 + log L rounds to it), so its p is exp(0) = 1 for
-// every key: the TPU kernel does the same, and the plain version
-// (flash_attention_backward_reference) recomputes p the same way. In the
-// model dO is 0 on those rows, so they contribute nothing.
+// The mask is valid_q(i) & valid_k(j) & seg_q(i) == seg_k(j); the keys carry
+// labels of their own (k_is_valid, k_segment_ids: a ring hop's shard), which
+// default to the queries' in the wrapper. A row that sees no key has
+// lse = -1e10 in f32 (the forward's -1e10 + log L rounds to it), so its p
+// is exp(0) = 1 for every key, as in the TPU kernels and the plain version
+// (flash_attention_backward_reference). In the model dO is 0 on those rows.
 //
-// Bound on an H100 at the training joint shape (B=48, L=640, H=12, D=64,
-// bf16, the dummy batch's labels): each product over the attended pairs is
-// about 26 GFLOP (27 us at 989 TFLOP/s). dq needs three (q.k, dO.v, ds.k)
-// and reads q, k, v, dO and writes dq, 236 MB (70 us at 3.35 TB/s); dk/dv
-// needs four (q.k and dO.v again, p.dO, ds.q) and moves 283 MB. Both are
-// near the ridge, so a kernel must keep p and ds (the L x L matrices) out of
-// device memory and run its products on the tensor cores. The design, as in
-// flash_fwd.cu: one block owns 64 rows (queries for dq, keys for dk/dv) of
-// one (b, h) and walks the other side in 64-wide tiles, double buffered in
-// shared memory with cp.async; every product is mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) with B fragments from ldmatrix (.trans where the product
-// contracts over the tile's rows); p and ds go from the f32 accumulators of
-// one product straight into the A fragments of the next, rounded to bf16.
-// The block's own 64 rows are loaded once into A-fragment registers,
-// staged through the second tile buffer before the loop, so each kernel
-// stays under 48 KB of static shared memory.
-// What it does not do yet: wgmma, TMA, warp specialisation, skipping tiles
-// that the labels mask out entirely, sharing one recompute of p between dq
-// and dk/dv. The f32 variants are scalar-FMA kernels (one thread per row,
-// its own q/dO or k/v row in shared memory) that exist so the card can be
-// checked in f32.
+// bf16, three launches on one stream:
+//   flash_bwd_prep: one pass over dO and O writes, per query row, delta,
+//     lse * log2(e) and the row's labels ([B, H, Lpad] RowStat, rows past L
+//     padded with lse2 = +inf so that their p is 0), and zeroes the f32 dq
+//     accumulator [B, H, Lpad, 64] (Lpad = L rounded up to 64; each 64-row
+//     tile in the fused pass's fragment order, see add_dq_part).
+//   flash_bwd_bf16: the fused pass. A block owns 64 keys per consumer
+//     warpgroup (two warpgroups, 128 keys, for L > 64; one for the span
+//     tower's L = 16) of one (b, h); TMA loads its K and V once, and one
+//     producer thread streams 64-row Q and dO tiles, with their RowStats,
+//     through a 3-stage ring of mbarriers. Per tile, with wgmma:
+//       S^T = K Q^T and dP^T = V dO^T        (shared-memory operands)
+//       mask and exp2 in registers: one FFMA of s with scale * log2(e)
+//         against the pre-multiplied lse, then ex2.approx
+//       dV += P^T dO, dK += dS^T Q and dQ_part = dS K, with P^T and
+//         dS^T staged in shared memory in bf16 as the A operands
+//     and dQ_part goes into the f32 accumulator from registers with
+//     16-byte reductions (red.global.add.v4.f32), 16 KB per warpgroup and
+//     tile, in the accumulator fragments' own order.
+//     p and ds are computed once: 5 products instead of the 7 of a split
+//     dq / dk-dv design, and one exp per score. The two warpgroups of a
+//     block overlap each other's exp and ds with their products.
+//   flash_bwd_convert: dq = scale * acc, rounded to bf16 in q's layout.
+//
+// Tile classes, from warp votes on the tile's 64 query labels and the
+// warpgroup's 64 key labels: "full" (every pair attended: no per-element
+// test), "empty" (no attended pair and no query row of the tile blind, i.e.
+// with lse <= -1e9: skipped; a blind row has p = 1 on every key, so a tile
+// holding one is never skipped), else "partial" (the per-element test).
+//
+// Bound on an H100 at the training joint shape (B 48, L 640, H 12, D 64,
+// bf16, the dummy batch's labels): 5 products over the pairs with nonzero p
+// (about 26 GFLOP each, 27 us at 989 TFLOP/s) against q, k, v, dO read and
+// dq, dk, dv written once (283 MB, 85 us at 3.35 TB/s): about 140 us, by
+// operations (chip_smoke.py's `_bwd_bounds(...)["both"]`). What the design
+// does against the split kernels it replaces: (1) S, dP, P and dS once per
+// score; (2) tile classes skip the mask test or the whole tile; (3) two
+// warpgroups per block on one Q/dO stream, loads by TMA behind an
+// mbarrier ring instead of each warp re-reading tiles through ldmatrix;
+// (4) wgmma in place of mma.sync; (5) delta in a kernel over bf16 dO and O,
+// not an einsum over f32 copies. Its cost: dq is summed across key blocks
+// in device memory (f32 reductions in L2), 2 x 16 KB per tile pair.
+//
+// The f32 variants are scalar-FMA kernels (one thread per row, its own
+// q/dO or k/v row in shared memory) that exist so the card can be checked in
+// f32; they read delta from the wrapper.
 //
 // Interface: q, k, v, dO are [B, L, H, 64] read through their (batch, seq,
-// head) strides with a unit head-dim stride; lse and delta are contiguous
-// f32 [B, H, L]; labels are contiguous int32 [B, L]; dq, dk, dv are
-// [B, L, H, 64] contiguous in q's dtype. The launchers return the
-// cudaError_t of the launch.
+// head) strides with a unit head-dim stride (bf16: through 4-D TMA tensor
+// maps built here from those strides); out is contiguous [B, L, H, 64];
+// lse and delta are contiguous f32 [B, H, L]; labels are contiguous int32
+// [B, L]; dq, dk, dv are [B, L, H, 64] contiguous in q's dtype. The
+// launchers return the cudaError_t of the launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -59,11 +88,16 @@ struct FlashBwdParams {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;            // [B, H, L]
-  const float* delta;          // [B, H, L]
-  const int32_t* is_valid;     // [B, L]
-  const int32_t* segment_ids;  // [B, L]
-  void* dq;                    // [B, L, H, D]
+  const void* out;               // [B, L, H, D], contiguous (flash_bwd_prep)
+  const float* lse;              // [B, H, L]
+  const float* delta;            // [B, H, L] (f32 kernels)
+  const int32_t* is_valid;       // [B, L], the queries' labels
+  const int32_t* segment_ids;    // [B, L]
+  const int32_t* k_is_valid;     // [B, L], the keys' labels
+  const int32_t* k_segment_ids;  // [B, L]
+  void* stats;                   // [B, H, padded_len] RowStat (bf16)
+  float* dq_acc;                 // [B, H, padded_len, D] f32 (bf16)
+  void* dq;                      // [B, L, H, D]
   void* dk;
   void* dv;
   int64_t q_strides[3];  // batch, seq, head (elements)
@@ -73,26 +107,31 @@ struct FlashBwdParams {
   int32_t batch;
   int32_t seq_len;
   int32_t heads;
+  int32_t padded_len;  // seq_len rounded up to a multiple of 64
   float scale;
 };
 
 namespace {
 
 constexpr int kD = 64;     // head dim
-constexpr int kRows = 64;  // rows a block owns
-constexpr int kTile = 64;  // rows of the other side per shared-memory tile
-constexpr int kPad = 8;    // bf16 row padding: a 144-byte row stride spreads reads over all banks
-constexpr int kTileF32 = 16;  // rows per tile in the f32 kernels
-constexpr int kRowF32 = kD + 1;  // f32 own-row stride: thread r reads bank (r + d) % 32
+constexpr int kRows = 64;  // rows of a tile, of a warpgroup's keys, of an f32 block
+constexpr int kTileBytes = kRows * kD * 2;  // one bf16 64 x 64 tile
+constexpr int kTileF32 = 16;      // rows per tile in the f32 kernels
+constexpr int kRowF32 = kD + 1;   // f32 own-row stride: thread r reads bank (r + d) % 32
 constexpr float kNegInf = -1e10f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kBlindLse2 = -1e9f;  // lse * log2(e) below this: a row that sees no key
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// One query row of one (b, h), as the fused pass reads it.
+struct __align__(16) RowStat {
+  float lse2;   // lse * log2(e); +inf past L
+  float delta;  // rowsum(dO * O); 0 past L
+  int32_t valid;
+  int32_t seg;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -100,362 +139,536 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// --- mbarriers, TMA and bulk copies -----------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
-// 16-byte global -> shared copy that bypasses registers; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
 
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of the given parity; a wait of more than 5 s is a
+// protocol fault and traps (the launch then fails) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t start = 0;
+  for (uint32_t spin = 1;; ++spin) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      const uint64_t now = global_ns();
+      if (start == 0) {
+        start = now;
+      } else if (now - start > 5000000000ull) {
+        __trap();
+      }
+    }
+  }
+}
+
+// A 64-row tile of one (b, h) from a tensor map over (d, head, seq, batch).
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int h, int row, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(row), "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory, made visible to wgmma and TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- wgmma -------------------------------------------------------------------
+
+// Descriptor of a 64 x 64 bf16 tile written with the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B, or st_sw128): rows of 128 bytes, 8-row groups
+// 1024 bytes apart. Read K-major (rows are M or N, a 16-deep k step is +32
+// bytes) or MN-major (rows are k, a k step is +2048 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+constexpr uint64_t kKStepKMajor = 32 >> 4;
+constexpr uint64_t kKStepMNMajor = (16 * 128) >> 4;
+
+// (row, col), col even, of a 64 x 64 bf16 tile in the 128-byte swizzle.
+__device__ __forceinline__ void st_sw128(__nv_bfloat16* tile, int row, int col, uint32_t v) {
+  char* p = reinterpret_cast<char*>(tile) + row * 128 + (((col >> 3) ^ (row & 7)) << 4) +
+            (col & 7) * 2;
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
 template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane l gives the row address of
-// matrix l / 8 and receives row l / 4, columns 2(l % 4), 2(l % 4) + 1 of each
-// (with .trans: rows 2(l % 4), 2(l % 4) + 1 of column l / 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-typedef __nv_bfloat16 Tile[kTile][kD + kPad];
-
-// 64 rows of one (b, h) into a shared tile; rows past L are zero-filled
-// (source size 0) with their addresses clamped to row 0.
-__device__ __forceinline__ void load_rows(Tile& dst, const __nv_bfloat16* src, int64_t stride,
-                                          int r0, int L, int tid) {
-  for (int i = tid; i < kTile * (kD / 8); i += 128) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    const bool in = r0 + r < L;
-    cp_async_16(&dst[r][c], src + (in ? r0 + r : 0) * stride + c, in ? 16 : 0);
-  }
-}
-
-// A fragments of a warp's 16 rows [r_lo, r_lo + 8] x 64 columns of a tile:
-// frag[kk] covers columns [16kk, 16kk + 16).
-__device__ __forceinline__ void load_a_frags(uint32_t frag[kD / 16][4], const Tile& src, int r_lo,
-                                             int t) {
+// Keeps the compiler from moving accumulator reads or writes across a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    frag[kk][0] = ld_u32(&src[r_lo][c]);
-    frag[kk][1] = ld_u32(&src[r_lo + 8][c]);
-    frag[kk][2] = ld_u32(&src[r_lo][c + 8]);
-    frag[kk][3] = ld_u32(&src[r_lo + 8][c + 8]);
-  }
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// acc[j] = A . B^T with the tile's 64 rows as B's n index: 8 accumulator
-// tiles of 8 rows; one ldmatrix gives B fragments for two 16-wide slices of d.
-__device__ __forceinline__ void mma_a_bt(float acc[kTile / 8][4], const uint32_t a[kD / 16][4],
-                                         const Tile& b, int lane) {
+#define WGMMA_ACC32                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WGMMA_D32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (+)= A B, m64 n64 k16, A and B from shared memory; kTA / kTB = 1 reads
+// that operand MN-major.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WGMMA_ACC32
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// --- bf16: preprocess, fused pass, convert -----------------------------------
+
+// Eight threads per query row (b, l, h), h fastest, over l < padded_len:
+// delta from 16 bytes of dO and of O each, the row's RowStat, and its 64
+// floats of the dq accumulator zeroed.
+__global__ void __launch_bounds__(256) flash_bwd_prep_kernel(const FlashBwdParams p) {
+  const int L = p.seq_len;
+  const int H = p.heads;
+  const int Lp = p.padded_len;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 3;
+  if (row >= static_cast<int64_t>(p.batch) * Lp * H) return;  // whole groups of 8 leave together
+  const unsigned group = 0xFFu << (threadIdx.x & 24);
+  const int part = threadIdx.x & 7;
+  const int h = static_cast<int>(row % H);
+  const int l = static_cast<int>((row / H) % Lp);
+  const int b = static_cast<int>(row / (static_cast<int64_t>(H) * Lp));
+  const bool in = l < L;
+
+  float dsum = 0.f;
+  if (in) {
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_strides[0] + l * p.do_strides[1] +
+        h * p.do_strides[2] + part * 8);
+    const uint4 o = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.out) +
+        ((static_cast<int64_t>(b) * L + l) * H + h) * kD + part * 8);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kp = 0; kp < kD / 32; ++kp) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, &b[j * 8 + (lane & 7)][kp * 32 + (lane >> 3) * 8]);
-      mma_bf16_16816(acc[j], a[2 * kp], bf[0], bf[1]);
-      mma_bf16_16816(acc[j], a[2 * kp + 1], bf[2], bf[3]);
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]);
+      const float2 y = __bfloat1622float2(o2[i]);
+      dsum = fmaf(x.x, y.x, dsum);
+      dsum = fmaf(x.y, y.y, dsum);
     }
   }
-}
+  dsum += __shfl_xor_sync(group, dsum, 4);
+  dsum += __shfl_xor_sync(group, dsum, 2);
+  dsum += __shfl_xor_sync(group, dsum, 1);
 
-// out[n] += P . B, where P is given as f32 accumulators over the tile's 64
-// rows (p[2kk], p[2kk + 1] = rows [16kk, 16kk + 16) of the contraction) and B
-// is the tile itself [rows][d], read through ldmatrix.trans.
-__device__ __forceinline__ void mma_p_b(float out[kD / 8][4], const float p[kTile / 8][4],
-                                        const Tile& b, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int np = 0; np < kD / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, &b[kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
-                              [(2 * np + (lane >> 4)) * 8]);
-      mma_bf16_16816(out[2 * np], pa, bf[0], bf[1]);
-      mma_bf16_16816(out[2 * np + 1], pa, bf[2], bf[3]);
+  const int64_t srow = (static_cast<int64_t>(b) * H + h) * Lp + l;
+  float4* acc = reinterpret_cast<float4*>(p.dq_acc + srow * kD + part * 8);
+  acc[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (part == 0) {
+    RowStat r = {INFINITY, 0.f, 0, 0};  // past L: p = exp2(-inf) = 0
+    if (in) {
+      const int64_t lab = static_cast<int64_t>(b) * L + l;
+      r.lse2 = __fmul_rn(p.lse[(static_cast<int64_t>(b) * H + h) * L + l], kLog2e);
+      r.delta = dsum;
+      r.valid = p.is_valid[lab] > 0 ? 1 : 0;
+      r.seg = p.segment_ids[lab];
     }
+    static_cast<RowStat*>(p.stats)[srow] = r;
   }
 }
 
-// Writes a warp's 16 rows of a [B, L, H, D] bf16 output from f32 accumulators.
-__device__ __forceinline__ void store_rows(void* base, const float acc[kD / 8][4], float mul,
-                                           const int row[2], int b, int h, int L, int H, int t) {
+// Q/dO stages: with two consumer warpgroups three, so that the loads run
+// ahead of a warpgroup that lags the other; with one (L <= 64: a single
+// tile) two, so that two blocks fit on an SM.
+template <int NWG>
+constexpr int kStages = NWG == 1 ? 2 : 3;
+
+template <int NWG>
+struct BwdSmem {
+  __nv_bfloat16 k[NWG][kRows * kD];  // each warpgroup's 64 keys, 128-byte swizzled
+  __nv_bfloat16 v[NWG][kRows * kD];
+  __nv_bfloat16 q[kStages<NWG>][kRows * kD];
+  __nv_bfloat16 dout[kStages<NWG>][kRows * kD];
+  __nv_bfloat16 pt[NWG][kRows * kD];  // P^T of each warpgroup, [key][query]
+  __nv_bfloat16 ds[NWG][kRows * kD];  // dS^T of each warpgroup, [key][query]
+  RowStat stat[kStages<NWG>][kRows];
+  uint64_t full[kStages<NWG>];
+  uint64_t empty[kStages<NWG>];
+  uint64_t kv_full;
+};
+
+// A warpgroup's 64 keys as each of its warps votes them.
+struct KeyLabels {
+  bool all;   // every key valid and before L
+  bool any;   // some key valid
+  bool idle;  // no key before L
+  int lo, hi;  // the valid keys' segment ids span [lo, hi]
+};
+
+enum TileClass { kSkip, kPartial, kFull };
+
+// The class of one tile for one warpgroup, the same in every warp: kSkip
+// when no pair is attended and no row is blind (every p is 0), kFull when
+// every pair is attended.
+__device__ __forceinline__ TileClass tile_class(const RowStat* st, int lane, const KeyLabels& kl) {
+  const RowStat ra = st[lane], rb = st[lane + 32];
+  const bool qa = ra.valid > 0, qb = rb.valid > 0;
+  const bool blind = __any_sync(~0u, ra.lse2 < kBlindLse2 || rb.lse2 < kBlindLse2);
+  const bool q_all = __all_sync(~0u, qa && qb);
+  const bool q_any = __any_sync(~0u, qa || qb);
+  const int lo = __reduce_min_sync(~0u, min(qa ? ra.seg : INT_MAX, qb ? rb.seg : INT_MAX));
+  const int hi = __reduce_max_sync(~0u, max(qa ? ra.seg : INT_MIN, qb ? rb.seg : INT_MIN));
+  if (kl.idle) return kSkip;
+  if (q_all && kl.all && lo == hi && kl.lo == kl.hi && lo == kl.lo) return kFull;
+  const bool none = !(q_any && kl.any) || hi < kl.lo || kl.hi < lo;
+  return none && !blind ? kSkip : kPartial;
+}
+
+// S^T = K Q^T and dP^T = V dO^T for one stage, as two wgmma groups.
+__device__ __forceinline__ void issue_s_dp(float (&sc)[32], float (&dp)[32], uint64_t desc_k,
+                                           uint64_t desc_v, const void* q, const void* dout) {
+  const uint64_t desc_q = desc_sw128(q);
+  const uint64_t desc_do = desc_sw128(dout);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= L) continue;
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(base) +
-                       ((static_cast<int64_t>(b) * L + row[i]) * H + h) * kD;
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss<0, 0>(sc, desc_k + kk * kKStepKMajor, desc_q + kk * kKStepKMajor, kk);
+  wgmma_commit();
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(o + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-    }
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss<0, 0>(dp, desc_v + kk * kKStepKMajor, desc_do + kk * kKStepKMajor, kk);
+  wgmma_commit();
+}
+
+// A value the compiler can see is the same in every lane of the warp (a
+// branch on it around wgmma is then not divergent).
+__device__ __forceinline__ int uniform(int x) { return __shfl_sync(~0u, x, 0); }
+
+// dV (+)= P^T dO, dK (+)= dS^T Q and dQ_part = dS K for one stage, as one
+// group (dV and dK start over unless `accumulate`). P^T and dS^T are
+// [key][query] tiles in shared memory, read K-major as the A of dV and dK
+// and MN-major (as dS) as the A of dQ_part.
+__device__ __forceinline__ void issue_products(float (&dv)[32], float (&dk)[32], float (&dq)[32],
+                                               uint64_t desc_pt, uint64_t desc_ds,
+                                               uint64_t desc_k, const void* q, const void* dout,
+                                               int accumulate) {
+  const uint64_t desc_q = desc_sw128(q);
+  const uint64_t desc_do = desc_sw128(dout);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss<0, 1>(dv, desc_pt + kk * kKStepKMajor, desc_do + kk * kKStepMNMajor,
+                   accumulate || kk);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss<0, 1>(dk, desc_ds + kk * kKStepKMajor, desc_q + kk * kKStepMNMajor,
+                   accumulate || kk);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss<1, 1>(dq, desc_ds + kk * kKStepMNMajor, desc_k + kk * kKStepMNMajor, kk);
+  wgmma_commit();
+}
+
+// Once tile t's products are done: release its stage, and add dQ_part into
+// the f32 accumulator from registers, 16 bytes a lane (red.global.add.v4.f32):
+// the accumulator's 64 x 64 tile is stored in this fragment order, float4
+// number (4j + w) 32 + lane of the tile holding registers 4j .. 4j + 3 of
+// lane `lane` of warp w, so that each warp instruction adds 512 contiguous
+// bytes (flash_bwd_convert_kernel reads it back).
+__device__ __forceinline__ void add_dq_part(const float (&dq)[32], float* dq_tile, int wwarp,
+                                            int lane) {
+  float4* dst = reinterpret_cast<float4*>(dq_tile) + wwarp * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    atomicAdd(dst + j * 128, make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]));
   }
 }
 
-// dq: 4 warps; warp w owns query rows [16w, 16w + 16) of the block's 64. In
-// the m16n8k16 layout lane (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8 of its warp's 16, columns 2t, 2t + 1 of each 8-wide tile. Q and dO
-// are staged through the second K/V buffer into A-fragment registers; then
-// K/V tiles are double buffered with cp.async.
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const FlashBwdParams p) {
+// The fused pass. Warps 0 .. 4 NWG - 1 are NWG consumer warpgroups, the last
+// warp the producer. In each consumer warpgroup warp w holds keys
+// [16w, 16w + 16) of its 64 as the m index of every product; lane (g =
+// lane / 4, t = lane % 4) holds keys 16w + g and 16w + g + 8, and of each
+// 8-wide n block columns 2t and 2t + 1: accumulator register 4j + 2i + c is
+// (key 16w + g + 8i, column 8j + 2t + c).
+template <int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, NWG == 1 ? 2 : 1)
+    flash_bwd_bf16_kernel(const FlashBwdParams p, const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do) {
+  extern __shared__ char smem_raw[];
+  BwdSmem<NWG>& sm = *reinterpret_cast<BwdSmem<NWG>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int L = p.seq_len;
   const int H = p.heads;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int k0 = blockIdx.x * NWG * kRows;
+  const int n_tiles = (L + kRows - 1) / kRows;
+  const int warp = uniform(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * p.padded_len;
 
-  __shared__ __align__(16) Tile sK[2];
-  __shared__ __align__(16) Tile sV[2];
-  // per key: {1 valid, 0 masked, -1 past L; segment id}
-  __shared__ __align__(16) int2 sKLab[2][kTile];
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_strides[0] +
-                            h * p.q_strides[2];
-  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_strides[0] +
-                             h * p.do_strides[2];
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_strides[0] +
-                            h * p.k_strides[2];
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_strides[0] +
-                            h * p.v_strides[2];
-  const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
-  const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
-  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * L;
-
-  auto load_kv_tile = [&](int k0, int buf) {
-    load_rows(sK[buf], kg, p.k_strides[1], k0, L, tid);
-    load_rows(sV[buf], vg, p.v_strides[1], k0, L, tid);
-    if (tid < kTile) {
-      const int j = k0 + tid;
-      sKLab[buf][tid] = j < L ? make_int2(valid[j] > 0 ? 1 : 0, seg[j]) : make_int2(-1, 0);
-    }
-  };
-
-  // stage this block's Q and dO rows in buffer 1, and K/V tile 0 in buffer 0
-  load_rows(sK[1], qg, p.q_strides[1], q0, L, tid);
-  load_rows(sV[1], dog, p.do_strides[1], q0, L, tid);
-  load_kv_tile(0, 0);
-  cp_async_commit();
-
-  const int r_lo = warp * 16 + g;  // this lane's rows within the block: r_lo, r_lo + 8
-  int q_row[2], q_valid[2], q_seg[2];
-  float lse[2], delta[2];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    q_row[i] = q0 + r_lo + 8 * i;
-    const bool in = q_row[i] < L;
-    q_valid[i] = in ? valid[q_row[i]] : 0;
-    q_seg[i] = in ? seg[q_row[i]] : -1;
-    lse[i] = in ? p.lse[stat0 + q_row[i]] : 0.f;
-    delta[i] = in ? p.delta[stat0 + q_row[i]] : 0.f;
+    for (int s = 0; s < kStages<NWG>; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
-  cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[kD / 16][4], doa[kD / 16][4];
-  load_a_frags(qa, sK[1], r_lo, t);
-  load_a_frags(doa, sV[1], r_lo, t);
-  __syncthreads();  // buffer 1 is free for K/V tile 1
 
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  }
-
-  const int n_tiles = (L + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load_kv_tile((it + 1) * kTile, buf ^ 1);  // its buffer was released at the end of it - 1
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_a_bt(s, qa, sK[buf], lane);    // S = Q K^T
-    mma_a_bt(dp, doa, sV[buf], lane);  // dP = dO V^T
-
-    // p = exp(s_masked - lse), then ds = p (dp - delta), in place in s
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const int4 lab = *reinterpret_cast<const int4*>(&sKLab[buf][j * 8 + 2 * t]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int k_state = (e & 1) ? lab.z : lab.x;
-        const int k_seg = (e & 1) ? lab.w : lab.y;
-        float x = s[j][e] * p.scale;
-        if (!(q_valid[i] > 0 && k_state > 0 && q_seg[i] == k_seg)) x = kNegInf;
-        const float pe = k_state < 0 ? 0.f : __expf(x - lse[i]);  // keys past L: skipped
-        s[j][e] = pe * (dp[j][e] - delta[i]);
+  if (warp == 4 * NWG) {  // producer: one thread issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(&sm.kv_full, 2 * NWG * kTileBytes);
+      for (int w = 0; w < NWG; ++w) {  // rows past L arrive as zeros
+        tma_tile(sm.k[w], &tm_k, h, k0 + w * kRows, b, &sm.kv_full);
+        tma_tile(sm.v[w], &tm_v, h, k0 + w * kRows, b, &sm.kv_full);
+      }
+      const RowStat* stats = static_cast<const RowStat*>(p.stats) + stat0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages<NWG>;
+        if (t >= kStages<NWG>) mbar_wait(&sm.empty[s], ((t / kStages<NWG>) - 1) & 1);
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes + kRows * sizeof(RowStat));
+        tma_tile(sm.q[s], &tm_q, h, t * kRows, b, &sm.full[s]);
+        tma_tile(sm.dout[s], &tm_do, h, t * kRows, b, &sm.full[s]);
+        bulk_load(sm.stat[s], stats + t * kRows, kRows * sizeof(RowStat), &sm.full[s]);
       }
     }
-    mma_p_b(acc, s, sK[buf], lane);  // dQ += dS K
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    return;
   }
-  store_rows(p.dq, acc, p.scale, q_row, b, h, L, H, t);
+
+  const int wg = warp >> 2;
+  const int wwarp = warp & 3;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kbase = k0 + wg * kRows;
+  const int32_t* kvalid = p.k_is_valid + static_cast<int64_t>(b) * L;
+  const int32_t* kseg = p.k_segment_ids + static_cast<int64_t>(b) * L;
+
+  // this lane's two keys, and the warpgroup's 64 keys as each warp votes them
+  int key[2], k_sg[2];
+  bool k_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = kbase + 16 * wwarp + g + 8 * i;
+    k_ok[i] = key[i] < L && kvalid[key[i]] > 0;
+    k_sg[i] = key[i] < L ? kseg[key[i]] : 0;
+  }
+  KeyLabels kl;
+  {
+    const int ka = kbase + lane, kb = kbase + lane + 32;
+    const bool oka = ka < L && kvalid[ka] > 0, okb = kb < L && kvalid[kb] > 0;
+    kl.all = __all_sync(~0u, oka && okb);
+    kl.any = __any_sync(~0u, oka || okb);
+    kl.idle = kbase >= L;  // a last block's second warpgroup may have no key
+    kl.lo = __reduce_min_sync(~0u, min(oka ? kseg[ka] : INT_MAX, okb ? kseg[kb] : INT_MAX));
+    kl.hi = __reduce_max_sync(~0u, max(oka ? kseg[ka] : INT_MIN, okb ? kseg[kb] : INT_MIN));
+  }
+
+  const float sl2e = p.scale * kLog2e;
+  const float neg2 = __fmul_rn(kNegInf, kLog2e);  // as flash_bwd_prep rounds lse2 = -1e10 * log2(e)
+  const uint64_t desc_k = desc_sw128(sm.k[wg]);
+  const uint64_t desc_v = desc_sw128(sm.v[wg]);
+  const uint64_t desc_pt = desc_sw128(sm.pt[wg]);
+  const uint64_t desc_ds = desc_sw128(sm.ds[wg]);
+  float* dq_acc = p.dq_acc + stat0 * kD;
+  float dk[32], dv[32], sc[32], dp[32], dq[32];
+
+  // Per live tile: S^T, dP^T; P^T while dP^T is in flight; dS^T; both to
+  // shared memory; the three products; dQ_part out. The accumulators are
+  // written by wgmma alone (p and ds go to registers of their own, dV and
+  // dK start from the first live tile's products), so that ptxas need not
+  // serialize the wgmma around them.
+  mbar_wait(&sm.kv_full, 0);
+  int n_done = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages<NWG>;
+    mbar_wait(&sm.full[s], (t / kStages<NWG>) & 1);
+    const RowStat* st = sm.stat[s];
+    const int cls = uniform(tile_class(st, lane, kl));
+    if (cls == kSkip) {  // every p of the tile is 0
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+    issue_s_dp(sc, dp, desc_k, desc_v, sm.q[s], sm.dout[s]);
+
+    float pv[32];  // P^T
+    wgmma_wait<1>();
+    fence_acc(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const RowStat r = st[8 * j + 2 * t4 + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c;
+          if (cls == kFull) {
+            pv[e] = ex2(fmaf(sc[e], sl2e, -r.lse2));
+          } else {
+            const bool att = k_ok[i] && r.valid > 0 && r.seg == k_sg[i];
+            pv[e] = ex2(att ? fmaf(sc[e], sl2e, -r.lse2) : __fsub_rn(neg2, r.lse2));
+          }
+        }
+      }
+    }
+    // P^T and dS^T = P^T (dP^T - delta) to shared memory in bf16, as the
+    // products' A operands
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 delta = make_float2(st[8 * j + 2 * t4].delta, st[8 * j + 2 * t4 + 1].delta);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * j + 2 * i, row = 16 * wwarp + g + 8 * i, col = 8 * j + 2 * t4;
+        st_sw128(sm.pt[wg], row, col, pack_bf16(pv[e], pv[e + 1]));
+        st_sw128(sm.ds[wg], row, col, pack_bf16(pv[e] * (dp[e] - delta.x),
+                                                 pv[e + 1] * (dp[e + 1] - delta.y)));
+      }
+    }
+    fence_async_smem();
+    bar_sync(1 + wg, 128);
+
+    issue_products(dv, dk, dq, desc_pt, desc_ds, desc_k, sm.q[s], sm.dout[s], n_done > 0);
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    fence_acc(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+    add_dq_part(dq, dq_acc + static_cast<int64_t>(t) * kRows * kD, wwarp, lane);
+    ++n_done;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= L) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * L + key[i]) * H + h) * kD;
+    __nv_bfloat16* ok = static_cast<__nv_bfloat16*>(p.dk) + off;
+    __nv_bfloat16* ov = static_cast<__nv_bfloat16*>(p.dv) + off;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = 4 * j + 2 * i;
+      const bool any = n_done > 0;  // else no product ran: every p of these keys is 0
+      *reinterpret_cast<uint32_t*>(ok + 8 * j + 2 * t4) =
+          pack_bf16(any ? dk[e] * p.scale : 0.f, any ? dk[e + 1] * p.scale : 0.f);
+      *reinterpret_cast<uint32_t*>(ov + 8 * j + 2 * t4) =
+          pack_bf16(any ? dv[e] : 0.f, any ? dv[e + 1] : 0.f);
+    }
+  }
 }
 
-// dk/dv: 4 warps; warp w owns key rows [16w, 16w + 16) of the block's 64.
-// Everything is transposed against dq: S^T = K Q^T and dP^T = V dO^T, with
-// the key rows as the mma's m index and the tile's queries as n. K and V are
-// staged through the second Q/dO buffer into A-fragment registers; then
-// Q/dO tiles, with each query's labels, lse and delta, are double buffered.
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(const FlashBwdParams p) {
+// dq [B, L, H, D] bf16 = scale * acc; one block per 64-row tile (b, h,
+// query tile) of the accumulator, which is in add_dq_part's fragment order
+// (float4 (4j + w) 32 + lane: row 16w + lane / 4 and that + 8, columns
+// 8j + 2 (lane % 4) + {0, 1}). The tile is read in 16-byte loads into shared
+// memory as rows, and written as rows of 128 bytes; the 16-row groups past L
+// (three of four at the span tower's L = 16) are not read.
+__global__ void __launch_bounds__(256) flash_bwd_convert_kernel(const FlashBwdParams p) {
   const int L = p.seq_len;
   const int H = p.heads;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int n_tiles = p.padded_len / kRows;
+  const int qt = static_cast<int>(blockIdx.x % n_tiles);
+  const int h = static_cast<int>((blockIdx.x / n_tiles) % H);
+  const int b = static_cast<int>(blockIdx.x / (static_cast<unsigned>(n_tiles) * H));
+  const int rows = min(kRows, L - qt * kRows);
+  __shared__ float tile[kRows][kD + 1];  // row stride 65: scattered writes spread over banks
 
-  __shared__ __align__(16) Tile sQ[2];
-  __shared__ __align__(16) Tile sDO[2];
-  // per query: {1 valid, 0 masked, -1 past L; segment id}, and {lse, delta}
-  __shared__ __align__(16) int2 sQLab[2][kTile];
-  __shared__ __align__(16) float2 sQStat[2][kTile];
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_strides[0] +
-                            h * p.q_strides[2];
-  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_strides[0] +
-                             h * p.do_strides[2];
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_strides[0] +
-                            h * p.k_strides[2];
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_strides[0] +
-                            h * p.v_strides[2];
-  const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
-  const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
-  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * L;
-
-  auto load_q_tile = [&](int q_start, int buf) {
-    load_rows(sQ[buf], qg, p.q_strides[1], q_start, L, tid);
-    load_rows(sDO[buf], dog, p.do_strides[1], q_start, L, tid);
-    if (tid < kTile) {
-      const int i = q_start + tid;
-      const bool in = i < L;
-      sQLab[buf][tid] = in ? make_int2(valid[i] > 0 ? 1 : 0, seg[i]) : make_int2(-1, 0);
-      sQStat[buf][tid] = in ? make_float2(p.lse[stat0 + i], p.delta[stat0 + i])
-                            : make_float2(0.f, 0.f);
-    }
-  };
-
-  // stage this block's K and V rows in buffer 1, and Q/dO tile 0 in buffer 0
-  load_rows(sQ[1], kg, p.k_strides[1], k0, L, tid);
-  load_rows(sDO[1], vg, p.v_strides[1], k0, L, tid);
-  load_q_tile(0, 0);
-  cp_async_commit();
-
-  const int r_lo = warp * 16 + g;  // this lane's keys within the block: r_lo, r_lo + 8
-  int k_row[2], k_valid[2], k_seg[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    k_row[i] = k0 + r_lo + 8 * i;
-    const bool in = k_row[i] < L;
-    k_valid[i] = in ? valid[k_row[i]] : 0;
-    k_seg[i] = in ? seg[k_row[i]] : -1;
+  const float4* src = reinterpret_cast<const float4*>(
+      p.dq_acc + ((static_cast<int64_t>(b) * H + h) * p.padded_len + qt * kRows) * kD);
+  for (int f = threadIdx.x; f < kRows * kD / 4; f += blockDim.x) {
+    const int w = (f >> 5) & 3;
+    if (16 * w >= rows) continue;
+    const int j = f >> 7, lane = f & 31;
+    const int r = 16 * w + (lane >> 2), c = 8 * j + 2 * (lane & 3);
+    const float4 x = src[f];
+    tile[r][c] = x.x;
+    tile[r][c + 1] = x.y;
+    tile[r + 8][c] = x.z;
+    tile[r + 8][c + 1] = x.w;
   }
-
-  cp_async_wait<0>();
   __syncthreads();
-  uint32_t ka[kD / 16][4], va[kD / 16][4];
-  load_a_frags(ka, sQ[1], r_lo, t);
-  load_a_frags(va, sDO[1], r_lo, t);
-  __syncthreads();  // buffer 1 is free for Q/dO tile 1
-
-  float dk[kD / 8][4], dv[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[n][e] = 0.f;
-      dv[n][e] = 0.f;
-    }
+  const float s = p.scale;
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq);
+  for (int f = threadIdx.x; f < rows * (kD / 8); f += blockDim.x) {  // 8 columns a thread
+    const int r = f >> 3, c = 8 * (f & 7);
+    const uint4 o = make_uint4(pack_bf16(tile[r][c] * s, tile[r][c + 1] * s),
+                               pack_bf16(tile[r][c + 2] * s, tile[r][c + 3] * s),
+                               pack_bf16(tile[r][c + 4] * s, tile[r][c + 5] * s),
+                               pack_bf16(tile[r][c + 6] * s, tile[r][c + 7] * s));
+    *reinterpret_cast<uint4*>(
+        dq + ((static_cast<int64_t>(b) * L + qt * kRows + r) * H + h) * kD + c) = o;
   }
-
-  const int n_tiles = (L + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load_q_tile((it + 1) * kTile, buf ^ 1);  // its buffer was released at the end of it - 1
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    mma_a_bt(s, ka, sQ[buf], lane);    // S^T = K Q^T
-    mma_a_bt(dp, va, sDO[buf], lane);  // dP^T = V dO^T
-
-    // p^T = exp(s^T_masked - lse_q) in s; ds^T = p^T (dp^T - delta_q) in dp
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const int4 lab = *reinterpret_cast<const int4*>(&sQLab[buf][j * 8 + 2 * t]);
-      const float4 st = *reinterpret_cast<const float4*>(&sQStat[buf][j * 8 + 2 * t]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int q_state = (e & 1) ? lab.z : lab.x;
-        const int q_seg = (e & 1) ? lab.w : lab.y;
-        const float q_lse = (e & 1) ? st.z : st.x;
-        const float q_delta = (e & 1) ? st.w : st.y;
-        float x = s[j][e] * p.scale;
-        if (!(q_state > 0 && k_valid[i] > 0 && q_seg == k_seg[i])) x = kNegInf;
-        const float pe = q_state < 0 ? 0.f : __expf(x - q_lse);  // queries past L: skipped
-        s[j][e] = pe;
-        dp[j][e] = pe * (dp[j][e] - q_delta);
-      }
-    }
-    mma_p_b(dv, s, sDO[buf], lane);  // dV += P^T dO
-    mma_p_b(dk, dp, sQ[buf], lane);  // dK += dS^T Q
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-  store_rows(p.dk, dk, p.scale, k_row, b, h, L, H, t);
-  store_rows(p.dv, dv, 1.f, k_row, b, h, L, H, t);
 }
+
+// --- f32 ---------------------------------------------------------------------
 
 // f32 dq: one thread per query row; the block's q and dO rows sit in shared
 // memory, keys stream through it kTileF32 at a time (every lane reads the
@@ -480,8 +693,7 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dq_f32_kernel(const FlashBwdP
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_strides[0] + h * p.do_strides[2];
   const float* kg = static_cast<const float*>(p.k) + b * p.k_strides[0] + h * p.k_strides[2];
   const float* vg = static_cast<const float*>(p.v) + b * p.v_strides[0] + h * p.v_strides[2];
-  const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
-  const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
+  const int64_t lab0 = static_cast<int64_t>(b) * L;
   const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * L;
 
   for (int i = tid; i < kRows * kD; i += kRows) {
@@ -492,8 +704,8 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dq_f32_kernel(const FlashBwdP
     sDOo[r][d] = in ? dog[(q0 + r) * p.do_strides[1] + d] : 0.f;
   }
   const bool in = row < L;
-  const int qv = in ? valid[row] : 0;
-  const int qs = in ? seg[row] : -1;
+  const int qv = in ? p.is_valid[lab0 + row] : 0;
+  const int qs = in ? p.segment_ids[lab0 + row] : -1;
   const float lse = in ? p.lse[stat0 + row] : 0.f;
   const float delta = in ? p.delta[stat0 + row] : 0.f;
 
@@ -512,8 +724,8 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dq_f32_kernel(const FlashBwdP
     }
     if (tid < kTileF32) {
       const bool kin = j0 + tid < L;
-      sKValid[tid] = kin ? valid[j0 + tid] : 0;
-      sKSeg[tid] = kin ? seg[j0 + tid] : -1;
+      sKValid[tid] = kin ? p.k_is_valid[lab0 + j0 + tid] : 0;
+      sKSeg[tid] = kin ? p.k_segment_ids[lab0 + j0 + tid] : -1;
     }
     __syncthreads();
 
@@ -567,8 +779,7 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dkv_f32_kernel(const FlashBwd
   const float* dog = static_cast<const float*>(p.dout) + b * p.do_strides[0] + h * p.do_strides[2];
   const float* kg = static_cast<const float*>(p.k) + b * p.k_strides[0] + h * p.k_strides[2];
   const float* vg = static_cast<const float*>(p.v) + b * p.v_strides[0] + h * p.v_strides[2];
-  const int32_t* valid = p.is_valid + static_cast<int64_t>(b) * L;
-  const int32_t* seg = p.segment_ids + static_cast<int64_t>(b) * L;
+  const int64_t lab0 = static_cast<int64_t>(b) * L;
   const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * L;
 
   for (int i = tid; i < kRows * kD; i += kRows) {
@@ -579,8 +790,8 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dkv_f32_kernel(const FlashBwd
     sVo[r][d] = in ? vg[(k0 + r) * p.v_strides[1] + d] : 0.f;
   }
   const bool in = row < L;
-  const int kv = in ? valid[row] : 0;
-  const int ks = in ? seg[row] : -1;
+  const int kv = in ? p.k_is_valid[lab0 + row] : 0;
+  const int ks = in ? p.k_segment_ids[lab0 + row] : -1;
 
   float dk[kD], dv[kD];
 #pragma unroll
@@ -600,8 +811,8 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dkv_f32_kernel(const FlashBwd
     }
     if (tid < kTileF32) {
       const bool qin = i0 + tid < L;
-      sQValid[tid] = qin ? valid[i0 + tid] : 0;
-      sQSeg[tid] = qin ? seg[i0 + tid] : -1;
+      sQValid[tid] = qin ? p.is_valid[lab0 + i0 + tid] : 0;
+      sQSeg[tid] = qin ? p.segment_ids[lab0 + i0 + tid] : -1;
       sQLse[tid] = qin ? p.lse[stat0 + i0 + tid] : 0.f;
       sQDelta[tid] = qin ? p.delta[stat0 + i0 + tid] : 0.f;
     }
@@ -640,7 +851,69 @@ __global__ void __launch_bounds__(kRows) flash_bwd_dkv_f32_kernel(const FlashBwd
   }
 }
 
-dim3 grid_of(const FlashBwdParams* p) {
+// --- host side ---------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links against nothing but the CUDA runtime.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A [B, L, H, 64] bf16 tensor seen as (d, head, seq, batch), read in boxes
+// of one head's 64 rows x 64 with the 128-byte swizzle; rows past L read
+// as zeros.
+bool tile_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, const int64_t strides[3],
+              const FlashBwdParams* p) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(p->heads),
+                              static_cast<cuuint64_t>(p->seq_len),
+                              static_cast<cuuint64_t>(p->batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {kD, 1, kRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NWG>
+cudaError_t launch_fused(const FlashBwdParams* p, const CUtensorMap (&maps)[4],
+                         cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(BwdSmem<NWG>)) + 1024;  // + room to align to 1024
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_bf16_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p->seq_len + NWG * kRows - 1) / (NWG * kRows), p->heads, p->batch);
+  flash_bwd_bf16_kernel<NWG>
+      <<<grid, 128 * NWG + 32, smem, stream>>>(*p, maps[0], maps[1], maps[2], maps[3]);
+  return cudaGetLastError();
+}
+
+unsigned blocks_of(int64_t threads) { return static_cast<unsigned>((threads + 255) / 256); }
+
+dim3 grid_f32(const FlashBwdParams* p) {
   return dim3((p->seq_len + kRows - 1) / kRows, p->heads, p->batch);
 }
 
@@ -651,23 +924,43 @@ extern "C" {
 // Size of FlashBwdParams, so the Python side can check its ctypes mirror.
 size_t flash_bwd_params_size() { return sizeof(FlashBwdParams); }
 
-cudaError_t flash_bwd_dq_bf16(const FlashBwdParams* params, cudaStream_t stream) {
-  flash_bwd_dq_bf16_kernel<<<grid_of(params), 128, 0, stream>>>(*params);
+// Dynamic shared memory of the fused pass with nwg consumer warpgroups.
+size_t flash_bwd_smem_bytes(int nwg) {
+  return (nwg == 1 ? sizeof(BwdSmem<1>) : sizeof(BwdSmem<2>)) + 1024;
+}
+
+cudaError_t flash_bwd_prep(const FlashBwdParams* p, cudaStream_t stream) {
+  const int64_t threads = 8LL * p->batch * p->padded_len * p->heads;
+  flash_bwd_prep_kernel<<<blocks_of(threads), 256, 0, stream>>>(*p);
   return cudaGetLastError();
 }
 
-cudaError_t flash_bwd_dkv_bf16(const FlashBwdParams* params, cudaStream_t stream) {
-  flash_bwd_dkv_bf16_kernel<<<grid_of(params), 128, 0, stream>>>(*params);
+cudaError_t flash_bwd_bf16(const FlashBwdParams* p, cudaStream_t stream) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap maps[4];
+  if (!tile_map(encode, &maps[0], p->q, p->q_strides, p) ||
+      !tile_map(encode, &maps[1], p->k, p->k_strides, p) ||
+      !tile_map(encode, &maps[2], p->v, p->v_strides, p) ||
+      !tile_map(encode, &maps[3], p->dout, p->do_strides, p)) {
+    return cudaErrorInvalidValue;
+  }
+  return p->seq_len > kRows ? launch_fused<2>(p, maps, stream) : launch_fused<1>(p, maps, stream);
+}
+
+cudaError_t flash_bwd_convert(const FlashBwdParams* p, cudaStream_t stream) {
+  const int64_t tiles = static_cast<int64_t>(p->batch) * p->heads * (p->padded_len / kRows);
+  flash_bwd_convert_kernel<<<static_cast<unsigned>(tiles), 256, 0, stream>>>(*p);
   return cudaGetLastError();
 }
 
-cudaError_t flash_bwd_dq_f32(const FlashBwdParams* params, cudaStream_t stream) {
-  flash_bwd_dq_f32_kernel<<<grid_of(params), kRows, 0, stream>>>(*params);
+cudaError_t flash_bwd_dq_f32(const FlashBwdParams* p, cudaStream_t stream) {
+  flash_bwd_dq_f32_kernel<<<grid_f32(p), kRows, 0, stream>>>(*p);
   return cudaGetLastError();
 }
 
-cudaError_t flash_bwd_dkv_f32(const FlashBwdParams* params, cudaStream_t stream) {
-  flash_bwd_dkv_f32_kernel<<<grid_of(params), kRows, 0, stream>>>(*params);
+cudaError_t flash_bwd_dkv_f32(const FlashBwdParams* p, cudaStream_t stream) {
+  flash_bwd_dkv_f32_kernel<<<grid_f32(p), kRows, 0, stream>>>(*p);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,9 @@ path broadcasts them into an additive [B, 1, L, L] bias of 0 / -1e10.
 ``attention(...)`` is the single entry point; ``impl`` picks:
   * 'flash': label-masked flash attention. On a CUDA tensor the forward
     launches the hand-written kernel ``csrc/flash_fwd.cu`` and the backward
-    the two kernels of ``csrc/flash_bwd.cu`` (dq; dk and dv); on a CPU
-    tensor they run their plain PyTorch versions,
+    ``csrc/flash_bwd.cu`` (in bf16 a preprocess pass, one fused wgmma pass
+    for dq, dk and dv, and a dq convert pass); on a CPU tensor they run
+    their plain PyTorch versions,
     ``flash_attention_reference`` and ``flash_attention_backward_reference``.
   * 'xla': dense attention (the JAX package's name for it is kept so that
     one config string means the same thing in both packages).
@@ -105,11 +106,14 @@ def flash_attention_reference(q, k, v, is_valid, segment_ids, k_is_valid=None,
     return out.to(q.dtype), m[..., 0] + torch.log(l)
 
 
-def flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids):
-    """Plain PyTorch version of the two flash backward kernels.
+def flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids,
+                                       k_is_valid=None, k_segment_ids=None):
+    """Plain PyTorch version of the flash backward kernels.
 
     :param do: [B, L, heads, d], the gradient of ``out``
     :param out, lse: the forward's outputs (``flash_attention_reference``)
+    :param k_is_valid, k_segment_ids: the keys' own labels (a ring hop's
+        shard, with out/lse merged over all shards); default the queries'
     :return: (dq, dk, dv) [B, L, heads, d] in the dtypes of q, k, v
 
     Computes in f32 what the kernels compute: p is recomputed as
@@ -119,7 +123,8 @@ def flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_
     scale = 1.0 / math.sqrt(q.shape[-1])
     do = do.float()
     delta = torch.einsum("blhd,blhd->bhl", do, out.float())
-    p = torch.exp(_masked_scores(q, k, is_valid, segment_ids) - lse.float()[..., None])
+    s = _masked_scores(q, k, is_valid, segment_ids, k_is_valid, k_segment_ids)
+    p = torch.exp(s - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
@@ -148,13 +153,16 @@ class _FlashBwdParams(ctypes.Structure):
 
     _fields_ = [
         ("q", ctypes.c_void_p), ("k", ctypes.c_void_p), ("v", ctypes.c_void_p),
-        ("dout", ctypes.c_void_p), ("lse", ctypes.c_void_p), ("delta", ctypes.c_void_p),
-        ("is_valid", ctypes.c_void_p), ("segment_ids", ctypes.c_void_p),
+        ("dout", ctypes.c_void_p), ("out", ctypes.c_void_p), ("lse", ctypes.c_void_p),
+        ("delta", ctypes.c_void_p), ("is_valid", ctypes.c_void_p),
+        ("segment_ids", ctypes.c_void_p), ("k_is_valid", ctypes.c_void_p),
+        ("k_segment_ids", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+        ("dq_acc", ctypes.c_void_p),
         ("dq", ctypes.c_void_p), ("dk", ctypes.c_void_p), ("dv", ctypes.c_void_p),
         ("q_strides", ctypes.c_int64 * 3), ("k_strides", ctypes.c_int64 * 3),
         ("v_strides", ctypes.c_int64 * 3), ("do_strides", ctypes.c_int64 * 3),
         ("batch", ctypes.c_int32), ("seq_len", ctypes.c_int32),
-        ("heads", ctypes.c_int32), ("scale", ctypes.c_float),
+        ("heads", ctypes.c_int32), ("padded_len", ctypes.c_int32), ("scale", ctypes.c_float),
     ]
 
 
@@ -180,8 +188,8 @@ def _flash_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_lib() -> ctypes.CDLL:
     return _load_lib("flash_bwd", _FlashBwdParams,
-                     ("flash_bwd_dq_bf16", "flash_bwd_dq_f32",
-                      "flash_bwd_dkv_bf16", "flash_bwd_dkv_f32"))
+                     ("flash_bwd_prep", "flash_bwd_bf16", "flash_bwd_convert",
+                      "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))
 
 
 def _check_operands(named, is_valid, segment_ids):
@@ -248,44 +256,142 @@ def _flash_forward_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_id
     return out, lse
 
 
-def _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dq=None, dk=None, dv=None):
-    """Checked ``_FlashBwdParams`` for one backward launch."""
-    is_valid, segment_ids = _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)),
-                                            is_valid, segment_ids)
+BWD_ROWS = 64  # the backward's query tile: stats and dq_acc are padded to a multiple
+LOG2E = 1.4426950408889634
+
+
+def _padded_len(L):
+    return -(-L // BWD_ROWS) * BWD_ROWS
+
+
+def _check_f32(name, x, shape):
+    if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"flash: {name} must be contiguous f32 {shape}")
+
+
+def _bwd_params(q, k, v, do, is_valid, segment_ids, k_is_valid=None, k_segment_ids=None,
+                **tensors):
+    """Checked ``_FlashBwdParams`` for one backward launch; ``tensors`` are
+    the launch's other pointer fields by name. Returns the params and the
+    int32 labels, which the caller keeps alive through the launch."""
+    named = (("q", q), ("k", k), ("v", v), ("dout", do))
+    is_valid, segment_ids = _check_operands(named, is_valid, segment_ids)
+    if k_is_valid is None:
+        k_is_valid, k_segment_ids = is_valid, segment_ids
+    else:
+        k_is_valid, k_segment_ids = _check_operands(named, k_is_valid, k_segment_ids)
     B, L, H, D = q.shape
-    for name, x in (("lse", lse), ("delta", delta)):
-        if x.dtype != torch.float32 or tuple(x.shape) != (B, H, L) or not x.is_contiguous():
-            raise ValueError(f"flash: {name} must be contiguous f32 [B, H, L] = {(B, H, L)}")
-    ptr = [0 if x is None else x.data_ptr() for x in (dq, dk, dv)]
     params = _FlashBwdParams(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), is_valid.data_ptr(), segment_ids.data_ptr(), *ptr,
-        _strides(q), _strides(k), _strides(v), _strides(do), B, L, H, 1.0 / math.sqrt(D))
-    return params, (is_valid, segment_ids)  # the labels stay alive through the launch
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), dout=do.data_ptr(),
+        is_valid=is_valid.data_ptr(), segment_ids=segment_ids.data_ptr(),
+        k_is_valid=k_is_valid.data_ptr(), k_segment_ids=k_segment_ids.data_ptr(),
+        q_strides=_strides(q), k_strides=_strides(k), v_strides=_strides(v),
+        do_strides=_strides(do), batch=B, seq_len=L, heads=H, padded_len=_padded_len(L),
+        scale=1.0 / math.sqrt(D))
+    for name, x in tensors.items():
+        setattr(params, name, x.data_ptr())
+    return params, (is_valid, segment_ids, k_is_valid, k_segment_ids)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, is_valid, segment_ids):
-    """Launch csrc/flash_bwd.cu's dq kernel: dq [B, L, H, D] in q's dtype.
+def _check_bf16(q):
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash: this backward pass is bf16 only, got {q.dtype}")
 
-    :param lse, delta: contiguous f32 [B, H, L]; delta = rowsum(dO * out)
+
+def flash_bwd_prep(q, k, v, do, out, lse, is_valid, segment_ids):
+    """Launch csrc/flash_bwd.cu's preprocess pass (bf16): returns (stats,
+    dq_acc). stats [B, H, Lpad, 4] f32 holds per query row lse * log2(e),
+    delta = rowsum(dO * out) and the row's valid flag and segment id (as
+    int32 bits); dq_acc [B, H, Lpad, 64] f32 comes back zeroed. Lpad is L
+    rounded up to ``BWD_ROWS``.
+
+    :param out: contiguous [B, L, H, 64], the forward's output
+    :param lse: contiguous f32 [B, H, L]
     """
+    _check_bf16(q)
+    B, L, H, D = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype or not out.is_contiguous():
+        raise ValueError(f"flash: out must be contiguous {q.dtype} {tuple(q.shape)}")
+    _check_f32("lse", lse, (B, H, L))
+    Lp = _padded_len(L)
+    stats = torch.empty((B, H, Lp, 4), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, H, Lp, D), dtype=torch.float32, device=q.device)
+    params, _keep = _bwd_params(q, k, v, do, is_valid, segment_ids, out=out, lse=lse,
+                                stats=stats, dq_acc=dq_acc)
+    _launch(_flash_bwd_lib().flash_bwd_prep, params, q.device, "flash_bwd_prep")
+    return stats, dq_acc
+
+
+def flash_bwd_prep_reference(do, out, lse, is_valid, segment_ids):
+    """Plain PyTorch version of ``flash_bwd_prep``: (stats, zeroed dq_acc);
+    rows past L have lse * log2(e) = +inf, delta 0 and labels 0."""
+    B, L, H, D = do.shape
+    Lp = _padded_len(L)
+    stats = torch.zeros((B, H, Lp, 4), dtype=torch.float32, device=do.device)
+    stats[..., 0] = math.inf
+    stats[:, :, :L, 0] = lse.float() * LOG2E
+    stats[:, :, :L, 1] = torch.einsum("blhd,blhd->bhl", do.float(), out.float())
+    labels = torch.stack([(is_valid > 0).to(torch.int32), segment_ids.to(torch.int32)], -1)
+    stats.view(torch.int32)[:, :, :L, 2:] = labels[:, None]
+    return stats, torch.zeros((B, H, Lp, D), dtype=torch.float32, device=do.device)
+
+
+def flash_bwd_convert_reference(q, dq_acc):
+    """Plain PyTorch version of ``flash_bwd_convert``: scale * dq_acc as
+    [B, L, H, D] in q's dtype. Each 64-row tile of dq_acc is in the fused
+    pass's fragment order: float4 (4j + w) 32 + lane holds row
+    16w + lane // 4 (and that + 8), columns 8j + 2 (lane % 4) + {0, 1}."""
+    B, H, Lp, D = dq_acc.shape
+    tiles = dq_acc.reshape(B, H, Lp // BWD_ROWS, 8, 4, 8, 4, 2, 2)  # j, w, g, t, i, c
+    rows = tiles.permute(0, 1, 2, 4, 7, 5, 3, 6, 8).reshape(B, H, Lp, D)  # (w, i, g), (j, t, c)
+    L = q.shape[1]
+    return (rows[:, :, :L] * (1.0 / math.sqrt(D))).to(q.dtype).transpose(1, 2)
+
+
+def flash_bwd_fused(q, k, v, do, stats, dq_acc, is_valid, segment_ids, k_is_valid=None,
+                    k_segment_ids=None):
+    """Launch csrc/flash_bwd.cu's fused pass (bf16): returns (dk, dv)
+    [B, L, H, D] and adds dq / scale into ``dq_acc``. ``stats`` and
+    ``dq_acc`` come from ``flash_bwd_prep``; the keys' labels default to the
+    queries'. Its plain version is ``flash_attention_backward_reference``."""
+    _check_bf16(q)
+    B, L, H, D = q.shape
+    _check_f32("stats", stats, (B, H, _padded_len(L), 4))
+    _check_f32("dq_acc", dq_acc, (B, H, _padded_len(L), D))
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    params, _keep = _bwd_params(q, k, v, do, is_valid, segment_ids, k_is_valid, k_segment_ids,
+                                stats=stats, dq_acc=dq_acc, dk=dk, dv=dv)
+    _launch(_flash_bwd_lib().flash_bwd_bf16, params, q.device, "flash_bwd")
+    return dk, dv
+
+
+def flash_bwd_convert(q, k, v, do, dq_acc, is_valid, segment_ids):
+    """Launch csrc/flash_bwd.cu's convert pass (bf16): dq = scale * dq_acc
+    as [B, L, H, D] in q's dtype."""
+    _check_bf16(q)
+    B, L, H, D = q.shape
+    _check_f32("dq_acc", dq_acc, (B, H, _padded_len(L), D))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    params, _keep = _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dq=dq)
-    lib = _flash_bwd_lib()
-    _launch(lib.flash_bwd_dq_bf16 if q.dtype == torch.bfloat16 else lib.flash_bwd_dq_f32,
-            params, q.device, "flash_bwd_dq")
+    params, _keep = _bwd_params(q, k, v, do, is_valid, segment_ids, dq_acc=dq_acc, dq=dq)
+    _launch(_flash_bwd_lib().flash_bwd_convert, params, q.device, "flash_bwd_convert")
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, is_valid, segment_ids):
-    """Launch csrc/flash_bwd.cu's dk/dv kernel: (dk, dv) [B, L, H, D]."""
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    params, _keep = _bwd_params(q, k, v, do, lse, delta, is_valid, segment_ids, dk=dk, dv=dv)
+def _flash_backward_f32(q, k, v, do, out, lse, is_valid, segment_ids, k_is_valid,
+                        k_segment_ids):
+    """The f32 check path: delta as one plain op, then the scalar f32 dq and
+    dk/dv kernels of csrc/flash_bwd.cu."""
+    B, L, H, D = q.shape
+    _check_f32("lse", lse, (B, H, L))
+    delta = torch.einsum("blhd,blhd->bhl", do.float(), out.float()).contiguous()
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    params, _keep = _bwd_params(q, k, v, do, is_valid, segment_ids, k_is_valid, k_segment_ids,
+                                lse=lse, delta=delta, dq=dq, dk=dk, dv=dv)
     lib = _flash_bwd_lib()
-    _launch(lib.flash_bwd_dkv_bf16 if q.dtype == torch.bfloat16 else lib.flash_bwd_dkv_f32,
-            params, q.device, "flash_bwd_dkv")
-    return dk, dv
+    _launch(lib.flash_bwd_dq_f32, params, q.device, "flash_bwd_dq_f32")
+    _launch(lib.flash_bwd_dkv_f32, params, q.device, "flash_bwd_dkv_f32")
+    return dq, dk, dv
 
 
 def _records_grad(*xs):
@@ -314,22 +420,33 @@ def flash_forward(q, k, v, is_valid, segment_ids, k_is_valid=None, k_segment_ids
     raise ValueError(f"flash: no path for device {q.device}")
 
 
-def flash_backward(q, k, v, do, out, lse, is_valid, segment_ids):
+def flash_backward(q, k, v, do, out, lse, is_valid, segment_ids, k_is_valid=None,
+                   k_segment_ids=None):
     """Flash backward -> (dq, dk, dv) [B, L, heads, d].
 
-    delta = rowsum(dO * out) is one plain op before the kernels, as in the
-    JAX package. A CUDA tensor then launches the dq and the dk/dv kernels
-    (or raises); a CPU tensor runs ``flash_attention_backward_reference``.
+    ``k_is_valid`` / ``k_segment_ids`` give the keys labels of their own
+    (both or neither; default the queries'). A bf16 CUDA tensor launches
+    ``flash_bwd_prep``, ``flash_bwd_fused`` and ``flash_bwd_convert``; an
+    f32 one the scalar f32 kernels (delta as one plain op); either raises
+    rather than fall back. A CPU tensor runs
+    ``flash_attention_backward_reference``.
     """
+    if (k_is_valid is None) != (k_segment_ids is None):
+        raise ValueError("flash: give both k_is_valid and k_segment_ids, or neither")
     if q.device.type == "cuda":
         do = do.contiguous()
-        delta = torch.einsum("blhd,blhd->bhl", do.float(), out.float()).contiguous()
         lse = lse.float().contiguous()
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, is_valid, segment_ids)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_valid, segment_ids)
-        return dq, dk, dv
+        if q.dtype != torch.bfloat16:
+            return _flash_backward_f32(q, k, v, do, out, lse, is_valid, segment_ids,
+                                       k_is_valid, k_segment_ids)
+        stats, dq_acc = flash_bwd_prep(q, k, v, do, out.contiguous(), lse, is_valid,
+                                       segment_ids)
+        dk, dv = flash_bwd_fused(q, k, v, do, stats, dq_acc, is_valid, segment_ids,
+                                 k_is_valid, k_segment_ids)
+        return flash_bwd_convert(q, k, v, do, dq_acc, is_valid, segment_ids), dk, dv
     if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids)
+        return flash_attention_backward_reference(q, k, v, do, out, lse, is_valid, segment_ids,
+                                                  k_is_valid, k_segment_ids)
     raise ValueError(f"flash: no path for device {q.device}")
 
 

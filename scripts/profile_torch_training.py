@@ -189,6 +189,8 @@ def main():
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
            and not _is_annotation(e)]
     top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    attn_bwd = sorted((e for e in ops if "flash_bwd" in e.key),
+                      key=lambda e: e.self_device_time_total, reverse=True)
     res = {
         "card": card, "batch": B, "step_ms_device": step_ms,
         "profiled_steps": steps, "profiled_ms_per_step": wall_ms / steps,
@@ -201,6 +203,9 @@ def main():
                          "ms_per_step": e.self_device_time_total / 1e3 / steps,
                          "share": e.self_device_time_total / 1e3 / (device_ms * steps)}
                         for e in top],
+        "flash_bwd_kernels": [{"name": e.key[:120], "calls_per_step": e.count / steps,
+                               "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                              for e in attn_bwd],
     }
     print(f"[profile] {card}")
     print(f"[profile] train_step: {step_ms:.2f} ms on the device clock, batch {B}")
@@ -214,6 +219,9 @@ def main():
           f"{sum(p['device_ms'] for p in parts.values()):10.2f}")
     for k in res["top_kernels"]:
         print(f"[profile]   {k['ms_per_step']:8.3f} ms {100 * k['share']:5.1f}% "
+              f"x{k['calls_per_step']:.0f}  {k['name']}")
+    for k in res["flash_bwd_kernels"]:  # the attention backward's launches (joint and span)
+        print(f"[profile]   attention backward: {k['ms_per_step']:8.3f} ms "
               f"x{k['calls_per_step']:.0f}  {k['name']}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -68,6 +68,55 @@ def test_backward_reference_matches_jax_pallas_backward(name):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0, err_msg=n)
 
 
+def _key_labels(valid, seg, seed=1):
+    """Key labels of their own (a ring hop's shard): a quarter of the keys
+    invalid at random and a fifth moved to the other segment, so that some
+    queries see few keys or none."""
+    rng = np.random.RandomState(seed)
+    k_valid = (rng.rand(*valid.shape) > 0.25).astype(np.int32)
+    k_seg = np.where(rng.rand(*seg.shape) > 0.8, 1 - seg, seg).astype(np.int32)
+    return k_valid, k_seg
+
+
+@pytest.mark.parametrize("name", ["padding", "packed", "ragged"])
+def test_backward_reference_with_key_labels_matches_jax_pallas_backward(name):
+    """The keys' own labels, as a ring hop gives them: the same (q, k, v,
+    dO, out, lse) into both, out and lse from the forward with those labels."""
+    q, k, v, do, valid, seg = _case(name)
+    k_valid, k_seg = _key_labels(valid, seg)
+    out, lse = tattn.flash_attention_reference(*_t(q, k, v, valid, seg, k_valid, k_seg))
+    got = tattn.flash_attention_backward_reference(*_t(q, k, v, do), out, lse,
+                                                   *_t(valid, seg, k_valid, k_seg))
+    bq, bk = BLOCK[name]
+    ref = jattn._flash_backward(*(jnp.asarray(x) for x in (q, k, v, do)), jnp.asarray(out.numpy()),
+                                jnp.asarray(lse.numpy())[:, :, None, :], jnp.asarray(valid),
+                                jnp.asarray(seg), block_q=bq, block_k=bk, interpret=True,
+                                k_is_valid=jnp.asarray(k_valid), k_segment_ids=jnp.asarray(k_seg))
+    for n, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0, err_msg=n)
+
+
+@pytest.mark.parametrize("name", ["padding", "packed", "ragged", "span"])
+def test_backward_reference_self_path_is_unchanged(name):
+    """Without key labels, and with the queries' labels given as the keys',
+    the plain backward gives bit for bit what it gave before it took key
+    labels (the formula below)."""
+    q, k, v, do, valid, seg = _t(*_case(name))
+    out, lse = tattn.flash_attention_reference(q, k, v, valid, seg)
+    scale = 1.0 / np.sqrt(D)
+    delta = torch.einsum("blhd,blhd->bhl", do, out)
+    p = torch.exp(tattn._masked_scores(q, k, valid, seg) - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta[..., None])
+    before = (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+              torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+              torch.einsum("bhqk,bqhd->bkhd", p, do))
+    for k_labels in ((), (valid, seg)):
+        got = tattn.flash_attention_backward_reference(q, k, v, do, out, lse, valid, seg,
+                                                       *k_labels)
+        for n, a, b in zip(("dq", "dk", "dv"), got, before):
+            assert torch.equal(a, b), n
+
+
 def test_blind_rows_recompute_p_from_lse_as_jax_does():
     """A row that sees no key has lse = -1e10 in f32, so the backward's p is
     1 for every key (not 1/L): with dO on that row only, dv is dO there for

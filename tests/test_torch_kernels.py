@@ -43,7 +43,8 @@ RING_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 def _case(name, device, seed=0):
     rng = np.random.RandomState(seed)
-    B, H, L = 2, 3, {"padding": 48, "packed": 130, "ragged": 200, "short": 5, "span": 16}[name]
+    B, H, L = 2, 3, {"padding": 48, "packed": 130, "ragged": 200, "short": 5, "span": 16,
+                     "seg64": 320, "ragged600": 600}[name]
     qkv = rng.randn(3, B, L, H, 64).astype(np.float32)
     valid = np.ones((B, L), np.int32)
     seg = np.zeros((B, L), np.int32)
@@ -53,9 +54,13 @@ def _case(name, device, seed=0):
     elif name == "packed":
         seg[:, 70:] = 1
         valid[:, 64:70] = 0
-    elif name == "ragged":
+    elif name in ("ragged", "ragged600"):
         valid = (rng.rand(B, L) > 0.15).astype(np.int32)
         seg[:, 120:] = 1
+    elif name == "seg64":  # segments meeting at multiples of 64: whole tiles masked
+        seg[:, 128:] = 1
+        seg[:, 256:] = 2
+        valid[1, 300:] = 0
     elif name == "span":  # CLS + a 15-token span padded after its length
         valid[0, 9:] = 0
         valid[1, 2:] = 0
@@ -99,11 +104,55 @@ def test_ring_grid_holds_whole_rings(max_blocks, n, members, grid):
 
 
 def test_bwd_params_struct_matches_the_c_layout():
-    # FlashBwdParams in csrc/flash_bwd.cu: 11 pointers, 4 x int64[3], 3 x int32, float
+    # FlashBwdParams in csrc/flash_bwd.cu: 16 pointers, 4 x int64[3], 4 x int32,
+    # float, padded to a multiple of 8
     P = tattn._FlashBwdParams
-    assert ctypes.sizeof(P) == 11 * 8 + 12 * 8 + 3 * 4 + 4
-    assert P.q_strides.offset == 88 and P.do_strides.offset == 160
-    assert P.batch.offset == 184 and P.scale.offset == 196
+    assert ctypes.sizeof(P) == 16 * 8 + 12 * 8 + 4 * 4 + 4 + 4
+    assert P.k_is_valid.offset == 72 and P.stats.offset == 88 and P.dq_acc.offset == 96
+    assert P.q_strides.offset == 128 and P.do_strides.offset == 200
+    assert P.batch.offset == 224 and P.padded_len.offset == 236 and P.scale.offset == 240
+
+
+def test_bwd_prep_reference_writes_the_row_stats():
+    """flash_bwd_prep's plain version: per query row lse * log2(e), delta =
+    rowsum(dO * out) and the labels' int32 bits; rows past L padded with
+    +inf, 0, 0, 0 up to a multiple of 64; the accumulator zero."""
+    q, k, v, valid, seg = _case("ragged", "cpu")
+    B, L, H, D = q.shape
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    out, lse = tattn.flash_attention_reference(q, k, v, valid, seg)
+    stats, acc = tattn.flash_bwd_prep_reference(do, out, lse, valid, seg)
+    Lp = -(-L // 64) * 64
+    assert stats.shape == (B, H, Lp, 4) and acc.shape == (B, H, Lp, D) and not acc.any()
+    torch.testing.assert_close(stats[:, :, :L, 0], lse * tattn.LOG2E, atol=0, rtol=0)
+    torch.testing.assert_close(stats[:, :, :L, 1], torch.einsum("blhd,blhd->bhl", do, out))
+    bits = stats.view(torch.int32)[:, :, :L, 2:]
+    assert torch.equal(bits[..., 0], (valid > 0).int()[:, None].expand(B, H, L))
+    assert torch.equal(bits[..., 1], seg[:, None].expand(B, H, L))
+    assert torch.isinf(stats[:, :, L:, 0]).all() and not stats[:, :, L:, 1:].any()
+
+
+def test_bwd_convert_reference_reads_the_fragment_order():
+    """flash_bwd_convert's plain version undoes the fused pass's fragment
+    order: float4 (4j + w) 32 + lane of a 64-row tile holds rows 16w + g and
+    16w + g + 8 (g = lane // 4), columns 8j + 2 (lane % 4) + {0, 1}."""
+    B, H, L, D = 2, 3, 100, 64
+    dq = torch.randn(B, L, H, D).to(torch.bfloat16).float()
+    Lp = 128
+    acc = torch.zeros(B, H, Lp // 64, 8, 4, 32, 4)  # tile, j, w, lane, register
+    for w in range(4):
+        for lane in range(32):
+            g, t4 = lane // 4, lane % 4
+            for j in range(8):
+                for r in range(4):
+                    row, col = 16 * w + g + 8 * (r // 2), 8 * j + 2 * t4 + r % 2
+                    rows = torch.arange(Lp // 64) * 64 + row
+                    ok = rows < L
+                    acc[:, :, ok, j, w, lane, r] = dq[:, rows[ok], :, col].permute(0, 2, 1) * 8
+    got = tattn.flash_bwd_convert_reference(torch.zeros(B, L, H, D, dtype=torch.bfloat16),
+                                            acc.reshape(B, H, Lp, D))
+    assert got.dtype == torch.bfloat16 and got.shape == (B, L, H, D)
+    torch.testing.assert_close(got.float(), dq, atol=0, rtol=0)
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
@@ -175,16 +224,36 @@ def test_flash_kernel_wrapper_rejects_bad_inputs(cuda_device):
         tattn.flash_forward(q.requires_grad_(), k, v, valid, seg)
 
 
-def _bwd_inputs(name, device, dtype):
-    """q, k, v, dO (random on valid rows, 0 on rows that see no key), the
-    kernel forward's out and lse, and the labels, for one case."""
+BWD_LAUNCHES = {torch.bfloat16: ("flash_bwd_prep", "flash_bwd", "flash_bwd_convert"),
+                torch.float32: ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")}
+
+
+def _key_labels(valid, seed=3):
+    """Key labels of their own: random validity and two segments, and batch
+    row 1 with no valid key (every query of it sees no key)."""
+    g = torch.Generator().manual_seed(seed)
+    k_valid = (torch.rand(valid.shape, generator=g) > 0.3).int().to(valid.device)
+    k_seg = torch.randint(0, 2, valid.shape, generator=g).int().to(valid.device)
+    k_valid[1] = 0
+    return k_valid, k_seg
+
+
+def _bwd_inputs(name, device, dtype, blind_do=False, key_labels=False):
+    """q, k, v, dO, the kernel forward's out and lse, the labels and the
+    keys' labels (None: the queries'), for one case. dO is random on valid
+    rows and 0 on rows that see no key, as in the model; with ``blind_do``
+    random on every row."""
     q, k, v, valid, seg = _case(name, device)
     q, k, v = (x.to(dtype) for x in (q, k, v))
+    k_labels = _key_labels(valid) if key_labels else (None, None)
     do = torch.from_numpy(np.random.RandomState(7).randn(*q.shape).astype(np.float32))
-    do = (do.to(device) * (valid > 0)[..., None, None]).to(dtype)
+    do = do.to(device)
+    if not blind_do:
+        do = do * (valid > 0)[..., None, None]
+    do = do.to(dtype)
     with torch.no_grad():
-        out, lse = tattn.flash_forward(q, k, v, valid, seg)
-    return q, k, v, do, out, lse, valid, seg
+        out, lse = tattn.flash_forward(q, k, v, valid, seg, *k_labels)
+    return q, k, v, do, out, lse, valid, seg, k_labels
 
 
 def _assert_grads_close(got, ref, dtype):
@@ -196,38 +265,67 @@ def _assert_grads_close(got, ref, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("name", ["padding", "packed", "ragged", "short", "span"])
-def test_flash_bwd_kernels_match_reference_on_card(cuda_device, name, dtype):
-    q, k, v, do, out, lse, valid, seg = _bwd_inputs(name, cuda_device, dtype)
+@pytest.mark.parametrize("name,blind_do,key_labels", [
+    ("padding", False, False), ("packed", False, False), ("ragged", False, False),
+    ("short", False, False), ("span", False, False),
+    ("padding", True, False),   # blind rows with dO: p = 1 on every key of every tile
+    ("span", True, False),
+    ("seg64", False, False),    # whole tiles masked out (skipped) and whole tiles full
+    ("seg64", True, False),
+    ("ragged600", False, False),  # L not a multiple of the 128 keys of a block
+    ("ragged", False, True),    # keys with labels of their own, a row seeing no key
+    ("span", False, True),
+])
+def test_flash_bwd_kernels_match_reference_on_card(cuda_device, name, blind_do, key_labels,
+                                                   dtype):
+    q, k, v, do, out, lse, valid, seg, k_labels = _bwd_inputs(name, cuda_device, dtype,
+                                                              blind_do, key_labels)
     before = dict(kernels.LAUNCHES)
-    got = tattn.flash_backward(q, k, v, do, out, lse, valid, seg)
+    got = tattn.flash_backward(q, k, v, do, out, lse, valid, seg, *k_labels)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 1
-    assert kernels.LAUNCHES["flash_bwd_dkv"] == before.get("flash_bwd_dkv", 0) + 1
+    for launch in BWD_LAUNCHES[dtype]:
+        assert kernels.LAUNCHES[launch] == before.get(launch, 0) + 1, launch
     ref = tattn.flash_attention_backward_reference(q.float(), k.float(), v.float(), do.float(),
-                                                   out.float(), lse, valid, seg)
+                                                   out.float(), lse, valid, seg, *k_labels)
     _assert_grads_close(got, ref, dtype)
 
 
 @pytest.mark.cuda
 def test_flash_bwd_kernels_read_strided_views(cuda_device):
     """q, k, v as the model hands them over (views into one QKV projection),
-    and a dO view: the same gradients as from contiguous copies."""
-    q, k, v, do, out, lse, valid, seg = _bwd_inputs("packed", cuda_device, torch.bfloat16)
+    and a dO view: the same gradients as from contiguous copies. dk and dv
+    are bit for bit the same; dq is summed over the key blocks by bulk
+    reductions in device memory, whose order changes from run to run, so it
+    is held to BWD_REL_TOL."""
+    q, k, v, do, out, lse, valid, seg, _ = _bwd_inputs("packed", cuda_device, torch.bfloat16)
     H = q.shape[2]
     qkv = torch.cat([q, k, v], dim=2)
     views = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
     do_view = torch.cat([do, do], dim=2)[:, :, H:]
     got = tattn.flash_backward(*views, do_view, out, lse, valid, seg)
     ref = tattn.flash_backward(*(x.contiguous() for x in views), do, out, lse, valid, seg)
-    for a, b in zip(got, ref):
+    _assert_grads_close(got[:1], ref[:1], torch.bfloat16)
+    for a, b in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_wrappers_reject_bad_inputs(cuda_device):
+    q, k, v, do, out, lse, valid, seg, _ = _bwd_inputs("padding", cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="both k_is_valid and k_segment_ids"):
+        tattn.flash_backward(q, k, v, do, out, lse, valid, seg, valid, None)
+    with pytest.raises(ValueError, match="bf16 only"):
+        tattn.flash_bwd_prep(q.float(), k.float(), v.float(), do.float(), out.float(), lse,
+                             valid, seg)
+    stats, dq_acc = tattn.flash_bwd_prep(q, k, v, do, out, lse, valid, seg)
+    with pytest.raises(ValueError, match="dq_acc"):
+        tattn.flash_bwd_fused(q, k, v, do, stats, dq_acc[:, :, :32], valid, seg)
 
 
 @pytest.mark.cuda
 def test_flash_attention_grad_launches_the_backward_kernels(cuda_device):
     """A grad-enabled call goes through FlashAttention: one forward launch,
-    then one launch of each backward kernel, with the plain version's grads."""
+    then one launch of each backward pass, with the plain version's grads."""
     q, k, v, valid, seg = _case("ragged", cuda_device)
     q, k, v = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
     before = dict(kernels.LAUNCHES)
@@ -235,8 +333,9 @@ def test_flash_attention_grad_launches_the_backward_kernels(cuda_device):
     do = torch.randn_like(out) * (valid > 0)[..., None, None]
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", *BWD_LAUNCHES[torch.bfloat16]):
         assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, name
+    assert kernels.LAUNCHES["flash_bwd_dq_f32"] == before.get("flash_bwd_dq_f32", 0)
     _, ref_lse = tattn.flash_attention_reference(q.detach().float(), k.detach().float(),
                                                        v.detach().float(), valid, seg)
     ref = tattn.flash_attention_backward_reference(
@@ -274,8 +373,8 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_tiny_pretrainer_step_on_card_matches_cpu(cuda_device):
     """One f32 train_step from the same weights, batch and draws: the kernel
-    path on the card (joint and span attention through flash_fwd, dq and
-    dk/dv) against the plain path on the CPU. Tolerances as for the JAX
+    path on the card (joint and span attention through flash_fwd and the f32
+    dq and dk/dv kernels) against the plain path on the CPU. Tolerances as for the JAX
     parity of the step (tests/test_torch_training.py): losses within 2e-6
     plus f32 summation order, 1e-5, and every parameter within 1e-5."""
     cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
@@ -298,7 +397,7 @@ def test_tiny_pretrainer_step_on_card_matches_cpu(cuda_device):
     card, card_info = train_step(card, card_batch, use_bfloat16_grads=False, split_at=split_at,
                                  gumbel=gumbel)
     torch.cuda.synchronize()
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):  # 2 joint + 2 span layers
+    for name in ("flash_fwd", *BWD_LAUNCHES[torch.float32]):  # 2 joint + 2 span layers
         assert kernels.LAUNCHES[name] == before.get(name, 0) + 4, name
     cpu, cpu_info = train_step(cpu, cpu_batch, use_bfloat16_grads=False, split_at=split_at,
                                gumbel=gumbel)
