@@ -9,7 +9,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    register, shared-memory and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and a few more, with its time, the plain version's,
-   the nearest single PyTorch call's, and its bound: the flash forward,
+   the nearest single PyTorch call's, and its bound: the flash forward
+   (timed with SDPA by events and on the device alone from CUDA graphs),
    then the backward (in bf16 three launches: prep, the fused wgmma pass,
    convert; in f32 the scalar dq and dk/dv kernels);
 4. slice: a full-width base model (random weights from a seed) behind
@@ -32,9 +33,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the card) against the plain ring, in bf16 and f32, at n = 2, 3, 4 and 8,
    at the long-video shape and with more ring members than fit on the card
    at once, on label cases that cross the shards; the flash forward with
-   keys labelled apart from the queries; times at the long-video shape
-   beside the bound, SDPA, the flash forward over the full sequence and the
-   plain ring;
+   keys labelled apart from the queries; the ring's and SDPA's times on
+   both clocks, and at the long-video shape the bound, the flash forward
+   over the full sequence (also checked and timed as a forward case) and
+   the plain ring;
 8. sequence-parallel serving: a full-width base model with
    ``joint_attention_impl="ring:rdma"`` behind ``VideoEmbedService`` under
    ``activate_mesh(make_mesh(sp=4))`` answers batches of 8 long videos (40
@@ -240,12 +242,15 @@ def _attn_mask(valid, seg):
     return ((v[:, :, None] & v[:, None, :]) & (seg[:, :, None] == seg[:, None, :]))[:, None]
 
 
-def check_fwd(case, valid, seg, H, D, generator):
+def check_fwd(case, valid, seg, H, D, generator, dtypes=("bf16", "f32")):
     """The forward kernel against ``flash_attention_reference`` on the card
-    at one shape, in bf16 and f32, with its time, the plain version's,
-    SDPA's and the bound. out is held relative to its largest value (at
-    least 1): a span row averages 1 to 16 keys, so its outputs reach several
-    units, not a fraction of one."""
+    at one shape, in bf16 and f32 (``dtypes``), with its time, the plain
+    version's, SDPA's and the bound. The kernel and SDPA are timed twice:
+    by CUDA events around calls (``ms``, ``sdpa_ms``: the wrapper's host
+    time included when it exceeds the kernel's) and on the device alone,
+    from a CUDA graph (``graph_ms``, ``sdpa_graph_ms``). out is held
+    relative to its largest value (at least 1): a span row averages 1 to 16
+    keys, so its outputs reach several units, not a fraction of one."""
     import torch
     import torch.nn.functional as F
 
@@ -258,6 +263,8 @@ def check_fwd(case, valid, seg, H, D, generator):
     with torch.inference_mode():
         qkv32 = torch.randn((3, B, L, H, D), generator=generator, device=valid.device)
         for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            if dname not in dtypes:
+                continue
             q, k, v = qkv32.to(dtype).unbind(0)
             out, lse = flash_forward(q, k, v, valid, seg)
             torch.cuda.synchronize()
@@ -271,23 +278,31 @@ def check_fwd(case, valid, seg, H, D, generator):
             check(math.isfinite(err_lse) and err_lse <= TOL[dname]["lse"],
                   f"{case}/{dname} lse max abs {err_lse} > {TOL[dname]['lse']}")
 
-            ms = cuda_time_ms(lambda: flash_forward(q, k, v, valid, seg))
+            def kernel():
+                return flash_forward(q, k, v, valid, seg)
+
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+            ms, sdpa_ms = cuda_time_ms(kernel), cuda_time_ms(sdpa)
+            graph_ms, sdpa_graph_ms = graph_time_ms(kernel), graph_time_ms(sdpa)
             plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, valid, seg),
                                     iters=5)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            sdpa_ms = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
             r = {"case": case, "dtype": dname, "B": B, "L": L, "H": H, "D": D,
                  "max_abs_err_out": err_out, "max_abs_out": scale,
-                 "max_abs_err_lse_valid": err_lse, "ms": ms, "plain_ms": plain_ms,
-                 "sdpa_ms": sdpa_ms, **_fwd_bound(valid, seg, H, D, dname, q.element_size())}
-            r["roofline_share"] = r["bound_ms"] / ms
+                 "max_abs_err_lse_valid": err_lse, "ms": ms, "graph_ms": graph_ms,
+                 "plain_ms": plain_ms, "sdpa_ms": sdpa_ms, "sdpa_graph_ms": sdpa_graph_ms,
+                 **_fwd_bound(valid, seg, H, D, dname, q.element_size())}
+            r["roofline_share"] = r["bound_ms"] / graph_ms
             results.append(r)
             print(f"[kernel] flash_fwd {case:11s} {dname} B={B} L={L}: out err {err_out:.3e} "
-                  f"(max |out| {scale:.2f}) lse err {err_lse:.3e} | {ms * 1e3:.1f} us (plain "
-                  f"{plain_ms * 1e3:.1f} us, sdpa {sdpa_ms * 1e3:.1f} us, bound "
-                  f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
-                  f"{100 * r['roofline_share']:.1f}% of it)", flush=True)
+                  f"(max |out| {scale:.2f}) lse err {err_lse:.3e} | {graph_ms * 1e3:.1f} us on "
+                  f"the device alone, {ms * 1e3:.1f} us by events (sdpa {sdpa_graph_ms * 1e3:.1f} "
+                  f"/ {sdpa_ms * 1e3:.1f} us: {graph_ms / sdpa_graph_ms:.2f}x; plain "
+                  f"{plain_ms * 1e3:.1f} us; bound {r['bound_ms'] * 1e3:.2f} us by "
+                  f"{r['bound_by']}, {100 * r['roofline_share']:.1f}% of it)", flush=True)
             del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
     del qkv32, mask
     torch.cuda.empty_cache()
@@ -898,9 +913,11 @@ def check_ring(case, n, valid, seg, H, D, generator, timed):
     """The ring kernel (n virtual ranks) against ``ring_attention_reference``
     on the card, in bf16 and f32, on q, k, v as the model hands them over
     (strided views of one projection). Held on every row and on valid rows,
-    relative to the plain ring's largest |out| there. ``timed``: also its
-    time, the plain ring's, SDPA's and the flash forward's over the full L,
-    and the bounds."""
+    relative to the plain ring's largest |out| there. In bf16 the kernel and
+    SDPA over the full L are timed by events (``ms``, ``sdpa_ms``) and on
+    the device alone from a CUDA graph (``graph_ms``, ``sdpa_graph_ms``).
+    ``timed``: also the plain ring's time, the flash forward's over the full
+    L, and the bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -930,23 +947,32 @@ def check_ring(case, n, valid, seg, H, D, generator, timed):
                       f"{RING_REL_TOL[dname]} x {scale}")
             msg = ""
             if dname == "bf16":
-                r["ms"] = cuda_time_ms(lambda: ring_ops.ring_fwd(q, k, v, valid, seg, n))
-                msg = f" | {r['ms'] * 1e3:.1f} us"
+                mask = _attn_mask(valid, seg)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                def kernel():
+                    return ring_ops.ring_fwd(q, k, v, valid, seg, n)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+                r["ms"], r["sdpa_ms"] = cuda_time_ms(kernel), cuda_time_ms(sdpa)
+                r["graph_ms"], r["sdpa_graph_ms"] = graph_time_ms(kernel), graph_time_ms(sdpa)
+                msg = (f" | {r['graph_ms'] * 1e3:.1f} us on the device alone, "
+                       f"{r['ms'] * 1e3:.1f} us by events (sdpa over the full L "
+                       f"{r['sdpa_graph_ms'] * 1e3:.1f} / {r['sdpa_ms'] * 1e3:.1f} us: "
+                       f"{r['graph_ms'] / r['sdpa_graph_ms']:.2f}x)")
+                del mask, qt, kt, vt
             if timed and dname == "bf16":
                 r["plain_ms"] = cuda_time_ms(lambda: ring_ops.ring_attention_reference(
                     q, k, v, valid, seg, n), iters=3, warmup=1)
-                r["flash_full_ms"] = cuda_time_ms(
+                r["flash_full_ms"] = graph_time_ms(
                     lambda: attn_ops.flash_forward(q, k, v, valid, seg))
-                mask = _attn_mask(valid, seg)
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                r["sdpa_ms"] = cuda_time_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
                 r["bounds"] = _ring_bounds(valid, seg, n, H, D, q.element_size())
                 r["bound_ms"] = r["bounds"]["function"]["bound_ms"]
                 r["bound_by"] = r["bounds"]["function"]["bound_by"]
-                del mask, qt, kt, vt
                 msg += (f" (plain ring {r['plain_ms'] * 1e3:.1f} us, flash_fwd over the full L "
-                        f"{r['flash_full_ms'] * 1e3:.1f} us, sdpa {r['sdpa_ms'] * 1e3:.1f} us; "
+                        f"{r['flash_full_ms'] * 1e3:.1f} us on the device alone; "
                         f"bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, with the "
                         f"ring's traffic {r['bounds']['ring']['bound_ms'] * 1e3:.1f} us by "
                         f"{r['bounds']['ring']['bound_by']})")
@@ -994,6 +1020,8 @@ def check_fwd_k_labels(valid, seg, H, D, generator):
 
 
 def phase_ring_kernels(seed):
+    """The ring kernel's cases, the flash forward with key labels, and the
+    flash forward at the long-video shape (B 8, L 2560) in bf16."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1002,7 +1030,9 @@ def phase_ring_kernels(seed):
         valid, seg = _ring_labels(case, B, L, "cuda")
         ring += check_ring(case, n, valid, seg, 12, 64, g, timed=case == "long_video")
     k_labels = check_fwd_k_labels(*_ring_labels("packed", 8, 640, "cuda"), 12, 64, g)
-    return ring, k_labels
+    long_fwd = check_fwd("long_video", *_ring_labels("long_video", 8, 2560, "cuda"), 12, 64, g,
+                         dtypes=("bf16",))
+    return ring, k_labels, long_fwd
 
 
 def _worst_one_minus_cos(a, b, rows):
@@ -1158,7 +1188,7 @@ def main():
     train, labels = phase_train(dev["nvidia_smi"])
     train_fwd, train_bwd = phase_kernels([("train_joint", *labels[640]),
                                           ("train_span", *labels[16])], seed=2)
-    ring, k_labels = phase_ring_kernels(seed=3)
+    ring, k_labels, long_fwd = phase_ring_kernels(seed=3)
     sp = phase_slice_sp(dev["nvidia_smi"])
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
@@ -1193,15 +1223,30 @@ def main():
                 "bound_by": joint["bounds"][name]["bound_by"],
                 "library_ms": joint["sdpa_bwd_ms"] if name == "flash_bwd" else None}
 
+    def shapes(records, keys):
+        """Per case: the times on both clocks, the bound and the factor over
+        SDPA on the graph clock."""
+        return {f"{r['case']} B{r['B']} L{r['L']}" + (f" n{r['n']}" if "n" in r else ""): {
+            **{k: r.get(k) for k in keys},
+            "graph_vs_sdpa": r["graph_ms"] / r["sdpa_graph_ms"]} for r in records}
+
+    fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
+    fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd if r["dtype"] == "bf16"
+                         and r["case"] in ("serving", "train_joint", "train_span", "long_video")],
+                        fwd_keys)
+    ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
+                          ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
+                         ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms"))
     kernels_line = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "merlot_reserve_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "merlot_reserve_tpu/ops/attention.py:115",
          "launches": sum(launches_by_path["flash_fwd"].values()),
          "launches_by_path": launches_by_path["flash_fwd"], "case": "serving bf16",
-         "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["ms"],
-         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-         "bound_by": main_case["bound_by"], "library_ms": main_case["sdpa_ms"]},
+         "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["graph_ms"],
+         "event_ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+         "library_ms": main_case["sdpa_graph_ms"], "shapes": fwd_shapes},
         *(bwd_entry(name) for name in BWD_LAUNCHES),
         {"name": "ring_fwd", "route": "cuda",
          "source": "merlot_reserve_tpu_torch/csrc/ring_fwd.cu",
@@ -1209,15 +1254,17 @@ def main():
          "launches": sum(launches_by_path["ring_fwd"].values()),
          "launches_by_path": launches_by_path["ring_fwd"],
          "case": "long_video bf16 n=4 B=8 L=2560",
-         "max_abs_err": long_ring["max_abs_err"], "ms": long_ring["ms"],
-         "plain_ms": long_ring["plain_ms"], "bound_ms": long_ring["bound_ms"],
-         "bound_by": long_ring["bound_by"], "library_ms": long_ring["sdpa_ms"]},
+         "max_abs_err": long_ring["max_abs_err"], "ms": long_ring["graph_ms"],
+         "event_ms": long_ring["ms"], "plain_ms": long_ring["plain_ms"],
+         "bound_ms": long_ring["bound_ms"], "bound_by": long_ring["bound_by"],
+         "library_ms": long_ring["sdpa_graph_ms"], "shapes": ring_shapes},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record = {"device": dev, "build": build, "kernels": kern, "bwd_kernels": bwd, "slice": sl,
               "train": train, "train_fwd_kernels": train_fwd, "train_bwd_kernels": train_bwd,
-              "ring_kernels": ring, "fwd_kernel_key_labels": k_labels, "slice_sp": sp,
+              "ring_kernels": ring, "fwd_kernel_key_labels": k_labels,
+              "long_fwd_kernels": long_fwd, "slice_sp": sp,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

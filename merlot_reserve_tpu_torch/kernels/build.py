@@ -2,9 +2,10 @@
 libraries with a plain C interface, and load them with ctypes.
 
 Each library is built at first use into ``_build/`` inside the package
-(listed in ``.gitignore``), named by a hash of its source and flags, so a
-changed source is rebuilt and an unchanged one is not. Nothing is built or
-loaded at import time.
+(listed in ``.gitignore``), named by a hash of its source, the shared
+headers ``csrc/*.cuh`` and the flags, so a changed source or header is
+rebuilt and an unchanged one is not. Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every shared
+    header (``csrc/*.cuh``, which a source may include) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Built:

@@ -40,6 +40,7 @@ NEG_INF = attn_ops.NEG_INF
 _INNERS = {"ring": ("lax", "flash", "rdma"), "ulysses": ("xla", "flash")}
 # the longest a ring kernel waits on a neighbour before it traps
 RING_TIMEOUT_NS = 5_000_000_000
+RING_KEY_TILE = 128  # keys per tile of the bf16 ring kernel (csrc/ring_fwd.cu kKeyTile)
 _TRAINING_ITEM = ("training under sequence parallelism (ROADMAP.md): the backward ring "
                   "is not ported yet")
 
@@ -294,7 +295,6 @@ class _RingParams(ctypes.Structure):
         ("is_valid", ctypes.c_void_p), ("segment_ids", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("k_slots", ctypes.c_void_p), ("v_slots", ctypes.c_void_p),
         ("lab_slots", ctypes.c_void_p), ("flags", ctypes.c_void_p),
-        ("scratch", ctypes.c_void_p),
         ("q_strides", ctypes.c_int64 * 3), ("k_strides", ctypes.c_int64 * 3),
         ("v_strides", ctypes.c_int64 * 3),
         ("batch", ctypes.c_int32), ("seq_len", ctypes.c_int32), ("heads", ctypes.c_int32),
@@ -314,21 +314,27 @@ def _ring_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _launch_info(device: torch.device, f32: bool):
-    """(most blocks resident at once, scratch floats per 64-row query block)
-    of the ring kernel on ``device``."""
-    max_blocks, state_floats = ctypes.c_int32(), ctypes.c_int32()
+    """(most blocks resident at once, query rows of a q-group) of the ring
+    kernel on ``device``; the kernel's C side asks the occupancy calculator
+    with its dynamic shared memory."""
+    max_blocks, group_rows = ctypes.c_int32(), ctypes.c_int32()
     with torch.cuda.device(device):
         err = _ring_lib().ring_fwd_launch_info(int(f32), ctypes.byref(max_blocks),
-                                               ctypes.byref(state_floats))
+                                               ctypes.byref(group_rows))
     if err != 0:
         raise RuntimeError(f"ring_fwd: occupancy query failed with cudaError_t {err}")
-    return max_blocks.value, state_floats.value
+    return max_blocks.value, group_rows.value
 
 
-def ring_grid(max_blocks: int, n: int, members: int) -> int:
-    """Blocks to launch for ``members`` = n * B * H ring members: all of
-    them if they fit at once, else the most whole rings that do."""
-    return min(members, (max_blocks // n) * n)
+def ring_grid(max_blocks: int, n: int, lloc: int, members: int, group_rows: int = 128) -> int:
+    """Blocks to launch for ``members`` = n * B * H ring members of ``lloc``
+    query rows each. The unit is a q-group (``group_rows`` rows of one
+    member, for the whole walk), so a ring is n * ceil(lloc / group_rows)
+    blocks: all units if they fit at once, else the most whole rings that
+    do (0 if not one does)."""
+    groups = -(-lloc // group_rows)
+    per_ring = n * groups
+    return min(members * groups, (max_blocks // per_ring) * per_ring)
 
 
 def ring_fwd(q, k, v, is_valid, segment_ids, n: int):
@@ -336,8 +342,9 @@ def ring_fwd(q, k, v, is_valid, segment_ids, n: int):
     virtual ranks over [B, L, H, 64] q, k, v (strided views allowed) and
     [B, L] labels -> out [B, L, H, 64] in q's dtype.
 
-    Allocates the ranks' K/V and label slots, the flags (zeroed here, on the
-    stream, before every launch) and the f32 scratch of the online softmax.
+    Allocates the ranks' K/V and label slots and the flags (zeroed here, on
+    the stream, before every launch). The online softmax stays in the
+    kernel's registers.
     """
     named = (("q", q), ("k", k), ("v", v))
     is_valid, segment_ids = attn_ops._check_operands(named, is_valid, segment_ids)
@@ -349,26 +356,26 @@ def ring_fwd(q, k, v, is_valid, segment_ids, n: int):
     if n > 65535:
         raise ValueError(f"ring_fwd: n must be <= 65535, got {n}")
     f32 = q.dtype == torch.float32
-    max_blocks, state_floats = _launch_info(q.device, f32)
-    grid = ring_grid(max_blocks, n, n * B * H)
-    if grid < n:
-        raise RuntimeError(f"ring_fwd: {max_blocks} resident blocks cannot hold a ring of {n}")
     lloc = L // n
-    q_blocks = -(-lloc // 64)
+    max_blocks, group_rows = _launch_info(q.device, f32)
+    grid = ring_grid(max_blocks, n, lloc, n * B * H, group_rows)
+    if grid == 0:
+        raise RuntimeError(f"ring_fwd: {max_blocks} resident blocks cannot hold a ring of "
+                           f"{n} x {-(-lloc // group_rows)} q-groups")
     dev = q.device
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=dev)
     k_slots = torch.empty((n, 2, B, H, lloc, D), dtype=q.dtype, device=dev)
     v_slots = torch.empty_like(k_slots)
     lab_slots = torch.empty((n, 2, B, H, 2, lloc), dtype=torch.int32, device=dev)
-    flags = torch.zeros((n, B, H, 2, 2), dtype=torch.int32, device=dev)
-    scratch = torch.empty((grid, q_blocks * state_floats), dtype=torch.float32, device=dev)
+    # per member's slot: capacity, then the ready count of each 128-key tile
+    flags = torch.zeros((n, B, H, 2, 1 + -(-lloc // RING_KEY_TILE)), dtype=torch.int32,
+                        device=dev)
     params = _RingParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), is_valid.data_ptr(), segment_ids.data_ptr(),
         out.data_ptr(), k_slots.data_ptr(), v_slots.data_ptr(), lab_slots.data_ptr(),
-        flags.data_ptr(), scratch.data_ptr(),
+        flags.data_ptr(),
         attn_ops._strides(q), attn_ops._strides(k), attn_ops._strides(v),
         B, L, H, n, grid, 1.0 / math.sqrt(D), RING_TIMEOUT_NS)
     lib = _ring_lib()
     attn_ops._launch(lib.ring_fwd_f32 if f32 else lib.ring_fwd_bf16, params, dev, "ring_fwd")
     return out
-

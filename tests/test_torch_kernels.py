@@ -22,6 +22,7 @@ Without a card they skip. Tolerances on the card:
 
 import ctypes
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -85,22 +86,43 @@ def test_params_struct_matches_the_c_layout():
 
 
 def test_ring_params_struct_matches_the_c_layout():
-    # RingParams in csrc/ring_fwd.cu: 11 pointers, 3 x int64[3], 5 x int32, float, int64
+    # RingParams in csrc/ring_fwd.cu: 10 pointers, 3 x int64[3], 5 x int32, float, int64
     P = tring._RingParams
-    assert ctypes.sizeof(P) == 11 * 8 + 9 * 8 + 5 * 4 + 4 + 8
-    assert P.q_strides.offset == 88 and P.batch.offset == 160 and P.grid.offset == 176
-    assert P.scale.offset == 180 and P.timeout_ns.offset == 184
+    assert ctypes.sizeof(P) == 10 * 8 + 9 * 8 + 5 * 4 + 4 + 8
+    assert P.flags.offset == 72 and P.q_strides.offset == 80 and P.batch.offset == 152
+    assert P.grid.offset == 168 and P.scale.offset == 172 and P.timeout_ns.offset == 176
 
 
-@pytest.mark.parametrize("max_blocks,n,members,grid", [
-    (528, 4, 384, 384),     # every member resident at once
-    (528, 4, 2304, 528),    # the persistent walk: 132 rings at a time
-    (530, 4, 2304, 528),    # whole rings only
-    (528, 3, 2304, 528),
-    (3, 4, 8, 0),           # not one ring fits: the wrapper raises
+@pytest.mark.parametrize("max_blocks,n,lloc,members,grid", [
+    (528, 4, 64, 384, 384),     # every member's one q-group resident at once
+    (528, 4, 160, 2304, 528),   # the persistent walk: 66 rings of 4 x 2 q-groups at a time
+    (530, 4, 128, 2304, 528),   # whole rings only
+    (132, 4, 640, 384, 120),    # the long-video shape: 6 rings of 4 x 5 q-groups
+    (132, 8, 80, 768, 128),
+    (3, 4, 64, 8, 0),           # not one ring fits: the wrapper raises
+    (16, 4, 640, 384, 0),
 ])
-def test_ring_grid_holds_whole_rings(max_blocks, n, members, grid):
-    assert tring.ring_grid(max_blocks, n, members) == grid
+def test_ring_grid_holds_whole_rings(max_blocks, n, lloc, members, grid):
+    assert tring.ring_grid(max_blocks, n, lloc, members) == grid
+
+
+@pytest.mark.parametrize("max_blocks,n,lloc,members,group_rows", [
+    (132, 4, 640, 384, 128),    # B 8, H 12, L 2560 at sp 4
+    (132, 2, 320, 192, 128),    # B 8, H 12, L 640 at sp 2
+    (132, 3, 200, 72, 128),     # L 600 at n 3: a q-group of 128 rows and one of 72
+    (132, 8, 80, 768, 128),
+    (132, 4, 160, 2304, 128),   # B 48: more rings than fit at once
+    (1000, 4, 160, 384, 64),    # the f32 kernel's 64-row q-groups
+    (5000, 2, 320, 24, 64),     # all of it fits at once
+])
+def test_ring_grid_launches_whole_rings_of_q_groups(max_blocks, n, lloc, members, group_rows):
+    """The unit is a q-group of one member, for its whole walk: a ring is
+    n * ceil(lloc / group_rows) blocks, which must be resident together."""
+    groups = -(-lloc // group_rows)
+    grid = tring.ring_grid(max_blocks, n, lloc, members, group_rows)
+    assert 0 < grid <= max_blocks and grid % (n * groups) == 0
+    units = members * groups
+    assert grid == units or grid + n * groups > max_blocks
 
 
 def test_bwd_params_struct_matches_the_c_layout():
@@ -163,10 +185,28 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         build.build(["flash_fwd"])
 
 
-def test_build_target_is_keyed_by_source_and_flags():
+def test_build_target_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
     a = build._target("flash_fwd")
     assert a.parent == build.BUILD_DIR and a.name.startswith("libflash_fwd-") and a.suffix == ".so"
     assert build._target("flash_fwd") == a
+    # a copy of the sources: the same name; a changed shared header, source
+    # or flag gives another library
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    assert build._target("flash_fwd") == a
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    b = build._target("flash_fwd")
+    assert b != a and b.name.startswith("libflash_fwd-")
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    c = build._target("flash_fwd")
+    assert c not in (a, b)
+    (csrc / "flash_fwd.cu").write_text((csrc / "flash_fwd.cu").read_text() + "\n")
+    assert build._target("flash_fwd") not in (a, b, c)
+    before = build._target("ring_fwd")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build._target("ring_fwd") != before
 
 
 def test_each_source_has_its_own_build_target():
@@ -487,15 +527,17 @@ def test_ring_kernel_matches_plain_ring_on_card(cuda_device, name, dtype):
 
 @pytest.mark.cuda
 def test_ring_kernel_persistent_walk_on_card(cuda_device, monkeypatch):
-    """A grid of two rings' blocks walks all B * H rings of the case."""
+    """A grid of two rings' blocks (n ranks x q-groups each) walks all B * H
+    rings of the case."""
     q, k, v, valid, seg, n = _ring_case("packed", cuda_device, torch.bfloat16)
-    max_blocks, floats = tring._launch_info(q.device, False)
-    monkeypatch.setattr(tring, "_launch_info", lambda device, f32: (2 * n, floats))
+    max_blocks, rows = tring._launch_info(q.device, False)
+    per_ring = n * -(-q.shape[1] // n // rows)
+    monkeypatch.setattr(tring, "_launch_info", lambda device, f32: (2 * per_ring, rows))
     with torch.inference_mode():
         out = tring.ring_fwd(q, k, v, valid, seg, n)
         ref = tring.ring_attention_reference(q.float(), k.float(), v.float(), valid, seg, n)
     torch.cuda.synchronize()
-    assert max_blocks >= 2 * n
+    assert max_blocks >= 2 * per_ring
     _assert_ring_close(out, ref, valid, torch.bfloat16)
 
 
@@ -525,3 +567,66 @@ def test_ring_kernel_wrapper_rejects_bad_inputs(cuda_device):
             tring.ring_fwd(q, k, v, valid, seg, 1)
     with pytest.raises(NotImplementedError, match="forward-only"):
         tring.ring_flash_attention_rdma(q.requires_grad_(), k, v, valid, seg, n)
+
+
+def _ragged_case(L, device, seed=5):
+    """q, k, v [2, L, 3, 64] bf16 as strided views of one QKV projection
+    ([2, L, 9, 64]), labels with padding, two segments and rows that see no
+    key, and keys' labels of their own (batch row 1: no valid key)."""
+    rng = np.random.RandomState(seed)
+    B, H = 2, 3
+    qkv = torch.from_numpy(rng.randn(B, L, 3 * H, 64).astype(np.float32)).to(device,
+                                                                            torch.bfloat16)
+    valid = (rng.rand(B, L) > 0.2).astype(np.int32)
+    valid[0, L - L // 4:] = 0  # a padded tail
+    seg = (np.arange(L) >= L // 2).astype(np.int32)[None].repeat(B, 0)
+    k_valid = (rng.rand(B, L) > 0.3).astype(np.int32)
+    k_valid[1] = 0
+    k_seg = rng.randint(0, 3, (B, L)).astype(np.int32)  # segment 2: no query of it
+    labels = [torch.from_numpy(x).to(device) for x in (valid, seg, k_valid, k_seg)]
+    return (qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:], *labels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_labels", [False, True])
+@pytest.mark.parametrize("L", [16, 100, 600])
+def test_flash_kernel_ragged_lengths_on_card(cuda_device, L, key_labels):
+    """The wgmma forward at lengths that are not a multiple of its 128-row
+    query tiles or key tiles, on strided views, with rows that see no key:
+    those rows average V over exactly L keys, and their lse is -1e10 bit for
+    bit (-1e10 + log L in f32), as the backward's preprocess expects."""
+    q, k, v, valid, seg, k_valid, k_seg = _ragged_case(L, cuda_device)
+    k_labels = (k_valid, k_seg) if key_labels else (None, None)
+    before = kernels.LAUNCHES["flash_fwd"]
+    with torch.inference_mode():
+        out, lse = tattn.flash_forward(q, k, v, valid, seg, *k_labels)
+        ref_out, ref_lse = tattn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                           valid, seg, *k_labels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before + 1
+    torch.testing.assert_close(out.float(), ref_out, atol=TOL[torch.bfloat16], rtol=0)
+    blind = ref_lse < -1e9
+    assert blind.any() and (~blind).any()
+    assert (lse[blind] == tattn.NEG_INF).all()
+    torch.testing.assert_close(lse[~blind], ref_lse[~blind], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L", [(3, 600), (8, 640)])
+def test_ring_kernel_ragged_shards_on_card(cuda_device, n, L):
+    """The ring at shard lengths that are not a multiple of its 128-row
+    q-groups or key tiles (Lloc 200: a q-group of 128 rows and one of 72;
+    Lloc 80: one partial q-group, a key tile cut at Lloc), on strided views,
+    with padded rows and segments that cross the shards, in bf16 against the
+    plain ring."""
+    q, k, v, valid, seg, _, _ = _ragged_case(L, cuda_device, seed=n)
+    before = kernels.LAUNCHES["ring_fwd"]
+    with torch.inference_mode():
+        out = tring.ring_fwd(q, k, v, valid, seg, n)
+        ref = tring.ring_attention_reference(q.float(), k.float(), v.float(), valid, seg, n)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_fwd"] == before + 1
+    _assert_ring_close(out, ref, valid, torch.bfloat16)
+    blind = valid == 0  # rows that see no key: the mean of V over all L
+    mean_v = v.float().mean(1, keepdim=True).expand_as(ref)
+    torch.testing.assert_close(out.float()[blind], mean_v[blind], atol=2e-2, rtol=0)
