@@ -41,7 +41,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``joint_attention_impl="ring:rdma"`` behind ``VideoEmbedService`` under
    ``activate_mesh(make_mesh(sp=4))`` answers batches of 8 long videos (40
    segments, joint L 2560), and the entry's 8-segment videos at sp = 2;
-   checks ring launches, agreement with the ``flash`` path, and times both.
+   checks ring launches, agreement with the ``flash`` path, and times both;
+9. raw media: the front end (``ops.vision`` resize and patchify,
+   ``ops.audio`` log-mel) on the card against the same functions on the
+   CPU, at the bench's raw batch and at frames that downscale and upscale,
+   the log-mel also against an f64 numpy oracle, once more with the global
+   TF32 flags on (the output must not change); embeddings from raw media
+   against ``batch_embed_video`` on the front end's own output; then the
+   zero-shot path (raw frames and PCM, ``preprocess_video`` with a
+   ``<|MASK|>`` prompt, ``rank_options``, ``extract_mask_features``,
+   ``score_label_space`` over five options tokenized by the port's BPE)
+   with a full-width base model, counted, against the same weights under
+   ``attention_impl="xla"``; 4 ``flash_fwd`` launches per label-space call;
+   ``flash_fwd`` against its plain version at each shape and with the
+   labels this path gave it (B 5 L 16, B 1 and 2 L 640); last,
+   ``bench_torch.py``'s measurement, printed as its own JSON line.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -110,6 +124,22 @@ TRAIN_F32_MIN_COSINE = 0.99999
 ZERO_GRAD = ("vision_encoder.seq_attnpool.key.bias", "audio_encoder.seq_attnpool.key.bias")
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
+# the front end on the card vs on the CPU: patches in [0, 1] differ only by
+# the order of f32 sums in the resize products; log-mel as the JAX parity
+# tests hold it (1e-3 absolute), and against the f64 oracle at
+# tests/test_audio_dsp.py's limits
+FRONT_PATCH_TOL = 1e-5
+FRONT_LOGMEL_TOL = 1e-3
+ORACLE_RTOL, ORACLE_ATOL = 1e-3, 2e-3
+# the zero-shot path, kernel path vs dense path on the same weights: the
+# lowest cosine of a label-space or MASK-feature row, and the largest
+# difference of an option's probability. Read on an H100 80GB HBM3 at 700 W:
+# 1 - cosine 8.8e-6 (label spaces) and 8.5e-6 (MASK features),
+# probabilities 3.25e-3 apart; the limits are about ten and three times those
+ZERO_SHOT_MIN_COSINE = 1 - 1e-4
+ZERO_SHOT_PROBS_TOL = 1e-2
+ZERO_SHOT_OPTIONS = ("cooking pasta in a kitchen", "a dog running on the beach",
+                     "playing the guitar", "riding a bike downhill", "painting a wall")
 
 
 def check(cond, msg):
@@ -599,10 +629,11 @@ def phase_slice(card):
     return res
 
 
-def _capture_labels(model, batch):
-    """The (is_valid, segment_ids) each flash attention call of one no-grad
-    forward of ``model`` on ``batch`` gets, by sequence length: the joint
-    tower's (L 640) and the span tower's (L 16)."""
+@contextlib.contextmanager
+def _recorded_labels():
+    """Yields a dict that each flash attention call made inside fills with
+    the (is_valid, segment_ids) it got, int32, by (B, L): the first call of
+    each shape."""
     import torch
 
     from merlot_reserve_tpu_torch.ops import attention as attn_ops
@@ -611,12 +642,26 @@ def _capture_labels(model, batch):
     original = attn_ops.flash_attention
 
     def record(q, k, v, is_valid, segment_ids):
-        seen.setdefault(q.shape[1], (is_valid.to(torch.int32), segment_ids.to(torch.int32)))
+        seen.setdefault(tuple(q.shape[:2]),
+                        (is_valid.to(torch.int32), segment_ids.to(torch.int32)))
         return original(q, k, v, is_valid, segment_ids)
 
-    with torch.no_grad(), mock.patch.object(attn_ops, "flash_attention", record):
+    with mock.patch.object(attn_ops, "flash_attention", record):
+        yield seen
+
+
+def _capture_labels(model, batch):
+    """The (is_valid, segment_ids) each flash attention call of one no-grad
+    forward of ``model`` on ``batch`` gets, by sequence length: the joint
+    tower's (L 640) and the span tower's (L 16)."""
+    import torch
+
+    with torch.no_grad(), _recorded_labels() as seen:
         model(batch)
-    return seen
+    by_length = {}
+    for (_, L), labels in seen.items():  # in call order: the first of each length
+        by_length.setdefault(L, labels)
+    return by_length
 
 
 @contextlib.contextmanager
@@ -1165,6 +1210,209 @@ def phase_slice_sp(card):
     return res
 
 
+def _oracle_log_mel(y):
+    """f64 log-mel of one 5-second clip: scipy's hann, numpy's FFT, the
+    port's slaney filters."""
+    import numpy as np
+    import scipy.signal
+
+    from merlot_reserve_tpu_torch.ops.audio import mel_filterbank
+
+    n_fft, hop = 1536, 588
+    ypad = np.pad(y.astype(np.float64), n_fft // 2, mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(ypad, n_fft)[::hop]
+    power = np.abs(np.fft.rfft(frames * scipy.signal.windows.hann(n_fft), axis=-1)) ** 2
+    mel = power @ mel_filterbank(22050, n_fft, 64, 20.0, 11025.0).astype(np.float64)
+    log_mel = np.log(mel + 0.1) - np.log(0.1)
+    return np.stack([log_mel[s:s + 60] for s in (2, 64, 126)])
+
+
+def _front_end_on_card(cases, pcm, grid, tf32):
+    """The front end on the card with the global TF32 flags set to ``tf32``
+    (legacy API, as phase_kernels sets them); checks they are left so."""
+    import torch
+
+    from merlot_reserve_tpu_torch.ops.audio import batch_make_spectrogram
+    from merlot_reserve_tpu_torch.ops.vision import batch_preprocess_images
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    out = {name: batch_preprocess_images(x, grid, device="cuda") for name, x in cases.items()}
+    out["log_mel"] = batch_make_spectrogram(pcm, device="cuda")
+    torch.cuda.synchronize()
+    check(torch.backends.cuda.matmul.allow_tf32 == tf32, "the front end changed the TF32 flag")
+    return out
+
+
+def phase_raw_media(card, seed):
+    """Raw frames and PCM to embeddings and zero-shot answers on the card."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch import preprocess, zero_shot
+    from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
+    from merlot_reserve_tpu_torch.ops.audio import batch_make_spectrogram
+    from merlot_reserve_tpu_torch.ops.vision import batch_preprocess_images
+
+    cfg = load_config("base")
+    grid = tuple(cfg.model.output_grid)
+    rng = np.random.RandomState(0)
+    frames, pcm, tokens, subseg = bench_torch.raw_inputs(rng)
+    flat_pcm = pcm.reshape(-1, pcm.shape[-1])
+    cases = {"bench 180x320": frames.reshape(-1, *frames.shape[2:]),
+             "downscale 360x640": rng.randint(0, 256, (4, 360, 640, 3), dtype=np.uint8),
+             "upscale 100x150": rng.randint(0, 256, (4, 100, 150, 3), dtype=np.uint8)}
+
+    # 1. the front end: card against CPU and the f64 oracle, TF32 off and on
+    tf32_before = torch.backends.cuda.matmul.allow_tf32
+    t0 = time.perf_counter()
+    card = _front_end_on_card(cases, flat_pcm, grid, tf32=False)
+    card_tf32 = _front_end_on_card(cases, flat_pcm, grid, tf32=True)
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    torch.backends.cudnn.allow_tf32 = tf32_before
+    front = {}
+    for name in card:
+        check(torch.equal(card[name], card_tf32[name]),
+              f"front end {name} changes with the global TF32 flags")
+        if name == "log_mel":
+            cpu = batch_make_spectrogram(flat_pcm, device="cpu").numpy()
+            tol = FRONT_LOGMEL_TOL
+        else:
+            cpu = batch_preprocess_images(cases[name], grid, device="cpu").numpy()
+            tol = FRONT_PATCH_TOL
+        err = float(np.abs(card[name].cpu().numpy() - cpu).max())
+        front[name] = {"shape": list(card[name].shape), "max_abs_err_vs_cpu": err}
+        check(err <= tol, f"front end {name}: card vs CPU {err} > {tol}")
+    oracle_clips = range(0, len(flat_pcm), 9)
+    log_mel = card["log_mel"].cpu().numpy()
+    for i in oracle_clips:
+        ref = _oracle_log_mel(flat_pcm[i])
+        check(np.allclose(log_mel[i, ..., :64], ref, rtol=ORACLE_RTOL, atol=ORACLE_ATOL),
+              f"log-mel of clip {i} vs the f64 oracle: max |err| "
+              f"{np.abs(log_mel[i, ..., :64] - ref).max()}")
+    front["log_mel"]["max_abs_err_vs_oracle"] = max(
+        float(np.abs(log_mel[i, ..., :64] - _oracle_log_mel(flat_pcm[i])).max())
+        for i in oracle_clips)
+    print(f"[raw] front end on the card vs the CPU (TF32 on and off alike): "
+          + ", ".join(f"{k} {v['max_abs_err_vs_cpu']:.2e}" for k, v in front.items())
+          + f"; log-mel vs f64 oracle {front['log_mel']['max_abs_err_vs_oracle']:.2e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 2. embeddings from raw media = batch_embed_video on the front end's output
+    model = MerlotReserve(cfg, device="cuda", seed=seed).eval()
+    with torch.inference_mode():
+        frames_t, pcm_t = torch.from_numpy(frames).cuda(), torch.from_numpy(pcm).cuda()
+        tokens_t, subseg_t = torch.from_numpy(tokens).cuda().long(), torch.from_numpy(subseg).cuda().long()
+        from_raw = model.batch_embed_video(*bench_torch.front_end(frames_t, pcm_t, grid, "cuda"),
+                                           tokens_t, subseg_t)
+        patches = card["bench 180x320"].reshape(*frames.shape[:2], -1, 768)
+        direct = model.batch_embed_video(patches, card["log_mel"].reshape(
+            frames.shape[0], -1, 60, 65), tokens_t, subseg_t)
+    check(torch.equal(from_raw, direct), "embeddings from raw media differ from "
+          "batch_embed_video on the front end's output")
+    norms = from_raw.float().norm(dim=-1)
+    check(bool(torch.isfinite(from_raw).all()) and float((norms - 1).abs().max()) < 1e-2,
+          "raw-media embeddings are not finite unit rows")
+
+    # 3. the zero-shot path, counted: raw video -> options ranked
+    video_frames = [frames[0], np.ascontiguousarray(frames[1, ::-1])]
+    waveforms = [pcm[0].reshape(-1), pcm[1].reshape(-1)]
+    times = [{"start_time": 5.0 * i, "end_time": 5.0 * (i + 1), "mid_time": 5.0 * i + 2.5}
+             for i in range(frames.shape[1])]
+    prompts = ["the person is <|MASK|> right now", "<|MASK|> is what happens next"]
+    pre = PretrainedMerlotReserve(model)
+    span_layers, joint_layers = cfg.model.span_num_layers, cfg.model.joint_num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernels.LAUNCHES.clear()
+    with _recorded_labels() as path_labels:
+        video_pres = []
+        for vf, wav, prompt in zip(video_frames, waveforms, prompts):
+            segs = preprocess.segments_from_arrays(vf, wav, times, device="cuda")
+            for s in segs[:-1]:
+                s["use_text_as_input"] = False
+            segs[-1]["text"] = prompt
+            video_pres.append(preprocess.preprocess_video(segs, grid, device="cuda"))
+        probs = zero_shot.rank_options(pre, video_pres[0], ZERO_SHOT_OPTIONS)
+        feats = zero_shot.extract_mask_features(pre, video_pres)
+        logits = zero_shot.score_label_space(pre, feats, ZERO_SHOT_OPTIONS)
+        torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * (joint_layers + span_layers)  # rank_options, then features + scores
+    print(f"[raw] zero-shot path: 2 raw videos -> preprocess_video -> rank_options, "
+          f"extract_mask_features, score_label_space in {path_s:.2f} s; launches {launches}",
+          flush=True)
+    check(launches.get("flash_fwd", 0) == want,
+          f"zero-shot path flash_fwd launches {launches.get('flash_fwd', 0)} != {want}")
+    check(probs.shape == (1, len(ZERO_SHOT_OPTIONS)) and np.isfinite(probs).all()
+          and abs(float(probs.sum()) - 1) < 1e-5, f"option probabilities {probs}")
+    check(logits.shape == (2, len(ZERO_SHOT_OPTIONS)) and np.isfinite(logits).all(),
+          f"label-space logits {logits}")
+    kernels.LAUNCHES.clear()
+    label_space = pre.get_label_space(list(ZERO_SHOT_OPTIONS))
+    per_call = dict(kernels.LAUNCHES)
+    check(per_call.get("flash_fwd", 0) == span_layers,
+          f"one label-space call launched flash_fwd {per_call.get('flash_fwd', 0)} times, "
+          f"not {span_layers}")
+
+    # the same weights with every attention dense
+    xla_model = MerlotReserve(load_config("base", attention_impl="xla", joint_attention_impl="xla"),
+                              device="cuda", seed=seed + 1).eval()
+    xla_model.load_state_dict(model.state_dict())
+    xla_pre = PretrainedMerlotReserve(xla_model)
+    kernels.LAUNCHES.clear()
+    xla_label_space = xla_pre.get_label_space(list(ZERO_SHOT_OPTIONS))
+    xla_probs = zero_shot.rank_options(xla_pre, video_pres[0], ZERO_SHOT_OPTIONS)
+    xla_feats = zero_shot.extract_mask_features(xla_pre, video_pres)
+    check(not kernels.LAUNCHES, f"the xla path launched kernels {dict(kernels.LAUNCHES)}")
+
+    def min_row_cos(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                         * np.linalg.norm(b, axis=-1))).min())
+
+    agreement = {"label_space_min_cos": min_row_cos(label_space.float().cpu(),
+                                                    xla_label_space.float().cpu()),
+                 "mask_features_min_cos": min_row_cos(feats, xla_feats),
+                 "probs_max_abs_diff": float(np.abs(probs - xla_probs).max())}
+    print(f"[raw] kernel path vs xla path on the same weights: {agreement}", flush=True)
+    check(agreement["label_space_min_cos"] >= ZERO_SHOT_MIN_COSINE
+          and agreement["mask_features_min_cos"] >= ZERO_SHOT_MIN_COSINE,
+          f"kernel vs xla zero-shot cosine below {ZERO_SHOT_MIN_COSINE}: {agreement}")
+    check(agreement["probs_max_abs_diff"] <= ZERO_SHOT_PROBS_TOL,
+          f"kernel vs xla option probabilities more than {ZERO_SHOT_PROBS_TOL} apart: "
+          f"{agreement}")
+    del xla_model, xla_pre, model, pre
+
+    # the kernel at each shape and with the labels this path gave it (the
+    # span tower at options x 16, the joint tower at 1 and 2 videos x 640:
+    # fewer work items than the card has SMs), against its plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    path_fwd = []
+    for (B, L), (valid, seg) in sorted(path_labels.items()):
+        path_fwd += check_fwd("zero_shot_span" if L == 16 else "zero_shot_joint", valid, seg,
+                              cfg.model.num_heads, cfg.model.size_per_head, g, dtypes=("bf16",))
+    check(sorted(path_labels) == [(1, 640), (2, 640), (len(ZERO_SHOT_OPTIONS), 16)],
+          f"zero-shot path attention shapes {sorted(path_labels)}")
+    torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    torch.backends.cudnn.allow_tf32 = tf32_before
+
+    # 4. the bench
+    torch.cuda.empty_cache()
+    bench = bench_torch.measure(seed=seed)
+    print(json.dumps(bench), flush=True)
+    check(bench["value"] > 0 and bench["mfu"] is not None, f"bench record {bench}")
+    return {"front_end": front, "launches": launches, "launches_per_label_space": per_call,
+            "probs": probs.tolist(), "xla_probs": xla_probs.tolist(),
+            "agreement": agreement, "zero_shot_path_s": path_s, "fwd_kernels": path_fwd,
+            "bench": bench}
+
+
 def main():
     import torch
 
@@ -1190,6 +1438,7 @@ def main():
                                           ("train_span", *labels[16])], seed=2)
     ring, k_labels, long_fwd = phase_ring_kernels(seed=3)
     sp = phase_slice_sp(dev["nvidia_smi"])
+    raw = phase_raw_media(dev["nvidia_smi"], seed=4)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -1197,7 +1446,8 @@ def main():
     launches_by_path = {name: {"serving": sl["launches"].get(name, 0),
                                "train": train["launches"].get(name, 0),
                                "serving_sp4_long": sp["launches_long_sp4"].get(name, 0),
-                               "serving_sp2_entry": sp["launches_entry_sp2"].get(name, 0)}
+                               "serving_sp2_entry": sp["launches_entry_sp2"].get(name, 0),
+                               "raw_media_zero_shot": raw["launches"].get(name, 0)}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd")}
 
     def bwd_entry(name):
@@ -1231,9 +1481,10 @@ def main():
             "graph_vs_sdpa": r["graph_ms"] / r["sdpa_graph_ms"]} for r in records}
 
     fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
-    fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd if r["dtype"] == "bf16"
-                         and r["case"] in ("serving", "train_joint", "train_span", "long_video")],
-                        fwd_keys)
+    fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"]
+                         if r["dtype"] == "bf16" and r["case"] in (
+                             "serving", "train_joint", "train_span", "long_video",
+                             "zero_shot_joint", "zero_shot_span")], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
                          ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms"))
@@ -1264,7 +1515,7 @@ def main():
     record = {"device": dev, "build": build, "kernels": kern, "bwd_kernels": bwd, "slice": sl,
               "train": train, "train_fwd_kernels": train_fwd, "train_bwd_kernels": train_bwd,
               "ring_kernels": ring, "fwd_kernel_key_labels": k_labels,
-              "long_fwd_kernels": long_fwd, "slice_sp": sp,
+              "long_fwd_kernels": long_fwd, "slice_sp": sp, "raw_media": raw,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

@@ -29,7 +29,7 @@ from merlot_reserve_tpu_torch.models.towers import (
 )
 from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
 from merlot_reserve_tpu_torch.ops.pooling import unit_normalize
-from merlot_reserve_tpu_torch.tokenizer import AUDIOSPAN, PADDING
+from merlot_reserve_tpu_torch.tokenizer import AUDIOSPAN, PADDING, encode_batch_padded
 from merlot_reserve_tpu_torch.utils.device import resolve_device
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
@@ -281,6 +281,12 @@ class PretrainedMerlotReserve:
         model = MerlotReserve(cfg, device=device)
         load_flax_params(model, params)
         return cls(model)
+
+    def get_label_space(self, options):
+        """Encode answer options (padded or cut to the span length) through
+        the span tower -> [len(options), H] unit-normalized."""
+        table = encode_batch_padded(options, length=self.model.config.text_span_length)
+        return self.embed_text_spans_only(torch.from_numpy(table).to(self.device))
 
     def __getattr__(self, name):
         if name.startswith("_"):

@@ -483,7 +483,13 @@ def flash_attention(q, k, v, is_valid, segment_ids):
 def resolve_impl(impl: str = "auto", *, has_bias: bool = False, has_labels: bool = False,
                  on_cuda: bool = False) -> str:
     """Resolve the 'auto' policy once (the encoder hoists the dense bias out
-    of its layer loop with it). Other strings pass through."""
+    of its layer loop with it). The JAX package's 'flash:BQ:BK' is 'flash':
+    the CUDA kernels fix their own tiles. Other strings pass through."""
+    if impl.startswith("flash:"):
+        parts = impl.split(":")
+        if len(parts) != 3 or not all(p.isdigit() for p in parts[1:]):
+            raise ValueError(f"attention impl {impl!r}: want flash[:BQ:BK]")
+        return "flash"
     if impl != "auto":
         return impl
     if has_bias or not has_labels:
@@ -530,7 +536,7 @@ def attention(q, k, v, *, is_valid=None, segment_ids=None,
             segment_ids = torch.zeros((B, L), dtype=torch.int32, device=q.device)
         return flash_attention(q, k, v, is_valid, segment_ids)
     if impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r}; want 'auto', 'flash', 'xla', "
+        raise ValueError(f"unknown attention impl {impl!r}; want 'auto', 'flash[:BQ:BK]', 'xla', "
                          "'ring[:lax|flash|rdma][:AXIS]' or 'ulysses[:xla|flash][:AXIS]'")
     if bias is None and has_labels:
         bias = make_attention_bias(is_valid=is_valid, segment_ids=segment_ids)

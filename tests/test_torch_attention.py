@@ -124,7 +124,8 @@ def test_resolve_impl_policy():
 @pytest.mark.parametrize("impl,kwargs,error", [
     ("ring", {"bias": "dense"}, ValueError),
     ("ulysses:bogus:sp", {}, ValueError),
-    ("flash:128:128", {}, ValueError),
+    ("flash:128", {}, ValueError),
+    ("flash:128:bq", {}, ValueError),
     ("bogus", {}, ValueError),
     ("flash", {"bias": "dense"}, ValueError),
 ])
@@ -134,6 +135,18 @@ def test_attention_rejects(impl, kwargs, error):
         kwargs = {"bias": tattn.make_attention_bias(valid, seg)}
     with pytest.raises(error):
         tattn.attention(q, k, v, impl=impl, **kwargs)
+
+
+@pytest.mark.parametrize("impl", ["flash:128:128", "flash:640:640"])
+def test_attention_accepts_jax_flash_tiles(impl):
+    """The JAX package's 'flash:BQ:BK' names its Pallas tiles; the CUDA
+    kernels fix their own, so the port runs it as 'flash'."""
+    q, k, v, valid, seg = _t(*_case("padding"))
+    assert tattn.resolve_impl(impl) == "flash"
+    with torch.no_grad():
+        out = tattn.attention(q, k, v, is_valid=valid, segment_ids=seg, impl=impl)
+        flash = tattn.attention(q, k, v, is_valid=valid, segment_ids=seg, impl="flash")
+    torch.testing.assert_close(out, flash, atol=0, rtol=0)
 
 
 def test_flash_rejects_cross_attention_lengths():

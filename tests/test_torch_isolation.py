@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py) loads no JAX, flax or merlot_reserve_tpu module,
-and the entry points refuse to run on their default device, the CUDA card,
-where there is none: they never fall back to the CPU on their own."""
+(and running chip_smoke.py) loads no JAX, flax, merlot_reserve_tpu or
+HuggingFace tokenizers module, and the entry points refuse to run on their
+default device, the CUDA card, where there is none: they never fall back to
+the CPU on their own."""
 
 import ast
 import json
@@ -11,10 +12,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from bench_torch import main as bench_main
 from merlot_reserve_tpu_torch import load_config
+from merlot_reserve_tpu_torch.ops.audio import batch_make_spectrogram
+from merlot_reserve_tpu_torch.ops.vision import batch_preprocess_images
+from merlot_reserve_tpu_torch.preprocess import preprocess_video, segments_from_arrays
 from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
 from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
 from merlot_reserve_tpu_torch.parallel.mesh import make_mesh
@@ -23,7 +29,7 @@ from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "merlot_reserve_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlot_reserve_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlot_reserve_tpu", "tokenizers")
 TINY = dict(hidden_size=128, joint_num_layers=1, vit_num_layers=1, audio_num_layers=1,
             span_num_layers=1, output_grid=(4, 4), use_bfloat16=False)
 
@@ -49,11 +55,14 @@ def test_importing_every_port_module_loads_no_jax():
     assert "merlot_reserve_tpu_torch.models.model" in loaded
     assert "merlot_reserve_tpu_torch.ops.ring_attention" in loaded
     assert "merlot_reserve_tpu_torch.parallel.mesh" in loaded
+    for module in ("ops.vision", "ops.audio", "tokenizer", "preprocess", "zero_shot",
+                   "utils.subtitles", "utils.profiling"):
+        assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "bench_torch.py"])
 def test_no_source_imports_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -77,6 +86,18 @@ def test_entry_points_refuse_a_missing_card():
         run_pretraining(cfg, iter([]), num_steps=1)
     with pytest.raises(RuntimeError, match="cuda"):
         make_mesh(sp=4)  # its default devices: the card, once per rank
+    frames = np.zeros((1, 32, 32, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_preprocess_images(frames, (2, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_make_spectrogram(np.zeros((1, 110250), np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        segments_from_arrays(frames, np.zeros(110250, np.float32),
+                             [{"start_time": 0.0, "end_time": 5.0, "mid_time": 2.5}])
+    with pytest.raises(RuntimeError, match="cuda"):
+        preprocess_video([{"frame": frames[0], "spectrogram": None, "text": "a"}], (2, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_main([])
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):

@@ -630,3 +630,52 @@ def test_ring_kernel_ragged_shards_on_card(cuda_device, n, L):
     blind = valid == 0  # rows that see no key: the mean of V over all L
     mean_v = v.float().mean(1, keepdim=True).expand_as(ref)
     torch.testing.assert_close(out.float()[blind], mean_v[blind], atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw", [(180, 320), (360, 640), (100, 150)])
+@pytest.mark.parametrize("tf32", [False, True])
+def test_front_end_on_card_matches_cpu(cuda_device, raw, tf32):
+    """Patches (1e-5: the resize's f32 sums in another order) and log-mel
+    (1e-3, as against JAX) on the card against the CPU, whatever the
+    caller's global TF32 flag, which the front end leaves as it was."""
+    from merlot_reserve_tpu_torch.ops.audio import batch_make_spectrogram
+    from merlot_reserve_tpu_torch.ops.vision import batch_preprocess_images
+
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (3, *raw, 3), dtype=np.uint8)
+    pcm = (0.1 * rng.randn(3, 110250)).astype(np.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        patches = batch_preprocess_images(frames, (12, 20), device=cuda_device)
+        log_mel = batch_make_spectrogram(pcm, device=cuda_device)
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.testing.assert_close(patches.cpu(), batch_preprocess_images(frames, (12, 20),
+                                                                      device="cpu"),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(log_mel.cpu(), batch_make_spectrogram(pcm, device="cpu"),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_label_space_launches_the_span_towers_flash_kernel(cuda_device):
+    """One get_label_space call runs the span tower's layers through
+    flash_fwd, one launch each, and agrees with the CPU on the same f32
+    weights."""
+    from merlot_reserve_tpu_torch.models import PretrainedMerlotReserve
+
+    cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
+                      audio_num_layers=2, span_num_layers=3, output_grid=(4, 4),
+                      use_bfloat16=False)
+    on_card = MerlotReserve(cfg, device=cuda_device)
+    on_cpu = MerlotReserve(cfg, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    options = ["a dog", "the next action is cooking pasta in the kitchen", "", "x² ½ café"]
+    before = kernels.LAUNCHES["flash_fwd"]
+    card = PretrainedMerlotReserve(on_card).get_label_space(options)
+    assert kernels.LAUNCHES["flash_fwd"] == before + cfg.model.span_num_layers
+    cpu = PretrainedMerlotReserve(on_cpu).get_label_space(options)
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=0)

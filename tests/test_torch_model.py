@@ -88,6 +88,15 @@ def test_embed_video_matches_jax_flash_on_valid_rows(jax_params, monkeypatch):
     np.testing.assert_allclose(out[:N_VALID], j[:N_VALID], atol=ATOL, rtol=0)
 
 
+def test_jax_flash_tile_string_builds_the_flash_model(jax_params):
+    """A config written for the JAX package (joint_attention_impl
+    'flash:640:640', as docs/TRAINING.md recommends) builds a port model
+    that gives the 'flash' model's output exactly."""
+    tiles = _port_apply(_port(jax_params, "flash:640:640"), "embed_video", *_video(0))
+    flash = _port_apply(_port(jax_params, "flash"), "embed_video", *_video(0))
+    np.testing.assert_array_equal(tiles, flash)
+
+
 def _one_minus_cosine(a, b):
     return 1 - (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
