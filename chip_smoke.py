@@ -55,7 +55,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``attention_impl="xla"``; 4 ``flash_fwd`` launches per label-space call;
    ``flash_fwd`` against its plain version at each shape and with the
    labels this path gave it (B 5 L 16, B 1 and 2 L 640); last,
-   ``bench_torch.py``'s measurement, printed as its own JSON line.
+   ``bench_torch.py``'s measurement, printed as its own JSON line;
+10. long-video training: the ``soak_longvideo`` recipe at full base widths
+   (80 segments, seq_len 2560, both remat knobs) on the port's dummy batch
+   of 4 examples takes 3 steps through ``run_pretraining`` twice: with
+   ``joint_attention_impl="ring:flash"``, ``seq_shard_axis`` and
+   ``segment_shard_axis`` "sp" under ``make_mesh(sp=4)``, and with
+   ``flash`` and no mesh. Checks finite losses near ln N at step 0, a
+   falling loss, ``flash_fwd`` and each backward launch per step as worked
+   out from the config (the ring's n x n launches per joint layer, and
+   the recompute's), no ``ring_fwd``, and the two paths' step-0 losses and
+   gradients against each other beside the flash path's spread against
+   itself; times both, and one step at batch 1 with the remat knobs off
+   and on for peak memory;
+11. hop kernels: ``flash_fwd`` with key labels and the three-launch
+   backward with merged out/lse from outside, at the ring hop's shape (one
+   rank's 640 query rows against one visiting shard of 640 keys, the 24
+   joint rows of phase 10, its labels), against their plain versions, with
+   times, bounds and SDPA over the same pair.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -1413,6 +1430,412 @@ def phase_raw_media(card, seed):
             "bench": bench}
 
 
+# long-video training (phase 10): the soak_longvideo recipe at full base
+# widths, batch LONG_TRAIN_BATCH (the recipe's batch 1 was set for a 16 GB
+# chip), with warmup 1 and lr 1e-5 as phase 5; ring:flash over
+# LONG_TRAIN_SP virtual ranks against flash without a mesh
+LONG_TRAIN_BATCH = 4
+LONG_TRAIN_STEPS = 3
+LONG_TRAIN_SP = 4
+LONG_JOINT_LEN = 2560  # the recipe's seq_len: the joint rows' length
+# (name, rank whose queries, shard whose keys) of the hop-shape kernel cases:
+# hop 1 of ranks 0 and 1 (the shard from the left neighbour)
+HOP_CASES = (("hop r0 k3", 0, 3), ("hop r1 k0", 1, 0))
+# remat against no remat on the card: the same ops, but dq's atomics add in
+# an order that changes from run to run, so the remat gradient is held to
+# the spread of two gradients without remat: 1 - cos (whole and per tower)
+# at most REMAT_SPREAD_FACTOR times the spread's, plus REMAT_SPREAD_FLOOR for
+# the parts that the atomics do not reach (a zero spread). The forward has
+# no atomics: the losses within the spread plus REMAT_LOSS_FLOOR, two f32
+# ulps at a loss near 5 (should cuBLAS pick another algorithm for a copy)
+REMAT_SPREAD_FACTOR = 4
+REMAT_SPREAD_FLOOR = 1e-9
+REMAT_LOSS_FLOOR = 1e-6
+
+
+def _long_train_config(ring, **model):
+    import dataclasses as dc
+
+    from merlot_reserve_tpu_torch import load_config
+
+    if ring:
+        model = dict(joint_attention_impl="ring:flash", seq_shard_axis="sp",
+                     segment_shard_axis="sp", **model)
+    cfg = load_config("soak_longvideo", **model)
+    return dc.replace(cfg, optimizer=dc.replace(cfg.optimizer, num_warmup_steps=1,
+                                                learning_rate=1e-5))
+
+
+def _expected_long_launches(cfg, n):
+    """(flash_fwd, each backward launch) per training step, from the config:
+    a joint layer attends once (flash) or n x n times (one launch per rank
+    and hop of ring:flash) in the forward, as often again in its recompute
+    under gradient_checkpoint, and once per forward launch in the backward;
+    a span layer (the span tower's attention is flash on the card; the
+    vision and audio towers' is dense) once, again under
+    tower_gradient_checkpoint. ring_fwd never: ring:rdma is forward-only."""
+    m = cfg.model
+    per_joint = n * n if m.joint_attention_impl == "ring:flash" else 1
+    fwd = (m.joint_num_layers * per_joint * (2 if m.gradient_checkpoint else 1)
+           + m.span_num_layers * (2 if m.tower_gradient_checkpoint else 1))
+    return fwd, m.joint_num_layers * per_joint + m.span_num_layers
+
+
+def phase_train_long(card):
+    """Long-video pretraining: the soak_longvideo recipe under ring:flash at
+    sp 4 (arm a) and flash without a mesh (arm b), both with both remat
+    knobs, and one step at batch 1 with the knobs off and on (arm c)."""
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.models.pretrainer import (MerlotReservePretrainer,
+                                                           batch_to_tensors)
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import (create_train_state, loss_and_grads,
+                                                          train_step)
+
+    cfgs = {"ring_flash_sp4": _long_train_config(True), "flash": _long_train_config(False)}
+    meshes = {"ring_flash_sp4": make_mesh(sp=LONG_TRAIN_SP), "flash": None}
+    cfg = cfgs["ring_flash_sp4"]
+    m, d = cfg.model, cfg.data
+    batch = make_dummy_batch(cfg, LONG_TRAIN_BATCH, seed=0)
+    print(f"[long] soak_longvideo, hidden {m.hidden_size}, {m.joint_num_layers}/"
+          f"{m.vit_num_layers}/{m.audio_num_layers}/{m.span_num_layers} joint/vision/audio/span "
+          f"layers, gradient_checkpoint {m.gradient_checkpoint}, tower_gradient_checkpoint "
+          f"{m.tower_gradient_checkpoint}; batch {LONG_TRAIN_BATCH}, {d.num_segments} segments "
+          f"in {d.num_segment_groups} groups, seq_len {d.seq_len}, "
+          f"{d.num_text_spans_to_include} spans drawn per example; arms "
+          f"{ {k: c.model.joint_attention_impl for k, c in cfgs.items()} }, sp {LONG_TRAIN_SP}",
+          flush=True)
+    expected = _expected_init_losses(cfg, LONG_TRAIN_BATCH)
+    arms = {}
+    for name, arm_cfg in cfgs.items():
+        logged, stamps = [], []
+
+        def log_fn(step, metrics, logged=logged, stamps=stamps):
+            stamps.append(time.perf_counter())  # metrics are floats: the step has ended
+            logged.append(metrics)
+
+        # the training path, counted: every launch between the reset and the read
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = run_pretraining(arm_cfg, itertools.repeat(batch), num_steps=LONG_TRAIN_STEPS,
+                                log_fn=log_fn, device="cuda", seed=0, mesh=meshes[name])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+        totals = [m_["total"] for m_ in logged]
+        fwd, bwd = _expected_long_launches(arm_cfg, LONG_TRAIN_SP if meshes[name] else 1)
+        print(f"[long] {name}: {LONG_TRAIN_STEPS} steps, kernel launches {launches} (expected "
+              f"per step: flash_fwd {fwd}, each backward launch {bwd}); total loss per step "
+              f"{[round(t, 5) for t in totals]}", flush=True)
+        check(launches.get("flash_fwd", 0) == fwd * LONG_TRAIN_STEPS,
+              f"{name}: flash_fwd launches {launches.get('flash_fwd', 0)} != {fwd} x "
+              f"{LONG_TRAIN_STEPS} steps")
+        for launch in BWD_LAUNCHES:
+            check(launches.get(launch, 0) == bwd * LONG_TRAIN_STEPS,
+                  f"{name}: {launch} launches {launches.get(launch, 0)} != {bwd} x "
+                  f"{LONG_TRAIN_STEPS} steps")
+        for launch in (*BWD_LAUNCHES_F32, "ring_fwd"):
+            check(launches.get(launch, 0) == 0, f"{name}: the bf16 step launched {launch}")
+        check(all(math.isfinite(v) for m_ in logged for v in m_.values()),
+              f"{name}: non-finite loss")
+        for head, ln_n in expected.items():
+            check(abs(logged[0][head] - ln_n) < 0.05,
+                  f"{name}: step-0 {head} loss {logged[0][head]} is not near ln N = {ln_n}")
+        check(abs(totals[1] - totals[0]) <= 1e-4,
+              f"{name}: the first update (lr scale 0) changed the loss")
+        check(totals[-1] < totals[1], f"{name}: loss did not fall on the repeated batch: {totals}")
+
+        # the step on the device clock, on a batch already on the card
+        dev_batch = batch_to_tensors(batch, "cuda")
+        with activate_mesh(meshes[name]):
+            device_ms = cuda_time_ms(lambda: train_step(state, dev_batch), iters=2, warmup=1)
+        host_med = float(np.median(step_ms[1:]))
+        arms[name] = {"launches": launches, "expected_per_step": {"flash_fwd": fwd,
+                                                                   "backward_each": bwd},
+                      "losses": logged, "step_ms_host": step_ms, "step_ms_host_median": host_med,
+                      "step_ms_device": device_ms,
+                      "examples_per_s": LONG_TRAIN_BATCH / host_med * 1e3,
+                      "device_examples_per_s": LONG_TRAIN_BATCH / device_ms * 1e3,
+                      "max_memory_allocated_bytes": peak}
+        print(f"[long] {card}: {name}: {host_med:.1f} ms per step on the host clock (median "
+              f"of steps 2-{LONG_TRAIN_STEPS}), {device_ms:.1f} ms on the device clock; "
+              f"{arms[name]['examples_per_s']:.3f} examples/s; peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del state, dev_batch
+        torch.cuda.empty_cache()
+
+    # (a) against (b) at step 0: the same weights, batch and draws; the
+    # spread of (b) against itself (dq's atomics) printed beside
+    dev_batch = batch_to_tensors(batch, "cuda")
+    models = {name: MerlotReservePretrainer(c, device="cuda", seed=0) for name, c in cfgs.items()}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    spg, rows = d.num_segments_per_group, LONG_TRAIN_BATCH * d.num_segment_groups
+    split_at = [models["flash"].draw_split_at(rows, spg, g) for _ in range(2)]
+    u = torch.rand((LONG_TRAIN_BATCH, batch["text_spans"].shape[1]), generator=g, device="cuda")
+    gumbel = -torch.log(-torch.log(u))
+    runs = {}
+    for run, name in (("ring_flash_sp4", "ring_flash_sp4"), ("flash", "flash"),
+                      ("flash_again", "flash")):
+        with contextlib.ExitStack() as stack:
+            vision_out = stack.enter_context(_vision_output_grads(models[name]))
+            stack.enter_context(activate_mesh(meshes[name]))
+            info, grads = loss_and_grads(models[name], dev_batch, use_bfloat16_grads=True,
+                                         split_at=split_at, gumbel=gumbel)
+        runs[run] = (info, grads, vision_out)
+    labels = _capture_labels(models["flash"], dev_batch)
+    del models
+
+    def compare(a, b, runs):
+        (info_a, grads_a, vis_a), (info_b, grads_b, vis_b) = runs[a], runs[b]
+        res = _agreement(grads_a, grads_b)
+        res["loss_diff"] = {k: abs(float(info_a[k]) - float(info_b[k])) for k in info_a}
+        res["vision_outputs"] = {k: _agreement({k: vis_a[k]}, {k: vis_b[k]})["whole"]
+                                 for k in vis_a}
+        held = {n: c for n, c in res["tensors"].items() if n not in ZERO_GRAD}
+        res["lowest_held_outside_vision"] = min(
+            ((n, c) for n, c in held.items() if not n.startswith("vision_encoder.")),
+            key=lambda kv: kv[1])
+        worst = sorted(res["tensors"].items(), key=lambda kv: kv[1])[:6]
+        print(f"[long] {a} vs {b}: loss diffs "
+              f"{ {k: f'{v:.2e}' for k, v in res['loss_diff'].items() if not k.startswith('_')} }; "
+              f"gradient cosine: whole {res['whole']:.6f}, per tower "
+              f"{ {k: round(v, 6) for k, v in res['towers'].items()} }, at the vision tower's "
+              f"outputs { {k: round(v, 6) for k, v in res['vision_outputs'].items()} }, lowest "
+              f"per tensor {[(n, round(c, 5)) for n, c in worst]}", flush=True)
+        return res
+
+    agreement = {"ring_flash_sp4 vs flash": compare("ring_flash_sp4", "flash", runs),
+                 "flash vs flash_again": compare("flash", "flash_again", runs)}
+    del runs
+    ring = agreement["ring_flash_sp4 vs flash"]
+    for k in ("imgs_to_audio", "text_to_audio", "stuff_to_span", "total"):
+        check(ring["loss_diff"][k] <= TRAIN_LOSS_TOL,
+              f"{k} ring:flash vs flash {ring['loss_diff'][k]} > {TRAIN_LOSS_TOL}")
+    check(ring["whole"] >= TRAIN_MIN_COSINE,
+          f"ring:flash vs flash whole-gradient cosine {ring['whole']} below {TRAIN_MIN_COSINE}")
+    low = ring["lowest_held_outside_vision"]
+    check(low[1] >= TRAIN_MIN_TENSOR_COSINE,
+          f"ring:flash vs flash gradient cosine of {low[0]} {low[1]} below "
+          f"{TRAIN_MIN_TENSOR_COSINE}")
+    pooled = ring["vision_outputs"]["seq_attnpool"]
+    check(pooled >= TRAIN_MIN_VISION_INPUT_COSINE,
+          f"ring:flash vs flash gradient cosine at the vision tower's pooled tokens {pooled} "
+          f"below {TRAIN_MIN_VISION_INPUT_COSINE}")
+    torch.cuda.empty_cache()
+
+    # (c) one ring:flash step at batch 1 with both remat knobs off and on:
+    # the peak memory of each; then the remat gradient against the spread
+    # of two gradients without remat (dq's atomics: two identical steps
+    # differ on the card; the forward has no atomics, so the losses agree)
+    batch1 = batch_to_tensors(make_dummy_batch(cfg, 1, seed=0), "cuda")
+    split1 = [draw[:d.num_segment_groups] for draw in split_at]
+    gumbel1 = gumbel[:1]
+    memory, models, runs = {}, {}, {}
+    for remat in (False, True):
+        c = _long_train_config(True, gradient_checkpoint=remat, tower_gradient_checkpoint=remat)
+        state = create_train_state(c, MerlotReservePretrainer(c, device="cuda", seed=0))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with activate_mesh(meshes["ring_flash_sp4"]):
+            state, info = train_step(state, batch1)
+        torch.cuda.synchronize()
+        key = "remat_on" if remat else "remat_off"
+        memory[key] = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                       "resident_bytes": resident, "total": float(info["total"])}
+        check(math.isfinite(memory[key]["total"]), f"batch-1 step {key}: non-finite loss")
+        # the first update has lr scale 0: the model still holds the seed's weights
+        models[key] = state.model
+        del state, info
+        torch.cuda.empty_cache()
+    for run, key in (("remat_off", "remat_off"), ("remat_off_again", "remat_off"),
+                     ("remat_on", "remat_on")):
+        with contextlib.ExitStack() as stack:
+            vision_out = stack.enter_context(_vision_output_grads(models[key]))
+            stack.enter_context(activate_mesh(meshes["ring_flash_sp4"]))
+            run_info, grads = loss_and_grads(models[key], batch1, use_bfloat16_grads=True,
+                                             split_at=split1, gumbel=gumbel1)
+        runs[run] = (run_info, grads, vision_out)
+    del models
+    print(f"[long] {card}: one ring:flash step at batch 1: peak memory "
+          f"{ {k: round(v['max_memory_allocated_bytes'] / 2**30, 2) for k, v in memory.items()} }"
+          f" GiB (parameters and optimizer state "
+          f"{memory['remat_on']['resident_bytes'] / 2**30:.2f} GiB of it)", flush=True)
+    spread = compare("remat_off", "remat_off_again", runs)
+    remat = compare("remat_on", "remat_off", runs)
+    del runs
+    agreement["remat_on vs remat_off (batch 1)"] = remat
+    agreement["remat_off vs remat_off_again (batch 1)"] = spread
+    for k in ("imgs_to_audio", "text_to_audio", "stuff_to_span", "total"):
+        check(remat["loss_diff"][k] <= spread["loss_diff"][k] + REMAT_LOSS_FLOOR,
+              f"{k}: remat vs no remat {remat['loss_diff'][k]} > the spread "
+              f"{spread['loss_diff'][k]} + {REMAT_LOSS_FLOOR}")
+    for part in ("whole", *remat["towers"]):
+        got = 1 - (remat["whole"] if part == "whole" else remat["towers"][part])
+        base = 1 - (spread["whole"] if part == "whole" else spread["towers"][part])
+        check(got <= REMAT_SPREAD_FACTOR * base + REMAT_SPREAD_FLOOR,
+              f"{part}: remat vs no remat 1 - cos {got} > {REMAT_SPREAD_FACTOR} x the spread "
+              f"{base} + {REMAT_SPREAD_FLOOR}")
+    return {"batch": LONG_TRAIN_BATCH, "steps": LONG_TRAIN_STEPS, "sp": LONG_TRAIN_SP,
+            "expected_init_losses": expected, "arms": arms, "agreement": agreement,
+            "batch1_memory": memory,
+            "labels": {L: (v.shape[0], int((v > 0).sum()), int(s_.max()))
+                       for L, (v, s_) in labels.items()}}, labels
+
+
+def check_hop(case, valid, seg, rank, shard, n, H, D, generator):
+    """One hop of the ring:flash training path at its own shape: the Lloc
+    query rows of ``rank`` against the shard of ``shard`` with its own key
+    labels, in bf16. The forward (``flash_forward`` with key labels) and the
+    three-launch backward (with the rank's merged out and lse from outside,
+    here the plain attention of its queries over the whole sequence, as the
+    ring's merge gives them) against their plain versions, with their times
+    on both clocks, bounds and SDPA over the same pair with the same mask.
+    dO is random on valid rows and 0 on the others, as in the model."""
+    import torch
+    import torch.nn.functional as F
+
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    B, L = valid.shape
+    lloc = L // n
+    rows, keys = slice(rank * lloc, (rank + 1) * lloc), slice(shard * lloc, (shard + 1) * lloc)
+    x = torch.randn((4, B, L, H, D), generator=generator, device=valid.device)
+    q_all, k_all, v_all, do_all = x.to(torch.bfloat16).unbind(0)
+    del x
+    q, k, v = q_all[:, rows], k_all[:, keys], v_all[:, keys]  # strided, as the ring's shards
+    q_valid, q_seg = valid[:, rows].contiguous(), seg[:, rows].contiguous()
+    k_valid, k_seg = valid[:, keys].contiguous(), seg[:, keys].contiguous()
+    do = (do_all[:, rows] * (q_valid > 0)[:, :, None, None]).contiguous()
+    qf = q.float()
+    with torch.no_grad():
+        full_out, lse = attn_ops.flash_attention_reference(qf, k_all.float(), v_all.float(),
+                                                           q_valid, q_seg, valid, seg)
+    out = full_out.to(torch.bfloat16).contiguous()
+    del full_out, q_all, do_all
+    v_ = (q_valid > 0)[:, :, None] & (k_valid > 0)[:, None, :]
+    attended = v_ & (q_seg[:, :, None] == k_seg[:, None, :])
+    pairs = int(attended.sum())
+    hop_blind = int((~attended.any(-1)).sum())  # rows that see no key of this shard
+    padding = int((q_valid == 0).sum())  # lse -1e10: p = 1 on every key in the backward
+    mask = attended[:, None]
+    elem = 2
+    side = B * lloc * H * D * elem
+    fwd_bound_ms, fwd_by = _bound(2 * D * H * (2 * pairs + lloc * hop_blind),
+                                  4 * side + 4 * B * lloc * 4 + B * H * lloc * 4, "bf16")
+    bwd_ops = 2 * D * H * (pairs + 4 * (pairs + lloc * padding))
+    bwd_bound_ms, bwd_by = _bound(bwd_ops, 7 * side + 2 * B * H * lloc * 4 + 4 * B * lloc * 4,
+                                  "bf16")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        # the forward
+        hop_out, hop_lse = attn_ops.flash_forward(q, k, v, q_valid, q_seg, k_is_valid=k_valid,
+                                                  k_segment_ids=k_seg)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = attn_ops.flash_attention_reference(qf, k.float(), v.float(), q_valid,
+                                                              q_seg, k_valid, k_seg)
+        err_out = (hop_out.float() - ref_out).abs().max().item()
+        scale = max(1.0, ref_out.abs().max().item())
+        row_valid = (q_valid > 0)[:, None, :].expand(B, H, lloc)
+        err_lse = (hop_lse - ref_lse).abs()[row_valid].max().item()
+        check(math.isfinite(err_out) and err_out <= TOL["bf16"]["out"] * scale,
+              f"{case} forward out max abs {err_out} > {TOL['bf16']['out']} x {scale}")
+        check(math.isfinite(err_lse) and err_lse <= TOL["bf16"]["lse"],
+              f"{case} forward lse max abs {err_lse} > {TOL['bf16']['lse']}")
+        del hop_out, hop_lse, ref_out, ref_lse
+
+        def fwd():
+            return attn_ops.flash_forward(q, k, v, q_valid, q_seg, k_is_valid=k_valid,
+                                          k_segment_ids=k_seg)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        fwd_rec = {"case": case, "dtype": "bf16", "B": B, "L": lloc, "rank": rank,
+                   "shard": shard, "max_abs_err_out": err_out, "max_abs_out": scale,
+                   "max_abs_err_lse_valid": err_lse, "ms": cuda_time_ms(fwd),
+                   "graph_ms": graph_time_ms(fwd), "sdpa_ms": cuda_time_ms(sdpa),
+                   "sdpa_graph_ms": graph_time_ms(sdpa),
+                   "plain_ms": cuda_time_ms(lambda: attn_ops.flash_attention_reference(
+                       q, k, v, q_valid, q_seg, k_valid, k_seg), iters=5),
+                   "pairs": pairs, "rows_blind_in_hop": hop_blind, "bound_ms": fwd_bound_ms,
+                   "bound_by": fwd_by}
+
+        # the backward, against the merged out and lse
+        grads = attn_ops.flash_backward(q, k, v, do, out, lse, q_valid, q_seg, k_valid, k_seg)
+        torch.cuda.synchronize()
+        ref = attn_ops.flash_attention_backward_reference(qf, k.float(), v.float(), do.float(),
+                                                          out.float(), lse, q_valid, q_seg,
+                                                          k_valid, k_seg)
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+            err = (a.float() - b).abs().max().item()
+            ref_max = b.abs().max().item()
+            errs[name] = {"max_abs_err": err, "max_abs_ref": ref_max,
+                          "rel": err / max(ref_max, 1e-30)}
+            check(math.isfinite(err) and err <= BWD_REL_TOL["bf16"] * ref_max,
+                  f"{case} backward {name} max abs {err} > {BWD_REL_TOL['bf16']} x {ref_max}")
+        del grads, ref
+        stats, acc = attn_ops.flash_bwd_prep(q, k, v, do, out, lse, q_valid, q_seg)
+        launch_ms = {
+            "flash_bwd_prep": graph_time_ms(
+                lambda: attn_ops.flash_bwd_prep(q, k, v, do, out, lse, q_valid, q_seg)),
+            "flash_bwd": graph_time_ms(lambda: attn_ops.flash_bwd_fused(
+                q, k, v, do, stats, acc, q_valid, q_seg, k_valid, k_seg)),
+            "flash_bwd_convert": graph_time_ms(
+                lambda: attn_ops.flash_bwd_convert(q, k, v, do, acc, q_valid, q_seg))}
+        del stats, acc
+        bwd_ms = cuda_time_ms(lambda: attn_ops.flash_backward(q, k, v, do, out, lse, q_valid,
+                                                              q_seg, k_valid, k_seg))
+        plain_ms = cuda_time_ms(lambda: attn_ops.flash_attention_backward_reference(
+            q, k, v, do, out, lse, q_valid, q_seg, k_valid, k_seg), iters=3, warmup=1)
+    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    do_t = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do_t,
+                                                           retain_graph=True))
+    bwd_rec = {"case": case, "dtype": "bf16", "B": B, "L": lloc, "rank": rank, "shard": shard,
+               "errors": errs, "ms": bwd_ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+               "sdpa_bwd_ms": sdpa_bwd_ms, "pairs": pairs, "padding_rows": padding,
+               "bound_ms": bwd_bound_ms, "bound_by": bwd_by}
+    print(f"[hop] {case} B={B} Lq=Lk={lloc}: forward out err {err_out:.3e} lse err "
+          f"{err_lse:.3e} | {fwd_rec['graph_ms'] * 1e3:.1f} us on the device alone, "
+          f"{fwd_rec['ms'] * 1e3:.1f} us by events (sdpa {fwd_rec['sdpa_graph_ms'] * 1e3:.1f} / "
+          f"{fwd_rec['sdpa_ms'] * 1e3:.1f} us; bound {fwd_bound_ms * 1e3:.1f} us by {fwd_by}); "
+          f"backward rel err dq {errs['dq']['rel']:.2e} dk {errs['dk']['rel']:.2e} dv "
+          f"{errs['dv']['rel']:.2e} | {bwd_ms * 1e3:.1f} us by events, launches alone "
+          f"{ {n_: round(t * 1e3, 1) for n_, t in launch_ms.items()} } us (bound "
+          f"{bwd_bound_ms * 1e3:.1f} us by {bwd_by}); plain {plain_ms * 1e3:.1f} us, sdpa bwd "
+          f"{sdpa_bwd_ms * 1e3:.1f} us", flush=True)
+    del q, k, v, do, out, lse, qt, kt, vt, qg, kg, vg, o, do_t, k_all, v_all, mask
+    torch.cuda.empty_cache()
+    return fwd_rec, bwd_rec
+
+
+def phase_hop_kernels(labels, seed):
+    """The hop-shape cases (HOP_CASES) on the joint labels that the long-video
+    step gave its joint attention."""
+    import torch
+
+    valid, seg = labels
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fwd, bwd = [], []
+    for case, rank, shard in HOP_CASES:
+        f, b = check_hop(case, valid, seg, rank, shard, LONG_TRAIN_SP, 12, 64, g)
+        fwd.append(f)
+        bwd.append(b)
+    return fwd, bwd
+
+
 def main():
     import torch
 
@@ -1439,6 +1862,8 @@ def main():
     ring, k_labels, long_fwd = phase_ring_kernels(seed=3)
     sp = phase_slice_sp(dev["nvidia_smi"])
     raw = phase_raw_media(dev["nvidia_smi"], seed=4)
+    long, long_labels = phase_train_long(dev["nvidia_smi"])
+    hop_fwd, hop_bwd = phase_hop_kernels(long_labels[LONG_JOINT_LEN], seed=5)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -1447,7 +1872,11 @@ def main():
                                "train": train["launches"].get(name, 0),
                                "serving_sp4_long": sp["launches_long_sp4"].get(name, 0),
                                "serving_sp2_entry": sp["launches_entry_sp2"].get(name, 0),
-                               "raw_media_zero_shot": raw["launches"].get(name, 0)}
+                               "raw_media_zero_shot": raw["launches"].get(name, 0),
+                               "train_sp4_long": long["arms"]["ring_flash_sp4"]["launches"]
+                               .get(name, 0),
+                               "train_long_flash": long["arms"]["flash"]["launches"]
+                               .get(name, 0)}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd")}
 
     def bwd_entry(name):
@@ -1464,6 +1893,8 @@ def main():
                 "launches": sum(launches_by_path[name].values()),
                 "launches_by_path": launches_by_path[name],
                 "launches_per_train_step": launches_by_path[name]["train"] / TRAIN_STEPS,
+                "launches_per_sp4_long_train_step":
+                    launches_by_path[name]["train_sp4_long"] / LONG_TRAIN_STEPS,
                 "case": "train_joint bf16",
                 "max_abs_err": err.get(name, max(e["max_abs_err"]
                                                  for e in joint["errors"].values())),
@@ -1471,7 +1902,12 @@ def main():
                 "plain_ms": joint["launch_plain_ms"].get(name, joint["plain_ms"]),
                 "bound_ms": joint["bounds"][name]["bound_ms"],
                 "bound_by": joint["bounds"][name]["bound_by"],
-                "library_ms": joint["sdpa_bwd_ms"] if name == "flash_bwd" else None}
+                "library_ms": joint["sdpa_bwd_ms"] if name == "flash_bwd" else None,
+                "hop_shapes": {f"{r['case']} B{r['B']} L{r['L']}": {
+                    "ms": r["launch_ms"][name], "backward_ms": r["ms"],
+                    "backward_bound_ms": r["bound_ms"], "backward_bound_by": r["bound_by"],
+                    "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
+                    for r in hop_bwd}}
 
     def shapes(records, keys):
         """Per case: the times on both clocks, the bound and the factor over
@@ -1481,10 +1917,11 @@ def main():
             "graph_vs_sdpa": r["graph_ms"] / r["sdpa_graph_ms"]} for r in records}
 
     fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
-    fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"]
+    fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"] + hop_fwd
                          if r["dtype"] == "bf16" and r["case"] in (
                              "serving", "train_joint", "train_span", "long_video",
-                             "zero_shot_joint", "zero_shot_span")], fwd_keys)
+                             "zero_shot_joint", "zero_shot_span",
+                             *(c for c, _, _ in HOP_CASES))], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
                          ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms"))
@@ -1494,6 +1931,8 @@ def main():
          "replaces": "merlot_reserve_tpu/ops/attention.py:115",
          "launches": sum(launches_by_path["flash_fwd"].values()),
          "launches_by_path": launches_by_path["flash_fwd"], "case": "serving bf16",
+         "launches_per_sp4_long_train_step":
+             launches_by_path["flash_fwd"]["train_sp4_long"] / LONG_TRAIN_STEPS,
          "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["graph_ms"],
          "event_ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
          "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -1516,6 +1955,7 @@ def main():
               "train": train, "train_fwd_kernels": train_fwd, "train_bwd_kernels": train_bwd,
               "ring_kernels": ring, "fwd_kernel_key_labels": k_labels,
               "long_fwd_kernels": long_fwd, "slice_sp": sp, "raw_media": raw,
+              "train_long": long, "hop_fwd_kernels": hop_fwd, "hop_bwd_kernels": hop_bwd,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

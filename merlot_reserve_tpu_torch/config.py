@@ -27,9 +27,13 @@ class ModelConfig:
     """Model tower dims; defaults follow the reference's base.yaml.
 
     Every field of the JAX package's ModelConfig is kept, so one YAML file
-    means the same model in both packages. The port does not implement the
-    gradient-checkpoint, sequence-shard, pipeline and segment-shard knobs
-    yet: ``MerlotReserve`` raises when one is set. ``scan_layers`` and
+    means the same model in both packages. The port does not implement
+    ``pipeline_axis`` yet: ``MerlotReserve`` raises when it is set.
+    ``gradient_checkpoint`` and ``tower_gradient_checkpoint`` recompute the
+    joint and the modality towers' layers in the backward with the
+    ``gradient_checkpoint_policy`` of ``models.layers.resolve_remat_policy``;
+    ``seq_shard_axis`` and ``segment_shard_axis`` are the JAX package's
+    sharding hints, checked against the active mesh. ``scan_layers`` and
     ``scan_unroll`` only describe the JAX parameter layout; the port runs
     one loop over its layers either way and reads both layouts.
     """

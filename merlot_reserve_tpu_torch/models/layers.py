@@ -6,21 +6,26 @@ cls / cls_proj / intermediate / out), so ``utils/weights.py`` maps the two
 one to one. Parameters are f32; each module computes in its ``dtype`` (bf16
 under the model's bf16 policy), casting weights at use as flax does, with
 LayerNorm statistics in f32. Attention masks travel as per-position labels
-(is_valid, segment_ids) down to ``ops.attention``.
+(is_valid, segment_ids) down to ``ops.attention``. ``TransformerEncoder``
+recomputes its layers in the backward under ``remat`` (the JAX package's
+``nn.remat``), with ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils import checkpoint as torch_checkpoint
 
 from merlot_reserve_tpu_torch.ops import attention as attn_ops
 from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
-from merlot_reserve_tpu_torch.parallel.mesh import current_mesh
+from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, current_mesh
 
 
 def kernel_stddev(flax_shape: Sequence[int]) -> float:
@@ -157,6 +162,67 @@ class TransformerLayer(nn.Module):
         return x + self.mlp_layer(layer_norm(x, self.pre_mlp_ln, self.dtype))
 
 
+_ATEN = torch.ops.aten
+# the jax.checkpoint_policies names that configs, scripts and tests use, by
+# the aten products whose outputs each one saves (None: every output, so
+# nothing is recomputed). Products with batch dims are bmm/baddbmm (the
+# einsums of dense attention); mm/addmm are the linear layers. The
+# hand-written attention kernels are ctypes launches, not aten ops, so no
+# policy saves their outputs and the recompute launches them again, as
+# JAX's dots_saveable recomputes a pallas_call.
+_REMAT_POLICIES = {
+    None: (),
+    "nothing_saveable": (),
+    "dots_saveable": (_ATEN.mm.default, _ATEN.addmm.default, _ATEN.bmm.default,
+                      _ATEN.baddbmm.default),
+    "dots_with_no_batch_dims_saveable": (_ATEN.mm.default, _ATEN.addmm.default),
+    "everything_saveable": None,
+}
+
+
+def resolve_remat_policy(name: Optional[str]):
+    """A ``jax.checkpoint_policies`` name -> the aten ops whose outputs it
+    saves: () for None and 'nothing_saveable' (full recompute), None for
+    'everything_saveable' (no recompute). The port implements the names in
+    ``_REMAT_POLICIES``; any other raises, as the JAX package does for a
+    name that is not a policy."""
+    if name not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; the port implements "
+                         f"{sorted(n for n in _REMAT_POLICIES if n)} (or None)")
+    return _REMAT_POLICIES[name]
+
+
+def checkpointed_call(module: nn.Module, param_names, saved_ops, *args, **kwargs):
+    """``module(*args, **kwargs)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) except the outputs of
+    ``saved_ops``.
+
+    Two things the forward saw are handed to the recompute explicitly:
+      * the parameters ``param_names`` as they are now: under the training
+        step's ``functional_call`` they are its bf16 copies, which are gone
+        by the backward, when ``module`` holds its f32 masters again. They
+        go in as arguments, so every gradient reaches the copies;
+      * the active mesh (a context variable): the backward, and with it
+        the recompute, may run on autograd's own thread, which does not
+        see it, and attention would then take the path without a mesh.
+    """
+    tensors = [functools.reduce(getattr, n.split("."), module) for n in param_names]
+    mesh = current_mesh()
+
+    def run(*args_and_tensors):
+        with activate_mesh(mesh):
+            return functional_call(module, dict(zip(param_names, args_and_tensors[len(args):])),
+                                   args_and_tensors[:len(args)], kwargs)
+
+    context_fn = torch_checkpoint.noop_context_fn
+    if saved_ops:
+        context_fn = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                       list(saved_ops))
+    # the layers draw no random numbers: no RNG state to stash and restore
+    return torch_checkpoint.checkpoint(run, *args, *tensors, use_reentrant=False,
+                                       context_fn=context_fn, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
     """1-D pre-LN encoder with an optional CLS token, rotary or learned
     positions, and label-vector attention masking.
@@ -174,6 +240,11 @@ class TransformerEncoder(nn.Module):
     split itself is the attention's (``attention_impl='ring...'``). The
     layer stack is one ``nn.ModuleList`` whichever flax layout
     (scan-stacked or ``layer_NN``) the weights came in.
+
+    ``remat`` recomputes each layer in the backward (``checkpointed_call``)
+    and keeps only what ``remat_policy`` saves (``resolve_remat_policy``),
+    as the JAX package's per-layer ``nn.remat``. Without grad it runs the
+    layers plainly.
     """
 
     def __init__(self, hidden_size: int, num_layers: int, *, generator: torch.Generator,
@@ -181,10 +252,15 @@ class TransformerEncoder(nn.Module):
                  add_cls_token: bool = False, cls_output_size: Optional[int] = None,
                  rotary_hsize: int = 32, attention_impl: str = "auto",
                  rotary_sign_quirk: bool = True, pe_len: Optional[int] = None,
-                 seq_shard_axis: Optional[str] = None):
+                 seq_shard_axis: Optional[str] = None, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         if rotary_hsize > size_per_head:
             raise ValueError("rotary_hsize exceeds size_per_head")
+        # the ops whose outputs a recomputed layer saves; None: no recompute
+        # (no remat, or the policy saves everything). As in the JAX package,
+        # the policy is read only under remat
+        self.remat_saves = resolve_remat_policy(remat_policy) if remat else None
         self.hidden_size = hidden_size
         self.dtype = dtype
         self.add_cls_token = add_cls_token
@@ -207,6 +283,9 @@ class TransformerEncoder(nn.Module):
             TransformerLayer(hidden_size, size_per_head, dtype, rotary_sign_quirk,
                              generator, expansion_mult)
             for _ in range(num_layers))
+        # every layer has the same parameter names
+        self._layer_param_names = [n for n, _ in self.layers[0].named_parameters()] \
+            if num_layers else []
         self.final_ln = nn.LayerNorm(hidden_size, eps=1e-5)
 
     def forward(self, x, *, rotary_coords=None, attention_mask=None, is_valid=None,
@@ -268,9 +347,15 @@ class TransformerEncoder(nn.Module):
         if self.seq_shard_axis and mesh is not None and self.seq_shard_axis not in mesh.shape:
             raise ValueError(f"seq_shard_axis {self.seq_shard_axis!r} not in the active "
                              f"mesh's axes {tuple(mesh.shape)}")
+        layer_kwargs = dict(impl=resolved, sinusoids=sinusoids, is_valid=is_valid,
+                            segment_ids=segment_ids, attention_bias=attention_bias)
+        remat = self.remat_saves is not None and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, impl=resolved, sinusoids=sinusoids, is_valid=is_valid,
-                      segment_ids=segment_ids, attention_bias=attention_bias)
+            if remat:
+                x = checkpointed_call(layer, self._layer_param_names, self.remat_saves, x,
+                                      **layer_kwargs)
+            else:
+                x = layer(x, **layer_kwargs)
         x_ln = layer_norm(x, self.final_ln, self.dtype)
 
         if self.add_cls_token:

@@ -34,8 +34,7 @@ from merlot_reserve_tpu_torch.utils.device import resolve_device
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
 # config knobs of the JAX package that the port does not implement yet
-_UNPORTED = ("gradient_checkpoint", "tower_gradient_checkpoint", "pipeline_axis",
-             "segment_shard_axis")
+_UNPORTED = ("pipeline_axis",)
 
 
 class MerlotReserve(nn.Module):
@@ -66,7 +65,8 @@ class MerlotReserve(nn.Module):
                 size_per_head=cfg.size_per_head, rotary_hsize=cfg.rotary_hsize,
                 attention_impl=joint_impl, rotary_sign_quirk=cfg.rotary_sign_quirk,
                 pe_len=None if cfg.do_rotary else config.joint_seq_len,
-                seq_shard_axis=cfg.seq_shard_axis)
+                seq_shard_axis=cfg.seq_shard_axis, remat=cfg.gradient_checkpoint,
+                remat_policy=cfg.gradient_checkpoint_policy)
             # named "head" like the flax param; the JAX module calls it joint_proj
             self.head = init_linear(cfg.hidden_size, cfg.hidden_size,
                                     (cfg.hidden_size, cfg.hidden_size), generator)

@@ -31,6 +31,7 @@ import torch
 from merlot_reserve_tpu_torch.models.layers import linear
 from merlot_reserve_tpu_torch.models.model import MerlotReserve
 from merlot_reserve_tpu_torch.ops.pooling import one_hot_pool, unit_normalize
+from merlot_reserve_tpu_torch.parallel.mesh import dp_anchor, rows_anchor
 from merlot_reserve_tpu_torch.tokenizer import LTOVPOOL, MASK, MASKAUDIO, PADDING
 
 # multimodal spans are preferred 4:1 over text-only spans when drawing
@@ -70,14 +71,20 @@ class MerlotReservePretrainer(MerlotReserve):
         num_segments = num_segments_nvpatch0 // patches_per_frame
         segs_per_group = num_segments // data.num_segment_groups
 
-        vision = self.vision_encoder(
-            batch["images"].reshape(B * num_segments, patches_per_frame, patch_dim))
+        # segment sharding: the towers never mix rows, so their [B x
+        # segments] inputs may split over segment_shard_axis as well as dp
+        # (a hint, as in the JAX package; parallel.mesh.rows_anchor)
+        seg_axis = cfg.segment_shard_axis
+        vision = self.vision_encoder(rows_anchor(
+            batch["images"].reshape(B * num_segments, patches_per_frame, patch_dim),
+            extra_axis=seg_axis))
         frames_by_group = vision["seq_attnpool"].reshape(
             B, data.num_segment_groups, segs_per_group * cfg.vit_pooled_seq_len,
             cfg.hidden_size)
 
-        audio = self.audio_encoder(batch["audio_clips"].reshape(
-            B * num_segments * data.num_audio_subsegments, cfg.audio_seq_length, -1))
+        audio = self.audio_encoder(rows_anchor(batch["audio_clips"].reshape(
+            B * num_segments * data.num_audio_subsegments, cfg.audio_seq_length, -1),
+            extra_axis=seg_axis))
         num_audio_spans = num_segments * data.num_audio_subsegments
         audio_span_tokens = audio["seq_attnpool"].reshape(
             B, num_audio_spans, cfg.audio_token_length, cfg.hidden_size)
@@ -209,11 +216,12 @@ class MerlotReservePretrainer(MerlotReserve):
             cat = torch.cat(parts, 1)
             return cat.reshape((-1,) + cat.shape[2:])
 
+        # the joint rows are the batch dim: a dp hint, as in the JAX package
+        x, is_valid, segment_ids = dp_anchor(
+            bmajor_concat("x"), bmajor_concat("is_valid"), bmajor_concat("segment_ids"))
         fused = self.joint_transformer(
-            bmajor_concat("x"),
-            rotary_coords=bmajor_concat("rotary_coords") if cfg.do_rotary else None,
-            is_valid=bmajor_concat("is_valid"),
-            segment_ids=bmajor_concat("segment_ids"))["seq"]
+            x, rotary_coords=dp_anchor(bmajor_concat("rotary_coords")) if cfg.do_rotary else None,
+            is_valid=is_valid, segment_ids=segment_ids)["seq"]
         fused = linear(fused, self.head, self.dtype)
 
         fused = fused.reshape((B, sum(rows_per_ex)) + fused.shape[1:])
@@ -324,6 +332,9 @@ class MerlotReservePretrainer(MerlotReserve):
         drawn_sources = source_id.reshape(B * spans_per_example)[drawn]
         span_x = towers["token_embs"]["text_spans"][drawn]
         span_valid = flat["text_spans"][drawn] != PADDING
+        # the drawn spans are as independent as segments (rows_anchor above)
+        drawn_states, span_x, span_valid = rows_anchor(
+            drawn_states, span_x, span_valid, extra_axis=self.config.segment_shard_axis)
         span_targets = self.span_encoder(span_x, span_valid)
         return drawn_states, span_targets, drawn_sources
 

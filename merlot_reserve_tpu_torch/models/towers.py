@@ -57,11 +57,15 @@ class MultiHeadDotProductAttention(nn.Module):
 
 
 def _encoder(cfg, num_layers, dtype, generator, pe_len, **kwargs):
+    """A modality tower's encoder; the towers recompute their layers under
+    ``tower_gradient_checkpoint`` (the joint tower under
+    ``gradient_checkpoint``), both with ``gradient_checkpoint_policy``."""
     return TransformerEncoder(
         cfg.hidden_size, num_layers, generator=generator, dtype=dtype,
         size_per_head=cfg.size_per_head, rotary_hsize=cfg.rotary_hsize,
         attention_impl=cfg.attention_impl, rotary_sign_quirk=cfg.rotary_sign_quirk,
-        pe_len=None if cfg.do_rotary else pe_len, **kwargs)
+        pe_len=None if cfg.do_rotary else pe_len, remat=cfg.tower_gradient_checkpoint,
+        remat_policy=cfg.gradient_checkpoint_policy, **kwargs)
 
 
 class VisionTransformer(nn.Module):

@@ -15,8 +15,10 @@ launch across them.
     in plain torch, differentiable through autograd. It is also the plain
     version of the ring kernel (``ring_attention_reference``).
   * 'flash': ``ring_flash_attention``, one ``flash_forward`` per hop with the
-    visiting shard's labels, merged by log-sum-exp. Forward only: its
-    backward ring is not ported yet.
+    visiting shard's labels, merged by log-sum-exp. Differentiable
+    (``RingFlashAttention``): its backward walks the ring again with one
+    ``flash_backward`` per hop against the merged out/lse, the dk/dv
+    accumulators travelling with their shard.
   * 'rdma': ``ring_flash_attention_rdma``, the whole ring in one launch of
     the hand-written kernel ``csrc/ring_fwd.cu`` on a CUDA tensor (the plain
     ring on a CPU tensor). Forward only, as in the JAX package.
@@ -41,8 +43,9 @@ _INNERS = {"ring": ("lax", "flash", "rdma"), "ulysses": ("xla", "flash")}
 # the longest a ring kernel waits on a neighbour before it traps
 RING_TIMEOUT_NS = 5_000_000_000
 RING_KEY_TILE = 128  # keys per tile of the bf16 ring kernel (csrc/ring_fwd.cu kKeyTile)
-_TRAINING_ITEM = ("training under sequence parallelism (ROADMAP.md): the backward ring "
-                  "is not ported yet")
+# where training under sequence parallelism goes instead of ring:rdma
+_TRAINING_ITEM = ("training under sequence parallelism takes 'ring:flash', whose backward "
+                  "ring runs the flash backward hop by hop")
 
 
 def parse_sequence_parallel_impl(impl: str):
@@ -147,17 +150,25 @@ def ring_attention_reference(q, k, v, is_valid, segment_ids, n):
     return torch.cat(ring_attention(*shards), dim=1)
 
 
-def ring_flash_attention(qs, ks, vs, valids, segs):
-    """The per-hop flash ring, forward: at each hop rank r runs
-    ``flash_forward`` of its queries against the visiting shard (with that
-    shard's labels), and merges the hop's (out, lse) into its running pair
-    by log-sum-exp. Same arguments and result as ``ring_attention``.
-    Raises under grad: its backward ring is a later port."""
-    if any(attn_ops._records_grad(*xs) for xs in zip(qs, ks, vs)):
-        raise NotImplementedError(f"ring:flash under grad: {_TRAINING_ITEM}")
+def _ring_shards(q, k, v, is_valid, segment_ids, n):
+    """The n ranks' shards of global q, k, v (views) and their labels,
+    contiguous once here rather than copied by every launch of every hop."""
+    return ([_shards(x, n) for x in (q, k, v)]
+            + [[x.contiguous() for x in _shards(y, n)] for y in (is_valid, segment_ids)])
+
+
+def _ring_flash_forward(qs, ks, vs, q_valid, q_seg):
+    """The per-hop flash ring, forward (``_ring_flash_forward`` of the JAX
+    package): at each hop rank r runs ``flash_forward`` of its queries
+    against the visiting shard (with that shard's labels) and merges the
+    hop's (out, lse) into its running pair by log-sum-exp.
+
+    :param qs, ks, vs: lists of n [B, Lloc, H, D] shards, rank r's at index r
+    :param q_valid, q_seg: lists of n int32 [B, Lloc] labels
+    :return: (outs [B, Lloc, H, D] in q's dtype, merged lses [B, Lloc, H, 1]
+        f32), one per rank
+    """
     n = len(qs)
-    q_valid = [x.to(torch.int32) for x in valids]
-    q_seg = [x.to(torch.int32) for x in segs]
     B, Lq, H, D = qs[0].shape
     dev = qs[0].device
     out_run = [torch.zeros((B, Lq, H, D), dtype=torch.float32, device=dev) for _ in range(n)]
@@ -172,12 +183,86 @@ def ring_flash_attention(qs, ks, vs, valids, segs):
                                                   k_is_valid=k_valid, k_segment_ids=k_seg)
             lse_t = lse_t.transpose(1, 2)[..., None]  # [B, H, Lq] -> [B, Lq, H, 1]
             lse_new = torch.logaddexp(lse_run[r], lse_t)
+            # out_t is promoted to f32 inside each product (no f32 copy of it)
             out_run[r] = (out_run[r] * torch.exp(lse_run[r] - lse_new)
-                          + out_t.float() * torch.exp(lse_t - lse_new))
+                          + out_t * torch.exp(lse_t - lse_new))
             lse_run[r] = lse_new
         if step < n - 1:
-            resident = resident[-1:] + resident[:-1]
-    return [o.to(q.dtype) for o, q in zip(out_run, qs)]
+            resident = resident[-1:] + resident[:-1]  # ppermute i -> i + 1
+    return [o.to(q.dtype) for o, q in zip(out_run, qs)], lse_run
+
+
+def _ring_flash_backward(qs, ks, vs, q_valid, q_seg, outs, lses, douts):
+    """The backward ring (``_ring_flash_bwd`` of the JAX package): the K/V
+    shards, their labels and their f32 dk/dv accumulators rotate past each
+    rank's fixed (q, dO, out, lse), and at each hop rank r adds
+    ``flash_backward`` of its queries against the visiting shard. The
+    out/lse are the merged ones, so p = exp(s - lse) is the probability
+    over the whole sequence and the hops' dq, dk, dv add up exactly. The
+    accumulators rotate with their shard after every hop; the rotation
+    after the last hop (the JAX package's final ppermute) brings them home.
+
+    :param outs, douts: lists of n contiguous [B, Lloc, H, D], q's dtype
+    :param lses: list of n f32 [B, Lloc, H, 1]
+    :return: (dqs, dks, dvs) lists of n [B, Lloc, H, D] in q's dtype
+    """
+    n = len(qs)
+    lse_rows = [lse[..., 0].transpose(1, 2).contiguous() for lse in lses]  # [B, H, Lloc]
+    dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
+    resident = [(k, v, val, seg, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+                 torch.zeros(v.shape, dtype=torch.float32, device=v.device))
+                for k, v, val, seg in zip(ks, vs, q_valid, q_seg)]
+    for _ in range(n):
+        for r in range(n):
+            k, v, k_valid, k_seg, dk_acc, dv_acc = resident[r]
+            dq_t, dk_t, dv_t = attn_ops.flash_backward(
+                qs[r], k, v, douts[r], outs[r], lse_rows[r], q_valid[r], q_seg[r],
+                k_is_valid=k_valid, k_segment_ids=k_seg)
+            # f32 += q's dtype: promoted inside the add, no f32 copy
+            dqs[r] += dq_t
+            dk_acc += dk_t
+            dv_acc += dv_t
+        resident = resident[-1:] + resident[:-1]  # ppermute i -> i + 1
+    dtype = qs[0].dtype
+    return ([dq.to(dtype) for dq in dqs], [res[4].to(dtype) for res in resident],
+            [res[5].to(dtype) for res in resident])
+
+
+class RingFlashAttention(torch.autograd.Function):
+    """The ``ring_flash_attention`` custom_vjp of the JAX package over the n
+    ranks of one process: the forward saves (q, k, v, labels, out, merged
+    lse); the backward walks the ring again (``_ring_flash_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_valid, segment_ids, n):
+        outs, lses = _ring_flash_forward(*_ring_shards(q, k, v, is_valid, segment_ids, n))
+        out, lse = torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+        ctx.n = n
+        ctx.save_for_backward(q, k, v, is_valid, segment_ids, out, lse)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        n = ctx.n
+        q, k, v, is_valid, segment_ids, out, lse = ctx.saved_tensors
+        qs, ks, vs, q_valid, q_seg = _ring_shards(q, k, v, is_valid, segment_ids, n)
+        outs, douts = ([x.contiguous() for x in _shards(t.to(q.dtype), n)] for t in (out, dout))
+        lses = _shards(lse, n)
+        dqs, dks, dvs = _ring_flash_backward(qs, ks, vs, q_valid, q_seg, outs, lses, douts)
+        return (torch.cat(dqs, dim=1), torch.cat(dks, dim=1), torch.cat(dvs, dim=1),
+                None, None, None)
+
+
+def ring_flash_attention(q, k, v, is_valid, segment_ids, n: int):
+    """The per-hop flash ring over the n shards of global [B, L, H, D]
+    inputs and int32 [B, L] labels -> [B, L, H, D] in q's dtype.
+    Differentiable through ``RingFlashAttention`` when an input requires
+    grad; otherwise the forward ring alone, nothing saved."""
+    if attn_ops._records_grad(q, k, v):
+        return RingFlashAttention.apply(q, k, v, is_valid, segment_ids, n)
+    return torch.cat(_ring_flash_forward(*_ring_shards(q, k, v, is_valid, segment_ids, n))[0],
+                     dim=1)
 
 
 def ulysses_attention(qs, ks, vs, valids, segs, inner: str = "xla"):
@@ -244,8 +329,9 @@ def sequence_parallel_attention(mesh: Mesh, q, k, v, is_valid=None, segment_ids=
     if impl == "rdma":
         return ring_flash_attention_rdma(q, k, v, is_valid, segment_ids, n)
     if impl == "flash":
-        body = ring_flash_attention
-    elif impl in ("ulysses", "ulysses-flash"):
+        return ring_flash_attention(q, k, v, is_valid.to(torch.int32),
+                                    segment_ids.to(torch.int32), n)
+    if impl in ("ulysses", "ulysses-flash"):
         local_heads = H // tp_n if tp_heads else H
         if local_heads % n:
             raise ValueError(

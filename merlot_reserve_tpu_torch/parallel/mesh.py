@@ -114,10 +114,60 @@ def current_mesh() -> Optional[Mesh]:
     return _ACTIVE_MESH.get()
 
 
+def row_shard_axes(mesh: Optional[Mesh], dim0: int,
+                   extra_axis: Optional[str] = None) -> Optional[Tuple[str, ...]]:
+    """The mesh axes that the JAX package's ``rows_anchor`` shards a row-major
+    tensor's dim 0 (of size ``dim0``) over: the batch axes, plus
+    ``extra_axis`` when it is in the mesh, larger than 1, not ``dp``, and
+    divides dim 0 together with them. Without ``extra_axis`` (or when it
+    falls back) ``dp_anchor``'s rule: the batch axes when they divide dim 0.
+    None when nothing shards: no mesh, no dp axis, or no division."""
+    if mesh is None:
+        return None
+    bax = batch_axes(mesh)
+    batch = list(bax) if isinstance(bax, tuple) else ([bax] if bax else [])
+    n = mesh.shape.get(extra_axis, 1) if extra_axis else 1
+    if n > 1 and extra_axis != "dp" and dim0 % (dp_size(mesh) * n) == 0:
+        return tuple(batch) + (extra_axis,)
+    if "dp" not in mesh.axis_names or dim0 % dp_size(mesh):
+        return None
+    return tuple(batch)
+
+
+def rows_anchor(*arrays, extra_axis: Optional[str] = None):
+    """The JAX package's ``rows_anchor`` (and, without ``extra_axis``, its
+    ``dp_anchor``): a sharding hint for row-major tensors whose dim 0 is
+    batch x independent rows (the modality towers' inputs, the drawn text
+    spans), so that it may split over the batch axes and
+    ``segment_shard_axis`` too (``row_shard_axes``, fallbacks included).
+    In the JAX package it is a GSPMD constraint and changes no number.
+    Here every rank of the mesh runs in this process on the tensors'
+    device, so it returns its inputs; a split over ranks on other devices
+    raises, as a mesh across several cards is not ported yet."""
+    mesh = current_mesh()
+    for a in arrays:
+        axes = row_shard_axes(mesh, a.shape[0], extra_axis)
+        if axes and any(mesh.shape[x] > 1 for x in axes) and any(
+                d != a.device for d in mesh.distinct_devices()):
+            raise NotImplementedError(
+                f"rows_anchor: dim 0 splits over {axes} of a mesh on "
+                f"{[str(d) for d in mesh.distinct_devices()]} for a tensor on {a.device}; "
+                "a mesh across several cards is not ported yet")
+    return arrays if len(arrays) > 1 else arrays[0]
+
+
+def dp_anchor(*arrays):
+    """The JAX package's ``dp_anchor``: ``rows_anchor`` without an extra
+    axis, dim 0 over the batch axes only."""
+    return rows_anchor(*arrays)
+
+
 @contextlib.contextmanager
-def activate_mesh(mesh: Mesh):
+def activate_mesh(mesh: Optional[Mesh]):
     """Make ``mesh`` the ambient mesh that ``attention(impl='ring...')`` and
-    ``TransformerEncoder(seq_shard_axis=...)`` resolve their axes against."""
+    ``TransformerEncoder(seq_shard_axis=...)`` resolve their axes against.
+    ``None`` makes no mesh ambient (a recompute restores the forward's
+    state with it)."""
     token = _ACTIVE_MESH.set(mesh)
     try:
         yield mesh

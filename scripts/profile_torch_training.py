@@ -23,10 +23,17 @@ the port's dummy batch of 8 examples, takes two warm-up steps, and measures:
 
 Run from the root of a checkout: ``python3 scripts/profile_torch_training.py``.
 Prints a summary and writes ``chiprun_out/profile_torch_training.json``.
+The long-video recipe (``configs/soak_longvideo.yaml``, both remat knobs)
+with its joint attention as ``ring:flash`` over 4 virtual sp ranks, on the
+dummy batch of 4 examples:
+``python3 scripts/profile_torch_training.py --config soak_longvideo --batch 4 --sp 4``
+(``--sp 1``, the default, is ``flash`` without a mesh); the record then goes
+to ``chiprun_out/profile_torch_training_soak_longvideo_sp4.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -157,7 +164,13 @@ def trace_steps(state, batch, steps, activities):
     return prof, wall_ms
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="base", help="a config of the port's configs/")
+    parser.add_argument("--batch", type=int, default=8, help="examples per step")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="virtual sp ranks of the joint attention's ring:flash (1: flash)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_training: needs a CUDA card", file=sys.stderr)
         return 2
@@ -165,24 +178,28 @@ def main():
     from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
     from merlot_reserve_tpu_torch.models.pretrainer import (MerlotReservePretrainer,
                                                            batch_to_tensors)
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
     from merlot_reserve_tpu_torch.training.trainer import create_train_state, train_step
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    cfg = load_config("base", joint_attention_impl="flash")
-    B = 8
+    ring = dict(joint_attention_impl="ring:flash", seq_shard_axis="sp", segment_shard_axis="sp")
+    cfg = load_config(args.config, **(ring if args.sp > 1 else {"joint_attention_impl": "flash"}))
+    B = args.batch
     model = MerlotReservePretrainer(cfg, device="cuda", seed=0)
     state = create_train_state(cfg, model)
     batch = batch_to_tensors(make_dummy_batch(cfg, B, seed=0), "cuda")
-    for _ in range(2):  # warm-up: kernel builds, allocator, cuBLAS handles
-        train_step(state, batch)
-    torch.cuda.synchronize()
-    step_ms = cuda_time_ms(lambda: train_step(state, batch), iters=3, warmup=0)
+    mesh = make_mesh(sp=args.sp) if args.sp > 1 else None
+    with activate_mesh(mesh):
+        for _ in range(2):  # warm-up: kernel builds, allocator, cuBLAS handles
+            train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = cuda_time_ms(lambda: train_step(state, batch), iters=3, warmup=0)
 
-    steps = 2
-    prof, wall_ms = trace_steps(state, batch, steps,
-                                [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        steps = 2
+        prof, wall_ms = trace_steps(state, batch, steps,
+                                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     parts, device_ms = split_step(prof.events(), steps)
     # device-side events only (kernels and copies); CPU ops carry their kernels' time too
     ops = [e for e in prof.key_averages()
@@ -192,7 +209,9 @@ def main():
     attn_bwd = sorted((e for e in ops if "flash_bwd" in e.key),
                       key=lambda e: e.self_device_time_total, reverse=True)
     res = {
-        "card": card, "batch": B, "step_ms_device": step_ms,
+        "card": card, "config": args.config, "sp": args.sp,
+        "joint_attention_impl": cfg.model.joint_attention_impl, "batch": B,
+        "step_ms_device": step_ms,
         "profiled_steps": steps, "profiled_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms * steps / wall_ms,
         "device_ops_per_step": sum(e.count for e in ops) / steps,
@@ -208,7 +227,9 @@ def main():
                               for e in attn_bwd],
     }
     print(f"[profile] {card}")
-    print(f"[profile] train_step: {step_ms:.2f} ms on the device clock, batch {B}")
+    print(f"[profile] train_step: {step_ms:.2f} ms on the device clock, {args.config}, batch "
+          f"{B}, joint attention {cfg.model.joint_attention_impl}" +
+          (f" over {args.sp} sp ranks" if mesh else ""))
     print(f"[profile] under the profiler: {wall_ms / steps:.2f} ms per step, device busy "
           f"{100 * res['device_busy_share']:.1f}% ({device_ms:.2f} ms of kernels and copies), "
           f"{res['device_ops_per_step']:.0f} kernels and copies per step")
@@ -225,7 +246,8 @@ def main():
               f"x{k['calls_per_step']:.0f}  {k['name']}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_torch_training.json").write_text(json.dumps(res, indent=1))
+    name = "" if args.config == "base" and mesh is None else f"_{args.config}_sp{args.sp}"
+    (out / f"profile_torch_training{name}.json").write_text(json.dumps(res, indent=1))
     return 0
 
 

@@ -56,7 +56,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "merlot_reserve_tpu_torch.ops.ring_attention" in loaded
     assert "merlot_reserve_tpu_torch.parallel.mesh" in loaded
     for module in ("ops.vision", "ops.audio", "tokenizer", "preprocess", "zero_shot",
-                   "utils.subtitles", "utils.profiling"):
+                   "utils.subtitles", "utils.profiling", "models.layers", "models.towers",
+                   "models.pretrainer", "training.trainer", "training.pretrain"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -84,6 +85,9 @@ def test_entry_points_refuse_a_missing_card():
         MerlotReservePretrainer(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         run_pretraining(cfg, iter([]), num_steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):  # the long-video recipe and its mesh
+        run_pretraining(load_config("soak_longvideo", joint_attention_impl="ring:flash",
+                                    **TINY), iter([]), num_steps=1)
     with pytest.raises(RuntimeError, match="cuda"):
         make_mesh(sp=4)  # its default devices: the card, once per rank
     frames = np.zeros((1, 32, 32, 3), np.uint8)

@@ -23,6 +23,7 @@ Without a card they skip. Tolerances on the card:
 import ctypes
 import dataclasses
 import shutil
+import unittest.mock
 
 import numpy as np
 import pytest
@@ -679,3 +680,97 @@ def test_label_space_launches_the_span_towers_flash_kernel(cuda_device):
     assert kernels.LAUNCHES["flash_fwd"] == before + cfg.model.span_num_layers
     cpu = PretrainedMerlotReserve(on_cpu).get_label_space(options)
     torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=0)
+
+
+def _long_ring_case(device, dtype, B=2, L=2560, H=12):
+    """A long-video joint row pair at n = 4 (640 rows per rank): two packed
+    videos whose boundary falls inside rank 1's shard, padded text at the
+    end of rank 0's and at the end of the sequence, and dO random on the
+    valid rows and 0 on the rest, as in the model."""
+    rng = np.random.RandomState(2)
+    qkvo = torch.from_numpy(rng.randn(4, B, L, H, 64).astype(np.float32)).to(device, dtype)
+    valid = np.ones((B, L), np.int32)
+    seg = np.zeros((B, L), np.int32)
+    valid[:, 600:640] = 0
+    seg[:, 1000:] = 1
+    valid[1, L - 200:] = 0
+    valid, seg = (torch.from_numpy(x).to(device) for x in (valid, seg))
+    q, k, v, do = qkvo.unbind(0)
+    return q, k, v, do * (valid > 0)[..., None, None], valid, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_flash_backward_on_card_matches_plain_ring(cuda_device, dtype):
+    """ring:flash under grad at B2 L2560 n4 (RingFlashAttention): one
+    flash_fwd per (rank, hop) in the forward and one backward per (rank,
+    hop) against the merged out/lse, against the same ring with the plain
+    flash forward and backward on the card; dq, dk, dv within the backward's
+    tolerance of the plain ring's max |value|, on valid positions."""
+    q, k, v, do, valid, seg = _long_ring_case(cuda_device, dtype)
+    n = 4
+
+    def grads():
+        tq, tk, tv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = tring.ring_flash_attention(tq, tk, tv, valid, seg, n)
+        return torch.autograd.grad(out, (tq, tk, tv), do)
+
+    before = dict(kernels.LAUNCHES)
+    got = grads()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd"] == before.get("flash_fwd", 0) + n * n
+    for name in BWD_LAUNCHES[dtype]:
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + n * n, name
+    with unittest.mock.patch.object(tattn, "flash_forward", tattn.flash_attention_reference), \
+            unittest.mock.patch.object(tattn, "flash_backward",
+                                       tattn.flash_attention_backward_reference):
+        ref = grads()
+    rows = valid > 0
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        err = (a.float() - b.float())[rows].abs().max().item()
+        assert err <= BWD_REL_TOL[dtype] * b.float()[rows].abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_checkpointed_ring_encoder_recomputes_through_the_ring_on_card(cuda_device):
+    """A remat'd bf16 encoder with ring:flash under activate_mesh(make_mesh(sp=4)):
+    autograd runs the backward, and with it the recompute, on its own device
+    thread, which does not see the context variable of the mesh. The
+    recompute must still walk the ring: n^2 flash_fwd per layer in the
+    forward and as many again in the recompute, n^2 of each backward launch,
+    and the gradient of the input equal to that of the same encoder
+    without remat (bit for bit but for dq's atomics: within the backward's
+    tolerance)."""
+    from merlot_reserve_tpu_torch.models.layers import TransformerEncoder
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+
+    layers, n = 2, 4
+    encoders = [TransformerEncoder(128, layers, generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.bfloat16,
+                                   attention_impl="ring:flash", seq_shard_axis="sp",
+                                   remat=remat).to(cuda_device) for remat in (False, True)]
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 256, 128).astype(np.float32)).to(cuda_device)
+    # rotary coordinates in the compute dtype, as the model builds them
+    coords = torch.arange(256, device=cuda_device)[None, :, None].expand(2, 256, 1) / 256
+    coords = coords.to(torch.bfloat16)
+    valid = torch.ones((2, 256), dtype=torch.int32, device=cuda_device)
+    valid[1, 200:] = 0
+    results = []
+    for enc in encoders:
+        tx = x.detach().requires_grad_()
+        before = dict(kernels.LAUNCHES)
+        with activate_mesh(make_mesh(sp=n)):
+            out = enc(tx, rotary_coords=coords, is_valid=valid)["seq"]
+        (out.float() * valid[..., None]).pow(2).mean().backward()
+        torch.cuda.synchronize()
+        results.append(({k: kernels.LAUNCHES[k] - before.get(k, 0)
+                          for k in ("flash_fwd", *BWD_LAUNCHES[torch.bfloat16])}, tx.grad))
+    (plain, g_plain), (remat, g_remat) = results
+    assert plain == {"flash_fwd": layers * n * n,
+                     **{k: layers * n * n for k in BWD_LAUNCHES[torch.bfloat16]}}
+    assert remat == dict(plain, flash_fwd=2 * layers * n * n)
+    rows = valid > 0
+    err = (g_remat - g_plain).float()[rows].abs().max().item()
+    assert err <= BWD_REL_TOL[torch.bfloat16] * g_plain.float()[rows].abs().max().item()

@@ -188,12 +188,29 @@ def test_prepare_multimodal_inputs_packing_matches_jax(jax_params):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("gradient_checkpoint", True), ("tower_gradient_checkpoint", True),
-    ("pipeline_axis", "pp"), ("segment_shard_axis", "sp")])
+@pytest.mark.parametrize("knob,value", [("pipeline_axis", "pp")])
 def test_unported_config_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         MerlotReserve(load_config("base", **dict(TINY, **{knob: value})), device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("gradient_checkpoint", True), ("tower_gradient_checkpoint", True),
+    ("segment_shard_axis", "sp")])
+def test_remat_and_segment_knobs_build_the_model(jax_params, jax_dense_video, knob, value):
+    """The remat knobs reach the encoders they name (the joint tower, or the
+    vision, audio and span towers) and the segment-shard hint is taken;
+    none changes the forward."""
+    model = MerlotReserve(load_config("base", **dict(TINY, **{knob: value})), device="cpu")
+    load_flax_params(model, jax_params)
+    towers = [model.vision_encoder.transformer, model.audio_encoder.transformer,
+              model.span_encoder.transformer]
+    remat = {enc: enc.remat_saves is not None for enc in towers + [model.joint_transformer]}
+    assert remat[model.joint_transformer] == (knob == "gradient_checkpoint")
+    assert all(remat[enc] == (knob == "tower_gradient_checkpoint") for enc in towers)
+    assert getattr(model.config, knob) == value
+    np.testing.assert_allclose(_port_apply(model, "embed_video", *_video(0)), jax_dense_video,
+                               atol=ATOL, rtol=0)
 
 
 def test_seq_shard_axis_reaches_the_joint_transformer(jax_params, jax_dense_video):

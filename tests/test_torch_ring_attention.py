@@ -9,7 +9,7 @@ packed video across shards, rdma, dp x sp), with 4 heads instead of 2 so
 that Ulysses' head split over 4 ranks applies to every case. Tolerance: f32,
 atol 2e-5 on valid rows, as the JAX package's ring tests (the ring merges
 partial softmaxes in another order than one dense softmax); gradients of the
-lax ring atol 3e-4, as there. Rows that see no key are compared only where
+lax and flash rings atol 3e-4, as there. Rows that see no key are compared only where
 both sides define them the same way (the port averages V over exactly L
 keys; JAX's flash and rdma kernels over their padded length)."""
 
@@ -166,7 +166,83 @@ def test_ring_lax_gradients_match_jax(cpu_devices):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("impl", ["flash", "rdma"])
+@pytest.mark.parametrize("name", ["vjp", "full", "packed", "dp_sp"])
+def test_ring_flash_gradients_match_jax(cpu_devices, name):
+    """ring:flash is differentiable (RingFlashAttention: the backward ring
+    with the dk/dv accumulators travelling with their shard): dq, dk, dv of
+    a loss on the valid rows against jax.grad through JAX's ring_flash
+    custom VJP, its Pallas kernels in interpret mode. "vjp" is the case of
+    test_ring_flash_is_differentiable (packed segments and an invalid
+    tail); "packed" has three videos whose boundaries cross the shards.
+    Valid positions only, as the rows that see no key are undefined."""
+    if name == "vjp":
+        rng = np.random.RandomState(7)
+        B, L, H, D = 1, 64, 2, 8
+        q, k, v = (rng.randn(B, L, H, D).astype(np.float32) for _ in range(3))
+        valid = np.ones((B, L), bool)
+        valid[0, 56:] = False
+        segs = np.sort(rng.randint(0, 2, (B, L)), -1).astype(np.int32)
+        dp, sp = 1, 4
+    else:
+        q, k, v, valid, segs, (dp, sp) = _case(name)
+    w = valid.astype(np.float32)[..., None, None]
+    mesh = _jax_mesh(cpu_devices, dp, sp)
+
+    def j_loss(q_, k_, v_):
+        out = jring.sequence_parallel_attention(mesh, q_, k_, v_, jnp.asarray(valid),
+                                                jnp.asarray(segs), impl="flash", interpret=True)
+        return ((out * w) ** 2).sum()
+
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = dict(kernels.LAUNCHES)
+    out = tring.sequence_parallel_attention(_port_mesh(dp, sp), tq, tk, tv,
+                                            torch.from_numpy(valid), torch.from_numpy(segs),
+                                            impl="flash")
+    ((out * torch.from_numpy(w)) ** 2).sum().backward()
+    assert dict(kernels.LAUNCHES) == before  # CPU tensors: the plain versions
+    for dname, t, j in zip("qkv", (tq, tk, tv), j_grads):
+        np.testing.assert_allclose(t.grad.numpy()[valid], np.asarray(j)[valid], atol=GRAD_ATOL,
+                                   rtol=0, err_msg=f"d{dname}")
+
+
+def test_ring_flash_backward_walks_the_ring():
+    """The backward calls flash_backward once per (rank, hop) with the
+    visiting shard's own key labels and the merged (out, lse) of the rank:
+    the same lse at every hop of a rank, in the kernels' [B, H, Lloc]
+    layout, and each rank meeting every shard once."""
+    q, k, v, valid, segs, _ = _case("packed")
+    n, L = 4, q.shape[1]
+    lloc = L // n
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    for x in t:
+        x.requires_grad_()
+    calls = []
+    real = tattn.flash_backward
+
+    def spy(q_, k_, v_, do, out, lse, is_valid, segment_ids, k_is_valid, k_segment_ids):
+        calls.append((q_.data_ptr(), k_.data_ptr(), lse.clone(), k_is_valid.clone()))
+        return real(q_, k_, v_, do, out, lse, is_valid, segment_ids, k_is_valid=k_is_valid,
+                    k_segment_ids=k_segment_ids)
+
+    out = tring.sequence_parallel_attention(_port_mesh(1, n), *t, torch.from_numpy(valid),
+                                            torch.from_numpy(segs), impl="flash")
+    with unittest.mock.patch.object(tattn, "flash_backward", spy):
+        out.sum().backward()
+    assert len(calls) == n * n
+    q_ptr = [t[0][:, r * lloc:].data_ptr() for r in range(n)]
+    k_ptr = [t[1][:, r * lloc:].data_ptr() for r in range(n)]
+    for r in range(n):
+        mine = [c for c in calls if c[0] == q_ptr[r]]
+        assert sorted(k_ptr.index(c[1]) for c in mine) == list(range(n))
+        assert all(torch.equal(c[2], mine[0][2]) for c in mine)
+        assert mine[0][2].shape == (1, 4, lloc)
+        for c in mine:
+            s = k_ptr.index(c[1])
+            assert torch.equal(c[3], torch.from_numpy(valid[:, s * lloc:(s + 1) * lloc]).int())
+
+
+@pytest.mark.parametrize("impl", ["rdma"])
 def test_forward_only_rings_refuse_gradients(impl):
     q, k, v, valid, segs, _ = _case("full")
     t = [torch.from_numpy(x) for x in (q, k, v, valid, segs)]
