@@ -5,8 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port (``flash_fwd``, ``flash_bwd``,
-   ``ring_fwd``), one nvcc each, all started together, with nvcc's
-   register, shared-memory and spill report;
+   ``ring_fwd``, ``adam_update``), one nvcc each, all started together,
+   with nvcc's register, shared-memory and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and a few more, with its time, the plain version's,
    the nearest single PyTorch call's, and its bound: the flash forward
@@ -72,7 +72,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    backward with merged out/lse from outside, at the ring hop's shape (one
    rank's 640 query rows against one visiting shard of 640 keys, the 24
    joint rows of phase 10, its labels), against their plain versions, with
-   times, bounds and SDPA over the same pair.
+   times, bounds and SDPA over the same pair;
+12. optimizer kernel: ``adam_update`` (``csrc/adam_update.cu``, one launch
+   per update) against the plain per-tensor loop on the base model's
+   parameters, 3 updates of each chain (pretraining; finetuning, with the
+   anchor), bit for bit in p, mu and nu, and its decode of all 65536 bf16
+   codes against ``torch.pow``; device and host ms per update and launches
+   of both, and the bound;
+13. pretraining with checkpoints: ``run_pretraining`` at phase 5's shape
+   with an ``output_dir``, 4 steps saving every 2, then a resumed run to
+   6: ``ckpt_2`` and ``ckpt_4`` written, the restored state against the
+   saved one bit for bit (parameters through f16), the resumed losses
+   against two uninterrupted runs, an asynchronous save against an update
+   made right after it; the loop's blocked ms per save, write seconds,
+   file bytes, step ms on both clocks;
+14. finetuning: ``ckpt_4``'s parameters into the VCR (no audio tower) and
+   TVQA heads at the scripts' shapes (VCR batch 8, joint 64 rows of 288;
+   TVQA batch 4, joint 40 rows of 676), the first gradient through the
+   kernels against the plain path in an f32 copy, then 3 VCR and 2 TVQA
+   steps (one with ``scan_minibatch``): initial losses near ln N, the
+   flash and update launches per step worked out from the config, step ms,
+   examples/s and peaks; then ``flash_fwd`` and the backward against their
+   plain versions at those two joint shapes and labels, with times,
+   bounds and SDPA.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -89,6 +111,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -200,7 +223,7 @@ def phase_build():
     from merlot_reserve_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(["flash_fwd", "flash_bwd", "ring_fwd"])
+    built = build.build(["flash_fwd", "flash_bwd", "ring_fwd", "adam_update"])
     out = {}
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines()
@@ -779,7 +802,7 @@ def phase_train(card):
     kernels.LAUNCHES.clear()
     t0 = time.perf_counter()
     state = run_pretraining(cfg, itertools.repeat(batch), num_steps=TRAIN_STEPS, log_fn=log_fn,
-                            device="cuda", seed=0)
+                            log_every=0, device="cuda", seed=0)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak_mem = torch.cuda.max_memory_allocated()
@@ -1525,7 +1548,8 @@ def phase_train_long(card):
         kernels.LAUNCHES.clear()
         t0 = time.perf_counter()
         state = run_pretraining(arm_cfg, itertools.repeat(batch), num_steps=LONG_TRAIN_STEPS,
-                                log_fn=log_fn, device="cuda", seed=0, mesh=meshes[name])
+                                log_fn=log_fn, log_every=0, device="cuda", seed=0,
+                                mesh=meshes[name])
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -1836,6 +1860,498 @@ def phase_hop_kernels(labels, seed):
     return fwd, bwd
 
 
+
+# ---------------------------------------------------------------------------
+# 12. the optimizer's update kernel
+# ---------------------------------------------------------------------------
+
+ADAM_UPDATES = 3
+ADAM_TIMED = 10
+# kernel vs plain loop after ADAM_UPDATES updates of the base model's
+# parameters: the aim is the same bits; where the card's pow and the
+# kernel's differ, at most 1 ulp of p and of the decoded nu is allowed
+ADAM_MAX_ULPS = 1
+
+
+def _monotone(bits):
+    """f32 bit patterns (int32) as integers that count ulps across zero."""
+    import torch
+
+    bits = bits.long()
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _f32_diff(a, b):
+    """(elements whose bits differ, the largest distance in ulps)."""
+    import torch
+
+    ia, ib = (x.contiguous().view(-1).view(torch.int32) for x in (a, b))
+    differ = int((ia != ib).sum())
+    return differ, int((_monotone(ia) - _monotone(ib)).abs().max()) if differ else 0
+
+
+def _adam_chain_config(cfg, chain):
+    """The chains as their callers set them: pretraining with no warmup (so
+    the first updates move), finetuning as scripts/finetune_*.py set it
+    (bias correction on, eps 1e-6)."""
+    opt = dataclasses.replace(cfg.optimizer, num_warmup_steps=0, learning_rate=1e-3)
+    if chain == "finetune":
+        opt = dataclasses.replace(opt, do_bias_correction=True, eps=1e-6,
+                                  num_train_steps=1000)
+    return opt
+
+
+def _adam_grads(params, generator, update):
+    """Seeded f32 gradients, their scale varied over tensors and updates
+    (10^0 down to 10^-8) so that nu spans many binades, some exactly 0."""
+    import torch
+
+    grads = {}
+    for i, (n, p) in enumerate(params.items()):
+        g = torch.randn(p.shape, generator=generator, device=p.device)
+        g.mul_(10.0 ** -((i + 3 * update) % 9))
+        g.view(-1)[::97] = 0.0
+        grads[n] = g
+    return grads
+
+
+def phase_adam(card, seed=6):
+    """The update kernel against the plain loop on the base model's
+    parameter set, for both chains; the exhaustive decode sweep; times."""
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.finetune.train import FINETUNE_DECAY_MIN_SIZE
+    from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
+    from merlot_reserve_tpu_torch.training import optimization as topt
+    from merlot_reserve_tpu_torch.training.trainer import weight_decay_names
+
+    cfg = load_config("base")
+    model = MerlotReservePretrainer(cfg, device="cuda", seed=0)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    decay = {"pretrain": set(weight_decay_names(model)),
+             "finetune": set(weight_decay_names(model, FINETUNE_DECAY_MIN_SIZE))}
+    del model
+    numel = sum(p.numel() for p in start.values())
+    out = {"parameters": numel, "tensors": len(start), "chains": {}}
+    print(f"[adam] the base pretrainer's {numel} parameters in {len(start)} tensors", flush=True)
+
+    # the decode alone, over every bf16 code
+    codes = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).cuda() \
+        .view(torch.bfloat16)
+    k_dec = topt.adam_decode_probe(codes)
+    p_dec = topt.unsigned_bfloat16_decode(codes)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(k_dec), torch.isnan(p_dec)
+    check(torch.equal(nan_k, nan_p), "decode sweep: NaN where the plain decode has none")
+    dec_differ, dec_ulps = _f32_diff(k_dec[~nan_p], p_dec[~nan_p])
+    print(f"[adam] decode sweep over 65536 bf16 codes ({int(nan_p.sum())} NaN): "
+          f"{dec_differ} differ from torch.pow's, at most {dec_ulps} ulp", flush=True)
+    check(dec_ulps <= ADAM_MAX_ULPS, f"decode sweep: {dec_ulps} ulp from torch.pow's")
+    out["decode_sweep"] = {"codes": 65536, "differ": dec_differ, "max_ulps": dec_ulps}
+
+    for chain in topt.CHAINS:
+        ocfg = _adam_chain_config(cfg, chain)
+        arms = {arm: topt.PretrainOptimizer({n: p.clone() for n, p in start.items()}.items(),
+                                            decay[chain], ocfg, chain=chain)
+                for arm in ("kernel", "plain")}
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for update in range(ADAM_UPDATES):
+            grads = _adam_grads(start, gen, update)
+            before = kernels.LAUNCHES["adam_update"]
+            arms["kernel"].step(grads)
+            check(kernels.LAUNCHES["adam_update"] == before + 1,
+                  f"{chain}: an update made {kernels.LAUNCHES['adam_update'] - before} launches")
+            opt = arms["plain"]
+            topt.adam_update_reference(opt.params, grads, opt.mu, opt.nu, opt.decay, ocfg,
+                                       opt.count + 1, float(opt.schedule(opt.count)), opt.anchor)
+            opt.count += 1
+        torch.cuda.synchronize()
+        k, p = arms["kernel"], arms["plain"]
+        rec = {"decayed_tensors": len(decay[chain]), "updates": ADAM_UPDATES}
+        p_differ = p_ulps = mu_differ = nu_differ = nu_ulps = 0
+        max_abs_err = max(float((k.params[n] - p.params[n]).abs().max()) for n in start)
+        for n in start:
+            d, u = _f32_diff(k.params[n], p.params[n])
+            p_differ, p_ulps = p_differ + d, max(p_ulps, u)
+            mu_differ += int((k.mu[n].view(torch.int16) != p.mu[n].view(torch.int16)).sum())
+            nu_differ += int((k.nu[n].view(torch.int16) != p.nu[n].view(torch.int16)).sum())
+            d, u = _f32_diff(topt.unsigned_bfloat16_decode(k.nu[n]),
+                             topt.unsigned_bfloat16_decode(p.nu[n]))
+            nu_ulps = max(nu_ulps, u)
+        moved = sum(int((k.params[n] != start[n]).sum()) for n in start)
+        rec.update(max_abs_err=max_abs_err, p_differ=p_differ, p_max_ulps=p_ulps,
+                   mu_differ=mu_differ,
+                   nu_differ=nu_differ, nu_decoded_max_ulps=nu_ulps, moved=moved)
+        print(f"[adam] {chain}: after {ADAM_UPDATES} updates, kernel vs plain: p {p_differ} "
+              f"differ (max {p_ulps} ulp), mu {mu_differ}, nu {nu_differ} (decoded max "
+              f"{nu_ulps} ulp); {moved} of {numel} parameters moved", flush=True)
+        check(moved > numel // 2, f"{chain}: the updates moved {moved} of {numel} parameters")
+        check(p_ulps <= ADAM_MAX_ULPS and nu_ulps <= ADAM_MAX_ULPS,
+              f"{chain}: kernel vs plain p {p_ulps} ulp, decoded nu {nu_ulps} ulp")
+        # next_m reads only the gradient and mu: its bf16 rounding is exact work
+        check(mu_differ == 0, f"{chain}: mu differs in {mu_differ} elements")
+
+        # times: the kernel by events (one launch of milliseconds), the plain
+        # loop on the device alone from a CUDA graph; host ms = enqueue time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ADAM_TIMED):
+            k.step(grads)
+        host_k = (time.perf_counter() - t0) * 1e3 / ADAM_TIMED
+        torch.cuda.synchronize()
+        dev_k = cuda_time_ms(lambda: k.step(grads), iters=ADAM_TIMED, warmup=1)
+
+        def plain_update():
+            topt.adam_update_reference(p.params, grads, p.mu, p.nu, p.decay, ocfg, 2, 0.5,
+                                       p.anchor)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_update()
+        host_p = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        dev_p = graph_time_ms(plain_update, iters=2)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            plain_update()
+            torch.cuda.synchronize()
+        plain_launches = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+        nbytes = numel * 20 + (2 * sum(start[n].numel() for n in decay[chain])
+                               if chain == "finetune" else 0)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        rec.update(ms=dev_k, host_ms=host_k, plain_ms=dev_p, plain_host_ms=host_p,
+                   launches_per_update=1, plain_launches_per_update=plain_launches,
+                   bytes=nbytes, bound_ms=bound, bound_by="bytes", library_ms=None)
+        print(f"[adam] {chain}: kernel {dev_k:.3f} ms on the device, {host_k:.3f} ms host per "
+              f"update, 1 launch; plain loop {dev_p:.3f} ms device (graph), {host_p:.2f} ms "
+              f"host, {plain_launches} device kernels; bound {bound:.3f} ms ({nbytes} bytes, "
+              f"{card})", flush=True)
+        out["chains"][chain] = rec
+        del arms, k, p, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+
+
+# ---------------------------------------------------------------------------
+# 13. pretraining with checkpoints and resume
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = ROOT / "_smoke_ckpt"  # gitignored; removed after phase 14
+CKPT_STEPS, CKPT_SAVE_EVERY, RESUME_STEPS = 4, 2, 6
+# the resumed run's losses at steps 5-6 against two uninterrupted runs: the
+# card's backward is not deterministic (dq's atomics), and the resumed run
+# starts from parameters rounded to f16 (the checkpoint's format), which
+# moves them by up to 2^-11 of each value, about one update at lr 1e-5.
+# Held within the two runs' spread or RESUME_LOSS_TOL, whichever is larger
+RESUME_LOSS_TOL = 1e-3
+
+
+def _bits_equal(a, b):
+    import torch
+
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    return torch.equal(a.contiguous().view(view[a.dtype]), b.contiguous().view(view[b.dtype]))
+
+
+def phase_train_ckpt(card):
+    """``run_pretraining`` at the PR 2 shape with an ``output_dir``: 4 steps
+    saving every 2, a resumed run to 6, two uninterrupted 6-step runs as its
+    yardstick, the restored state against the saved one bit for bit, and
+    the asynchronous save against an update made right after it."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.models.pretrainer import (MerlotReservePretrainer,
+                                                           batch_to_tensors)
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import create_train_state, train_step
+    from merlot_reserve_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cfg = load_config("base", joint_attention_impl="flash")
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+    batch = make_dummy_batch(cfg, TRAIN_BATCH, seed=0)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out_dir = str(CKPT_DIR / "pretrain")
+
+    saves, writes = [], []
+    original_save, original_write = ckpt_lib.AsyncCheckpointer.save, ckpt_lib._write
+
+    def timed_save(self, *args, **kw):
+        t0 = time.perf_counter()
+        original_save(self, *args, **kw)
+        saves.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_write(*args, **kw):
+        t0 = time.perf_counter()
+        path = original_write(*args, **kw)
+        writes.append({"s": time.perf_counter() - t0, "bytes": os.path.getsize(path),
+                       "file": os.path.basename(path)})
+        return path
+
+    def run(num_steps, output_dir=None):
+        logged, stamps = [], []
+
+        def log_fn(step, metrics):
+            stamps.append(time.perf_counter())
+            logged.append((step, metrics["total"]))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_pretraining(cfg, itertools.repeat(batch), num_steps=num_steps,
+                                output_dir=output_dir, save_every=CKPT_SAVE_EVERY, log_every=0,
+                                log_fn=log_fn, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+        return state, logged, step_ms
+
+    with mock.patch.object(ckpt_lib.AsyncCheckpointer, "save", timed_save), \
+            mock.patch.object(ckpt_lib, "_write", timed_write):
+        kernels.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        state, logged_a, step_ms_a = run(CKPT_STEPS, out_dir)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(os.listdir(out_dir))
+        print(f"[ckpt] {CKPT_STEPS} steps saving every {CKPT_SAVE_EVERY}: {files}; loop "
+              f"blocked {[round(s, 2) for s in saves]} ms per async save; writes "
+              f"{[(w['file'], round(w['s'], 3), w['bytes']) for w in writes]}", flush=True)
+        check({"ckpt_2", "ckpt_4"} <= set(files), f"checkpoints written: {files}")
+        check([s for s, _ in logged_a] == list(range(CKPT_STEPS)), f"steps {logged_a}")
+        check(launches.get("adam_update", 0) == CKPT_STEPS,
+              f"adam_update launches {launches.get('adam_update', 0)} != {CKPT_STEPS}")
+
+        # the saved state read back into a fresh one, bit for bit
+        saved = {"params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+                 "mu": {n: t.clone() for n, t in state.optimizer.mu.items()},
+                 "nu": {n: t.clone() for n, t in state.optimizer.nu.items()},
+                 "count": state.optimizer.count}
+        dev_batch = batch_to_tensors(batch, "cuda")
+        device_ms = cuda_time_ms(lambda: train_step(state, dev_batch), iters=3, warmup=1)
+        del state
+        torch.cuda.empty_cache()
+        fresh = create_train_state(cfg, MerlotReservePretrainer(cfg, device="cuda", seed=1))
+        ckpt_lib.load_checkpoint(out_dir, state=fresh, step=CKPT_STEPS)
+        check(fresh.step == CKPT_STEPS and fresh.optimizer.count == saved["count"],
+              f"restored step {fresh.step}, count {fresh.optimizer.count}")
+        restored = dict(fresh.model.named_parameters())
+        for n, p in saved["params"].items():
+            check(_bits_equal(restored[n].detach(), p.half().float()),
+                  f"restored {n} is not f16 of the saved value")
+        for what in ("mu", "nu"):
+            theirs = getattr(fresh.optimizer, what)
+            for n, t in saved[what].items():
+                check(_bits_equal(theirs[n], t), f"restored {what} of {n} differs")
+
+        # the asynchronous save holds the values it was given
+        ckpt = ckpt_lib.AsyncCheckpointer()
+        before = {n: p.detach().clone() for n, p in fresh.model.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(fresh, str(CKPT_DIR / "async"))
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            for p in fresh.model.parameters():
+                p.add_(1.0)
+        t0 = time.perf_counter()
+        ckpt.wait()
+        wait_s = time.perf_counter() - t0
+        tree = ckpt_lib.load_checkpoint(str(CKPT_DIR / "async"))
+        from merlot_reserve_tpu_torch.utils.weights import state_dict_from_flax
+        back = state_dict_from_flax(tree["params"])
+        for n, p in before.items():
+            check(_bits_equal(back[n], p.cpu().half().float()),
+                  f"the async save of {n} does not hold the value before the update")
+        del fresh, before, back, tree, saved
+        torch.cuda.empty_cache()
+
+        # resume to 6 steps, and two uninterrupted 6-step runs
+        _, logged_b, step_ms_b = run(RESUME_STEPS, out_dir)
+    check([s for s, _ in logged_b] == list(range(CKPT_STEPS, RESUME_STEPS)),
+          f"the resumed run logged steps {[s for s, _ in logged_b]}")
+    check("ckpt_6" in os.listdir(out_dir),
+          "no ckpt_6 after the resumed run")
+    refs = [run(RESUME_STEPS)[1] for _ in range(2)]
+    spread = [abs(refs[0][i][1] - refs[1][i][1]) for i in range(RESUME_STEPS)]
+    for (step, total), i in zip(logged_b, range(CKPT_STEPS, RESUME_STEPS)):
+        lo = min(r[i][1] for r in refs)
+        hi = max(r[i][1] for r in refs)
+        gap = max(lo - total, total - hi, 0.0)
+        check(gap <= max(spread[i], RESUME_LOSS_TOL),
+              f"resumed step {step} loss {total} is {gap} outside [{lo}, {hi}]")
+    res = {"launches": launches, "files": files, "async_save_blocked_ms": saves,
+           "writes": writes, "async_check": {"blocked_ms": blocked_ms, "wait_s": wait_s},
+           "losses_first": logged_a, "losses_resumed": logged_b,
+           "losses_uninterrupted": refs, "uninterrupted_spread": spread,
+           "step_ms_host": step_ms_a, "step_ms_host_resumed": step_ms_b,
+           "step_ms_device": device_ms, "max_memory_allocated_bytes": peak}
+    print(f"[ckpt] {card}: steps {[round(s, 1) for s in step_ms_a]} ms on the host clock "
+          f"(saves after steps 2 and 4), {device_ms:.1f} ms on the device clock; the async "
+          f"save check blocked {blocked_ms:.2f} ms and wrote in {wait_s:.2f} s; resumed "
+          f"losses {[round(t, 6) for _, t in logged_b]} against uninterrupted "
+          f"{[[round(t, 6) for _, t in r[CKPT_STEPS:]] for r in refs]}; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 14. finetuning from the port's checkpoint
+# ---------------------------------------------------------------------------
+
+VCR_BATCH, VCR_STEPS = 8, 3
+TVQA_BATCH = 4
+FINETUNE_LOSS_TOL = 0.05  # step-0 loss against ln N of an untrained head
+# not held in the f32 comparison, as ZERO_GRAD: a logit is proj . h at each
+# option's MASK and the loss a softmax over a task's options, so the joint
+# tower's last bias gets proj times the sum of (p - y) over each task's
+# options, which is 0; what the card computes there is rounding noise
+FINETUNE_ZERO_GRAD = ("joint_transformer.final_ln.bias",)
+
+
+def _finetune_config(task, **model):
+    """The scripts' settings: VCR at output_grid (18, 32) and lang_seq_len
+    144 (scripts/finetune_vcr.py), TVQA at lang_seq_len 256 and 7 segments
+    (scripts/finetune_tvqa.py); bias correction on and eps 1e-6 as both set
+    it; lr 1e-5 and no warmup, so the first updates move."""
+    from merlot_reserve_tpu_torch import load_config
+
+    if task == "vcr":
+        cfg = load_config("base", output_grid=(18, 32), joint_attention_impl="flash", **model)
+        cfg = cfg.replace_data(lang_seq_len=144)
+    else:
+        cfg = load_config("base", joint_attention_impl="flash", **model)
+        cfg = cfg.replace_data(lang_seq_len=256, num_segments=7)
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, learning_rate=1e-5, num_warmup_steps=0, num_train_steps=1000,
+        do_bias_correction=True, eps=1e-6))
+
+
+def phase_finetune(card, pretrained_dir):
+    """VCR and TVQA heads from the port's pretraining checkpoint: the
+    kernel path's first gradient against the plain attention path in an f32
+    copy, then steps with launches, losses, times and peaks."""
+    import shutil
+
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.data.dummy import (TVQA_NUM_ANSWERS, VCR_NUM_ANSWERS,
+                                                     make_dummy_tvqa_batch, make_dummy_vcr_batch)
+    from merlot_reserve_tpu_torch.finetune import models as tm
+    from merlot_reserve_tpu_torch.finetune import train as tt
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+    from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint
+    from merlot_reserve_tpu_torch.utils.weights import load_flax_params
+
+    pretrained = load_checkpoint(pretrained_dir, step=CKPT_STEPS)["params"]
+    out, labels = {}, {}
+    tasks = (("vcr", tm.MerlotReserveVCR, make_dummy_vcr_batch, tt.vcr_loss_fn, VCR_BATCH,
+              [False] * VCR_STEPS, math.log(VCR_NUM_ANSWERS)),
+             ("tvqa", tm.MerlotReserveTVQA, make_dummy_tvqa_batch, tt.tvqa_loss_fn, TVQA_BATCH,
+              [False, True], 2 * math.log(TVQA_NUM_ANSWERS)))
+    for task, cls, make_batch, loss_fn, B, scans, ln_n in tasks:
+        cfg = _finetune_config(task)
+        m = cfg.model
+        params = tm.adapt_pretrained_params(pretrained, m.hidden_size, drop_audio=task == "vcr")
+        batch = make_batch(cfg, B, seed=0)
+        dev_batch = batch_to_tensors(batch, "cuda")
+        model = cls(cfg, device="cuda", seed=0)
+        load_flax_params(model, params)
+        labels[task] = _capture_labels(model, dev_batch)
+        L = max(labels[task])
+
+        # the first step's gradient, kernel path against plain path, in f32
+        model32 = cls(_finetune_config(task, use_bfloat16=False), device="cuda", seed=0)
+        model32.load_state_dict(model.state_dict())
+        grads = {}
+        for path in ("kernel", "plain"):
+            named = {n: p.detach().requires_grad_() for n, p in model32.named_parameters()}
+            with contextlib.ExitStack() as stack:
+                if path == "plain":
+                    for patch in _plain_flash():
+                        stack.enter_context(patch)
+                loss, _ = loss_fn(model32, named, dev_batch)
+                got = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+            grads[path] = {n: (torch.zeros_like(p) if g is None else g).float()
+                           for (n, p), g in zip(named.items(), got)}
+        del model32, named, got
+        held = [n for n, g in grads["plain"].items()
+                if n not in ZERO_GRAD + FINETUNE_ZERO_GRAD and bool(g.any())]
+        agree = _agreement({n: grads["kernel"][n] for n in held},
+                           {n: grads["plain"][n] for n in held})
+        worst = sorted(agree["tensors"].items(), key=lambda kv: kv[1])[:6]
+        lowest = worst[0]
+        zero_sum = {n: float(grads["plain"][n].norm() / grads["plain"]["proj.weight"].norm())
+                    for n in FINETUNE_ZERO_GRAD}
+        print(f"[finetune] {task}: f32 gradient, kernel vs plain: whole {agree['whole']:.7f}, "
+              f"per tower { {k: round(v, 7) for k, v in agree['towers'].items()} }, lowest "
+              f"per tensor {[(n, round(c, 7)) for n, c in worst]}; not held (norm over "
+              f"proj's) {zero_sum}", flush=True)
+        del grads
+        torch.cuda.empty_cache()
+        check(agree["whole"] >= TRAIN_F32_MIN_COSINE and lowest[1] >= TRAIN_F32_MIN_COSINE,
+              f"{task}: f32 gradient cosine, whole {agree['whole']}, of {lowest[0]} "
+              f"{lowest[1]}, below {TRAIN_F32_MIN_COSINE}")
+
+        state = tt.create_finetune_state(cfg, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        infos, step_ms, launch_steps = [], [], []
+        for scan in scans:
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            state, info = tt.finetune_train_step(state, dev_batch, loss_fn, scan_minibatch=scan)
+            infos.append({k: float(v) for k, v in info.items()})  # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launch_steps.append({k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()})
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        loss0 = infos[0]["loss"] if task == "vcr" else \
+            infos[0]["loss_audio"] + infos[0]["loss_text"]
+        check(all(math.isfinite(v) for i in infos for v in i.values()), f"{task}: non-finite")
+        check(abs(loss0 - ln_n) < FINETUNE_LOSS_TOL,
+              f"{task}: step-0 loss {loss0} is not near ln N = {ln_n}")
+        for scan, counts in zip(scans, launch_steps):
+            per_step = m.joint_num_layers * (B if scan else 1)
+            for name in ("flash_fwd", *BWD_LAUNCHES):
+                check(counts.get(name, 0) == per_step,
+                      f"{task}: {name} launches {counts.get(name, 0)} != {per_step} "
+                      f"(scan_minibatch={scan})")
+            check(counts.get("adam_update", 0) == 1, f"{task}: adam_update launches {counts}")
+        # warm steps on the device clock, outside the counted run
+        device_ms = cuda_time_ms(lambda: tt.finetune_train_step(state, dev_batch, loss_fn),
+                                 iters=2, warmup=1)
+        out[task] = {"batch": B, "joint_rows": labels[task][L][0].shape[0], "joint_len": L,
+                     "launches": launches, "launches_per_step": launch_steps,
+                     "scan_minibatch": scans, "metrics": infos, "expected_init_loss": ln_n,
+                     "step_ms_host": step_ms, "step_ms_device": device_ms,
+                     "examples_per_s": B / device_ms * 1e3,
+                     "max_memory_allocated_bytes": peak,
+                     "gradient_f32_kernel_vs_plain": {"whole": agree["whole"],
+                                                      "towers": agree["towers"],
+                                                      "lowest": lowest}}
+        print(f"[finetune] {task}: {B} examples, joint {out[task]['joint_rows']} rows of {L}; "
+              f"step-0 loss {loss0:.5f} (ln N {ln_n:.5f}); steps {[round(s, 1) for s in step_ms]}"
+              f" ms on the host clock (scan_minibatch {scans}), {device_ms:.1f} ms on the "
+              f"device clock warm; {out[task]['examples_per_s']:.2f} examples/s; "
+              f"peak {peak / 2**30:.2f} GiB; launches per step {launch_steps[0]}; f32 gradient "
+              f"cosine kernel vs plain: whole {agree['whole']:.7f}, lowest {lowest}; {card}",
+              flush=True)
+        del state, model, dev_batch
+        torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out, {task: labels[task][max(labels[task])] for task in labels}
+
+
 def main():
     import torch
 
@@ -1864,6 +2380,11 @@ def main():
     raw = phase_raw_media(dev["nvidia_smi"], seed=4)
     long, long_labels = phase_train_long(dev["nvidia_smi"])
     hop_fwd, hop_bwd = phase_hop_kernels(long_labels[LONG_JOINT_LEN], seed=5)
+    adam = phase_adam(dev["nvidia_smi"], seed=6)
+    ckpt = phase_train_ckpt(dev["nvidia_smi"])
+    ft, ft_labels = phase_finetune(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"))
+    ft_fwd, ft_bwd = phase_kernels([("vcr_joint", *ft_labels["vcr"]),
+                                    ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -1876,8 +2397,12 @@ def main():
                                "train_sp4_long": long["arms"]["ring_flash_sp4"]["launches"]
                                .get(name, 0),
                                "train_long_flash": long["arms"]["flash"]["launches"]
-                               .get(name, 0)}
-                        for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd")}
+                               .get(name, 0),
+                               "train_checkpointed": ckpt["launches"].get(name, 0),
+                               "finetune_vcr": ft["vcr"]["launches"].get(name, 0),
+                               "finetune_tvqa": ft["tvqa"]["launches"].get(name, 0)}
+                        for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
+    ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
     def bwd_entry(name):
         """One launch of the bf16 backward at train_joint: its device time
@@ -1907,7 +2432,14 @@ def main():
                     "ms": r["launch_ms"][name], "backward_ms": r["ms"],
                     "backward_bound_ms": r["bound_ms"], "backward_bound_by": r["bound_by"],
                     "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
-                    for r in hop_bwd}}
+                    for r in hop_bwd},
+                "finetune_shapes": {f"{r['case']} B{r['B']} L{r['L']}": {
+                    "ms": r["launch_ms"][name], "bound_ms": r["bounds"][name]["bound_ms"],
+                    "bound_by": r["bounds"][name]["bound_by"], "backward_ms": r["ms"],
+                    "backward_bound_ms": r["bounds"]["both"]["bound_ms"],
+                    "backward_bound_by": r["bounds"]["both"]["bound_by"],
+                    "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
+                    for r in ft_bwd16}}
 
     def shapes(records, keys):
         """Per case: the times on both clocks, the bound and the factor over
@@ -1918,9 +2450,9 @@ def main():
 
     fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
     fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"] + hop_fwd
-                         if r["dtype"] == "bf16" and r["case"] in (
+                         + ft_fwd if r["dtype"] == "bf16" and r["case"] in (
                              "serving", "train_joint", "train_span", "long_video",
-                             "zero_shot_joint", "zero_shot_span",
+                             "zero_shot_joint", "zero_shot_span", "vcr_joint", "tvqa_joint",
                              *(c for c, _, _ in HOP_CASES))], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
@@ -1948,6 +2480,18 @@ def main():
          "event_ms": long_ring["ms"], "plain_ms": long_ring["plain_ms"],
          "bound_ms": long_ring["bound_ms"], "bound_by": long_ring["bound_by"],
          "library_ms": long_ring["sdpa_graph_ms"], "shapes": ring_shapes},
+        {"name": "adam_update", "route": "cuda",
+         "source": "merlot_reserve_tpu_torch/csrc/adam_update.cu",
+         "replaces": "merlot_reserve_tpu/training/optimization.py:64 (scale_by_bfloat16_adam "
+                     "and the chains of :178 and :206, one XLA program; no Pallas kernel)",
+         "launches": sum(launches_by_path["adam_update"].values()),
+         "launches_by_path": launches_by_path["adam_update"],
+         "case": "the base pretrainer's parameters, pretraining chain",
+         "max_abs_err": max(r["max_abs_err"] for r in adam["chains"].values()),
+         **{k: adam["chains"]["pretrain"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
+             "plain_host_ms", "launches_per_update", "plain_launches_per_update")},
+         "chains": adam["chains"], "decode_sweep": adam["decode_sweep"]},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1956,6 +2500,8 @@ def main():
               "ring_kernels": ring, "fwd_kernel_key_labels": k_labels,
               "long_fwd_kernels": long_fwd, "slice_sp": sp, "raw_media": raw,
               "train_long": long, "hop_fwd_kernels": hop_fwd, "hop_bwd_kernels": hop_bwd,
+              "adam": adam, "train_checkpointed": ckpt, "finetune": ft,
+              "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

@@ -156,3 +156,66 @@ def _emit_triple(batch, key, arr, ptr_names=("audio_ptr", "text_ptr")):
         batch[f"{key}/audio_ptr"] = arr[..., 1]
     if "text_ptr" in ptr_names:
         batch[f"{key}/text_ptr"] = arr[..., 2]
+
+
+def _option(rng, query_len: int, choice_len: int, length: int) -> np.ndarray:
+    """Random query and choice tokens, cut to ``length - 1`` and ended by
+    MASK, as the finetuning preprocessors build an answer option."""
+    option = rng.randint(10, 30000, query_len + choice_len)[:length - 1]
+    return np.concatenate([option, [MASK]]).astype(np.int32)
+
+
+VCR_NUM_ANSWERS = 4
+TVQA_NUM_ANSWERS = 5
+
+
+def make_dummy_vcr_batch(cfg: MerlotConfig, batch_size: int = 2, seed: int = 0
+                         ) -> Dict[str, np.ndarray]:
+    """A VCR finetuning batch with the shapes of the JAX package's
+    ``finetune_batches(..., "vcr")``: ``image`` [B, P, 768] patches in
+    [0, 1], ``answers`` [B, 2, 4, lang_seq_len] (each option a query, a
+    separator and a choice ending in MASK, then PADDING) and ``labels``
+    [B, 2]."""
+    rng = np.random.RandomState(seed)
+    L, num_answers = cfg.data.lang_seq_len, VCR_NUM_ANSWERS
+    answers = np.full((batch_size, 2, num_answers, L), PADDING, np.int32)
+    for b, t, a in np.ndindex(batch_size, 2, num_answers):
+        option = _option(rng, rng.randint(8, 40), rng.randint(4, 30), L)
+        answers[b, t, a, :len(option)] = option
+    return {"image": rng.rand(batch_size, cfg.model.vit_seq_len, 768).astype(np.float32),
+            "answers": answers,
+            "labels": rng.randint(0, num_answers, (batch_size, 2)).astype(np.int32)}
+
+
+def make_dummy_tvqa_batch(cfg: MerlotConfig, batch_size: int = 2, seed: int = 0
+                          ) -> Dict[str, np.ndarray]:
+    """A TVQA finetuning batch with the shapes of the JAX package's
+    ``finetune_batches(..., "tvqa")``, S = ``cfg.data.num_segments``:
+    ``images`` [B, S, P, 768], ``audio_clips`` [B, S, 3, 60, 65] (the
+    playback-speed channel 1), ``textonly_seqs`` and ``audio_seqs``
+    [B, 5, lang_seq_len, 2] of (token, segment): the option (segment 0,
+    ending in MASK) and then per segment its subtitle tokens or a run of
+    3 x audio_token_length AUDIOSPAN, cut to the length; ``labels`` [B]."""
+    rng = np.random.RandomState(seed)
+    m, L = cfg.model, cfg.data.lang_seq_len
+    num_answers, num_segments = TVQA_NUM_ANSWERS, cfg.data.num_segments
+    audio = rng.randn(batch_size, num_segments, 3, m.audio_seq_length, 65).astype(np.float32)
+    audio[..., -1] = 1.0
+    text = np.zeros((batch_size, num_answers, L, 2), np.int32)
+    audio_seqs = np.zeros((batch_size, num_answers, L, 2), np.int32)
+    audio_run = np.full(3 * m.audio_token_length, AUDIOSPAN, np.int32)
+    for b in range(batch_size):
+        query_len = rng.randint(8, 30)
+        subs = [rng.randint(10, 30000, rng.randint(5, 30)).astype(np.int32)
+                for _ in range(num_segments)]
+        for a in range(num_answers):
+            option = _option(rng, query_len, rng.randint(3, 15), L)
+            for out, rows in ((text, subs), (audio_seqs, [audio_run] * num_segments)):
+                rows = [option] + rows
+                toks = np.concatenate(rows)[:L]
+                seg = np.repeat(np.arange(len(rows)), [len(r) for r in rows])[:L]
+                out[b, a, :len(toks), 0] = toks
+                out[b, a, :len(toks), 1] = seg
+    return {"images": rng.rand(batch_size, num_segments, m.vit_seq_len, 768).astype(np.float32),
+            "audio_clips": audio, "textonly_seqs": text, "audio_seqs": audio_seqs,
+            "labels": rng.randint(0, num_answers, batch_size).astype(np.int32)}

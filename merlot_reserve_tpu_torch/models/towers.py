@@ -9,6 +9,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from merlot_reserve_tpu_torch.models.layers import TransformerEncoder, init_linear, linear
@@ -188,4 +189,8 @@ class TokenEmbedder(nn.Module):
                 nn.init.xavier_uniform_(self.Embed_0.weight, generator=generator)
 
     def forward(self, token_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: self.Embed_0(token_dict[k]).to(self.dtype) for k in sorted(token_dict)}
+        # the table is cast to the compute dtype before the lookup, as flax's
+        # Embed does: under bf16 parameters and f32 compute the gradient then
+        # sums a token's uses in f32 and rounds once, not use by use
+        table = self.Embed_0.weight.to(self.dtype)
+        return {k: F.embedding(token_dict[k], table) for k in sorted(token_dict)}

@@ -1,20 +1,37 @@
-"""The pretraining optimizer, without optax.
+"""The pretraining and finetuning optimizers, without optax.
 
-The port of ``merlot_reserve_tpu/training/optimization.py``'s pretraining
-chain: memory-lean Adam with the first moment stored in bf16 and the second
-in a cube-root bf16 encoding that spends the (always non-negative) sign bit
-as an extra mantissa bit, then decoupled weight decay on the parameters
-whose flax leaf has more than one axis, then the linear-warmup / cosine
-schedule, then the step -lr. The update math is f32 and follows the optax
-chain operation for operation, so that the two packages agree to rounding.
+The port of ``merlot_reserve_tpu/training/optimization.py``'s two chains.
+Both start with memory-lean Adam, the first moment stored in bf16 and the
+second in a cube-root bf16 encoding that spends the (always non-negative)
+sign bit as an extra mantissa bit, and end with a schedule and the step -lr:
+
+  * pretraining (``construct_train_state``): decoupled weight decay toward
+    zero on the parameters whose flax leaf has more than one axis, then the
+    linear-warmup / cosine schedule;
+  * finetuning (``construct_finetuning_train_state``): ``subtract_old_weights``,
+    decay toward a bf16 anchor of the initial parameters (kept in the
+    optimizer state) on the leaves with more than one axis and more than
+    4096 elements, then the linear-warmup / linear-decay schedule.
+
+The update math is f32 and follows the optax chain operation for
+operation, so that the two packages agree to rounding. On the card one
+launch of the hand-written kernel ``csrc/adam_update.cu`` updates every
+parameter (``adam_update``); on the CPU its plain version
+``adam_update_reference`` runs the eager ops tensor by tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from merlot_reserve_tpu_torch import kernels
+from merlot_reserve_tpu_torch.kernels import build
 
 # one extra half-step of mantissa, signaled by the sign bit
 _MISSING_PRECISION = 1 + (1 / 2 ** 9)
@@ -81,56 +98,278 @@ def lr_scale_linearwarmup_lineardecay(num_warmup_steps: int, num_train_steps: in
     return schedule
 
 
+CHAINS = ("pretrain", "finetune")
+
+
+@torch.no_grad()
+def adam_update_reference(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                          mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
+                          decay, opt_config, count_inc: int, step_size: float,
+                          anchor: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Plain PyTorch version of the update kernel: one update of every
+    parameter, mu and nu in place, with eager ops tensor by tensor.
+
+    :param decay: the names that take weight decay (pretraining) or are
+        pulled toward ``anchor`` (finetuning)
+    :param count_inc: the update's count, 1 for the first update
+    :param step_size: the schedule's f32 scale at ``count_inc - 1``
+    :param anchor: bf16 initial parameters: given, the finetuning chain
+    """
+    cfg = opt_config
+    b1, b2 = cfg.beta_1, cfg.beta_2
+    for name, p in params.items():
+        g = grads[name]
+        next_m = (1 - b1) * g + b1 * mu[name].float()
+        next_v = (1 - b2) * torch.square(g) + b2 * unsigned_bfloat16_decode(nu[name])
+        mu[name].copy_(next_m.to(torch.bfloat16))
+        nu[name].copy_(unsigned_bfloat16_encode(next_v))
+        if cfg.do_bias_correction:
+            next_m = next_m / (1 - b1 ** count_inc)
+            next_v = next_v / (1 - b2 ** count_inc)
+        update = next_m / (torch.sqrt(next_v) + cfg.eps)
+        if name in decay:
+            if anchor is None:
+                update = update + cfg.weight_decay_rate * p
+            else:
+                update = update + cfg.weight_decay_rate * (p - anchor[name].float())
+        update = update * step_size
+        p.add_(update * (-cfg.learning_rate))
+
+
+# ---------------------------------------------------------------------------
+# the kernel: csrc/adam_update.cu
+# ---------------------------------------------------------------------------
+
+CHUNK = 8192  # elements per block
+
+
+class _AdamTensor(ctypes.Structure):
+    """Field for field the ``AdamTensor`` struct of csrc/adam_update.cu."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("mu", ctypes.c_void_p), ("nu", ctypes.c_void_p),
+                ("anchor", ctypes.c_void_p), ("numel", ctypes.c_int64),
+                ("decay", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+class _AdamHyper(ctypes.Structure):
+    """Field for field the ``AdamHyper`` struct of csrc/adam_update.cu."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "one_minus_b1", "b1", "one_minus_b2", "b2", "eps", "inv_bc1", "inv_bc2", "wd",
+        "step_size", "neg_lr", "one_third")] + [("bias_correction", ctypes.c_int32),
+                                                 ("finetune", ctypes.c_int32)]
+
+
+class _AdamParams(ctypes.Structure):
+    """Field for field the ``AdamParams`` struct of csrc/adam_update.cu."""
+
+    _fields_ = [("tensors", ctypes.c_void_p), ("grads", ctypes.c_void_p),
+                ("block_tensor", ctypes.c_void_p), ("block_start", ctypes.c_void_p),
+                ("num_blocks", ctypes.c_int32), ("chunk", ctypes.c_int32), ("h", _AdamHyper)]
+
+
+@functools.lru_cache(maxsize=None)
+def _adam_lib() -> ctypes.CDLL:
+    lib = build.load("adam_update")
+    for fn, struct in (("adam_update_params_size", _AdamParams),
+                       ("adam_update_tensor_size", _AdamTensor)):
+        size = getattr(lib, fn)
+        size.argtypes = []
+        size.restype = ctypes.c_size_t
+        if size() != ctypes.sizeof(struct):
+            raise RuntimeError(f"csrc/adam_update.cu's struct does not match {struct.__name__}")
+    lib.adam_update.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.adam_update.restype = ctypes.c_int
+    lib.adam_decode_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_float, ctypes.c_void_p]
+    lib.adam_decode_probe.restype = ctypes.c_int
+    return lib
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def adam_hyper(opt_config, count_inc: int, step_size: float, finetune: bool) -> _AdamHyper:
+    """The f32 scalars that the eager ops of ``adam_update_reference`` see on
+    the card: each Python float rounded to f32, and a tensor divided by a
+    Python scalar as a product with the scalar's f32 reciprocal (what
+    PyTorch's CUDA division by a scalar computes)."""
+    cfg = opt_config
+    b1, b2 = cfg.beta_1, cfg.beta_2
+    inv_bc = [float(np.float32(1.0) / np.float32(1 - b ** count_inc)) for b in (b1, b2)]
+    return _AdamHyper(
+        one_minus_b1=_f32(1 - b1), b1=_f32(b1), one_minus_b2=_f32(1 - b2), b2=_f32(b2),
+        eps=_f32(cfg.eps), inv_bc1=inv_bc[0], inv_bc2=inv_bc[1],
+        wd=_f32(cfg.weight_decay_rate), step_size=_f32(step_size),
+        neg_lr=_f32(-cfg.learning_rate), one_third=_f32(1.0 / 3.0),
+        bias_correction=int(bool(cfg.do_bias_correction)), finetune=int(finetune))
+
+
+class AdamTable:
+    """The kernel's device-side table of (param, mu, nu, anchor, numel,
+    decay) entries and its block map, built once for tensors that are then
+    updated in place. Each update sends only the gradient pointers, and
+    refuses to launch if a tensor of the state is no longer the one the
+    table points at (a rebound entry, or a parameter moved or cast)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], mu, nu, decay, anchor=None):
+        self.names = list(params)
+        first = params[self.names[0]]
+        self.device = first.device
+        if self.device.type != "cuda":
+            raise ValueError("adam_update: the kernel's table lives on the card")
+        for n in self.names:
+            p, m, v = params[n], mu[n], nu[n]
+            a = None if anchor is None else anchor[n]
+            for what, x, dtype in (("param", p, torch.float32), ("mu", m, torch.bfloat16),
+                                   ("nu", v, torch.bfloat16),
+                                   ("anchor", a if a is not None else m, torch.bfloat16)):
+                if (x.dtype != dtype or x.device != self.device or x.shape != p.shape
+                        or not x.is_contiguous()):
+                    raise ValueError(f"adam_update: {what} of {n} must be a contiguous "
+                                     f"{dtype} {tuple(p.shape)} on {self.device}")
+        self.state = (params, mu, nu, anchor)
+        self.pointers = [self._pointers(n) for n in self.names]
+        # aliases of the storages the table points at, so that the kernel
+        # never writes into freed memory, whatever the dicts come to hold
+        self._held = [tuple(None if d is None else d[n].detach() for d in self.state)
+                      for n in self.names]
+        entries = (_AdamTensor * len(self.names))(*[
+            _AdamTensor(*ptrs, params[n].numel(), int(n in decay), 0)
+            for n, ptrs in zip(self.names, self.pointers)])
+        self.tensors = torch.frombuffer(bytearray(entries), dtype=torch.uint8).to(self.device)
+        chunks = [-(-params[n].numel() // CHUNK) for n in self.names]
+        self.block_tensor = torch.repeat_interleave(
+            torch.arange(len(chunks), dtype=torch.int32), torch.tensor(chunks)).to(self.device)
+        self.block_start = torch.cat([torch.arange(c, dtype=torch.int64) * CHUNK
+                                      for c in chunks]).to(self.device)
+        self.shapes = [params[n].shape for n in self.names]
+
+    def _pointers(self, name: str) -> Tuple[int, int, int, int]:
+        params, mu, nu, anchor = self.state
+        return (params[name].data_ptr(), mu[name].data_ptr(), nu[name].data_ptr(),
+                0 if anchor is None else anchor[name].data_ptr())
+
+    def grad_pointers(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        ptrs = []
+        for n, shape, built in zip(self.names, self.shapes, self.pointers):
+            if self._pointers(n) != built:
+                raise RuntimeError(f"adam_update: the param, mu, nu or anchor of {n} is no "
+                                   "longer the tensor the kernel's table was built from; "
+                                   "update the optimizer's state in place")
+            g = grads[n]
+            if (g.dtype != torch.float32 or g.device != self.device or g.shape != shape
+                    or not g.is_contiguous()):
+                raise ValueError(f"adam_update: the gradient of {n} must be a contiguous "
+                                 f"f32 {tuple(shape)} on {self.device}")
+            ptrs.append(g.data_ptr())
+        return torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(self.device,
+                                                                     non_blocking=True)
+
+
+def adam_update(table: AdamTable, grads: Dict[str, torch.Tensor], hyper: _AdamHyper) -> None:
+    """One launch of csrc/adam_update.cu on PyTorch's current stream: every
+    tensor of ``table`` updated from ``grads`` (kept alive by the caller
+    until the launch is enqueued; the stream orders any reuse)."""
+    ptrs = table.grad_pointers(grads)
+    params = _AdamParams(tensors=table.tensors.data_ptr(), grads=ptrs.data_ptr(),
+                         block_tensor=table.block_tensor.data_ptr(),
+                         block_start=table.block_start.data_ptr(),
+                         num_blocks=table.block_tensor.numel(), chunk=CHUNK, h=hyper)
+    with torch.cuda.device(table.device):
+        err = _adam_lib().adam_update(ctypes.byref(params),
+                                      torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adam_update launch failed with cudaError_t {err}")
+    kernels.LAUNCHES["adam_update"] += 1
+
+
+def adam_decode_probe(nu: torch.Tensor) -> torch.Tensor:
+    """The kernel's decode of a contiguous bf16 CUDA tensor, alone: for the
+    exhaustive check of its 65536 inputs against ``unsigned_bfloat16_decode``
+    (not on any training path; not counted)."""
+    if nu.dtype != torch.bfloat16 or nu.device.type != "cuda" or not nu.is_contiguous():
+        raise ValueError("adam_decode_probe: needs a contiguous bf16 CUDA tensor")
+    out = torch.empty(nu.shape, dtype=torch.float32, device=nu.device)
+    with torch.cuda.device(nu.device):
+        err = _adam_lib().adam_decode_probe(nu.data_ptr(), out.data_ptr(), nu.numel(),
+                                            _f32(1.0 / 3.0),
+                                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adam_decode_probe launch failed with cudaError_t {err}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the optimizer
+# ---------------------------------------------------------------------------
+
+
 class PretrainOptimizer:
-    """bf16 Adam -> decoupled weight decay -> schedule -> -lr, over named
-    f32 parameters, updated in place.
+    """bf16 Adam -> weight decay -> schedule -> -lr, over named f32
+    parameters, updated in place, with mu, nu (and the anchor) in place.
 
     :param named_params: (name, parameter) pairs, e.g. ``model.named_parameters()``
     :param decay: names of the parameters that take weight decay
+        (pretraining) or are pulled toward the anchor (finetuning)
     :param opt_config: an ``OptimizerConfig``
+    :param chain: "pretrain" (decay toward zero, cosine schedule) or
+        "finetune" (decay toward a bf16 anchor of the parameters as they are
+        now, linear schedule)
 
     ``count`` is the number of updates made. Like optax's
     ``scale_by_schedule``, the schedule is read at the count before the
-    update, so the first update has scale schedule(0) = 0 under warmup.
+    update, so the first update has scale schedule(0) = 0 under warmup. On
+    the card each update is one launch of ``adam_update``; on the CPU it is
+    ``adam_update_reference``.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], decay: Iterable[str],
-                 opt_config):
+                 opt_config, chain: str = "pretrain"):
         if not opt_config.use_bfloat16_adam:
-            raise NotImplementedError("only the bf16 Adam of the pretraining chain is ported")
+            raise NotImplementedError("only the bf16 Adam of the optax chains is ported")
+        if chain not in CHAINS:
+            raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
         self.config = opt_config
+        self.chain = chain
         self.params: Dict[str, torch.Tensor] = dict(named_params)
         self.decay = frozenset(decay)
         unknown = self.decay - set(self.params)
         if unknown:
             raise KeyError(f"weight decay names no parameter: {sorted(unknown)}")
-        self.schedule = lr_scale_linearwarmup_cosinedecay(
-            opt_config.num_warmup_steps, opt_config.num_train_steps, opt_config.final_lr_scale)
+        if chain == "pretrain":
+            self.schedule = lr_scale_linearwarmup_cosinedecay(
+                opt_config.num_warmup_steps, opt_config.num_train_steps,
+                opt_config.final_lr_scale)
+            self.anchor = None
+        else:
+            self.schedule = lr_scale_linearwarmup_lineardecay(
+                opt_config.num_warmup_steps, opt_config.num_train_steps)
+            self.anchor = {n: p.detach().to(torch.bfloat16) for n, p in self.params.items()}
         self.mu = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
         self.count = 0
+        self._table: Optional[AdamTable] = None
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> None:
         """One update of every parameter from its f32 gradient."""
-        cfg = self.config
-        b1, b2 = cfg.beta_1, cfg.beta_2
         count_inc = self.count + 1
         # an f32 value as a Python float: multiplying by it is exact in f32,
         # and it needs no copy to the device
         step_size = float(self.schedule(self.count))
-        for name, p in self.params.items():
-            g = grads[name]
-            next_m = (1 - b1) * g + b1 * self.mu[name].float()
-            next_v = (1 - b2) * torch.square(g) + b2 * unsigned_bfloat16_decode(self.nu[name])
-            self.mu[name] = next_m.to(torch.bfloat16)
-            self.nu[name] = unsigned_bfloat16_encode(next_v)
-            if cfg.do_bias_correction:
-                next_m = next_m / (1 - b1 ** count_inc)
-                next_v = next_v / (1 - b2 ** count_inc)
-            update = next_m / (torch.sqrt(next_v) + cfg.eps)
-            if name in self.decay:
-                update = update + cfg.weight_decay_rate * p
-            update = update * step_size
-            p.add_(update * (-cfg.learning_rate))
+        device = next(iter(self.params.values())).device
+        if device.type == "cuda":
+            state = (self.params, self.mu, self.nu, self.anchor)
+            if self._table is None:
+                self._table = AdamTable(self.params, self.mu, self.nu, self.decay, self.anchor)
+            elif any(a is not b for a, b in zip(self._table.state, state)):
+                raise RuntimeError("adam_update: the optimizer's params, mu, nu or anchor "
+                                   "dict was replaced; update it in place")
+            adam_update(self._table, grads,
+                        adam_hyper(self.config, count_inc, step_size, self.anchor is not None))
+        else:
+            adam_update_reference(self.params, grads, self.mu, self.nu, self.decay, self.config,
+                                  count_inc, step_size, self.anchor)
         self.count = count_inc

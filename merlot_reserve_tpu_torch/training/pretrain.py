@@ -7,14 +7,23 @@ the JAX package: a config whose joint attention is ``ring:flash`` with
 ``seq_shard_axis="sp"`` trains with its joint attention split over the
 mesh's sp ranks (virtual ranks on the run's device).
 
-Not ported yet: checkpointing and resume, SIGTERM handling, experiment
-trackers and the asynchronous ``MetricsQueue``. ``output_dir`` raises
-``NotImplementedError`` until then, and ``log_fn`` reads every step's
-metrics when the step ends.
+With an ``output_dir`` (or ``cfg.device.output_dir``) the run checkpoints
+every ``save_every`` steps and at its end (``utils.checkpoint``, the
+flax-msgpack format: asynchronously, off the step's critical path), with
+the data position in a ``loader_state.json`` sidecar where the batch
+iterator has ``state_dict`` / ``load_state_dict``; it resumes from the
+newest checkpoint there. SIGTERM or SIGINT finishes the step, checkpoints
+and stops. Metrics reach ``log_fn`` and the tracker ``log_every`` steps
+late (``MetricsQueue``), so that logging never waits on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import signal
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -27,8 +36,15 @@ from merlot_reserve_tpu_torch.models.pretrainer import (
     loss_fn_given_preds,
 )
 from merlot_reserve_tpu_torch.parallel.mesh import Mesh, activate_mesh, make_mesh
-from merlot_reserve_tpu_torch.training.trainer import TrainState, create_train_state, train_step
+from merlot_reserve_tpu_torch.training.trainer import (
+    MetricsQueue,
+    TrainState,
+    create_train_state,
+    train_step,
+)
+from merlot_reserve_tpu_torch.utils import checkpoint as ckpt_lib
 from merlot_reserve_tpu_torch.utils.device import resolve_device
+from merlot_reserve_tpu_torch.utils.experiment import make_tracker
 
 
 def config_mesh(cfg: MerlotConfig, device) -> Mesh:
@@ -39,35 +55,131 @@ def config_mesh(cfg: MerlotConfig, device) -> Mesh:
     return make_mesh(dp=d.dp, tp=d.tp, sp=d.sp, pp=d.pp, dcn_dp=d.dcn_dp, devices=[device] * n)
 
 
+class _StopFlag:
+    """Set by SIGTERM / SIGINT while installed: the loop finishes its step,
+    checkpoints and stops. Outside the main thread no handler can be
+    installed, and the flag stays settable by hand."""
+
+    def __init__(self):
+        self.set = False
+        self._restore = []
+
+    def _on_signal(self, signum, frame):
+        self.set = True
+        print(f"signal {signum}: checkpointing and exiting after the current step", flush=True)
+
+    def __enter__(self):
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._restore.append((sig, signal.signal(sig, self._on_signal)))
+        except ValueError:
+            pass  # not the main thread
+        return self
+
+    def __exit__(self, *exc):
+        for sig, old in self._restore:
+            signal.signal(sig, old)
+
+
 def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.ndarray]],
                     num_steps: Optional[int] = None, output_dir: Optional[str] = None,
                     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
-                    device="cuda", seed: int = 0, mesh: Optional[Mesh] = None) -> TrainState:
+                    device="cuda", seed: int = 0, mesh: Optional[Mesh] = None,
+                    log_every: int = 50, save_every: Optional[int] = None,
+                    tracker=None) -> TrainState:
     """Build a ``MerlotReservePretrainer`` (weights from ``seed``) on
-    ``device`` and train it for ``num_steps`` steps under ``mesh``; returns
-    the final ``TrainState``.
+    ``device`` and train it up to step ``num_steps`` under ``mesh``,
+    resuming from ``output_dir``'s newest checkpoint; returns the final
+    ``TrainState``.
 
     :param batch_iterator: yields ``make_dummy_batch``-shaped numpy batches
     :param num_steps: overrides ``cfg.optimizer.num_train_steps``
-    :param log_fn: called as ``log_fn(step, {name: float})`` after each step
+    :param output_dir: checkpoint directory (default ``cfg.device.output_dir``;
+        none: no checkpoints)
+    :param log_fn: called as ``log_fn(step, {name: float})`` for every step,
+        ``log_every`` steps after it, and for the rest at the end
     :param device: the card unless the caller passes "cpu"; never falls back
     :param mesh: default ``config_mesh(cfg, device)``
+    :param save_every: default ``cfg.device.iterations_per_loop``
+    :param tracker: a ``utils.experiment`` tracker; default a ``JsonlTracker``
+        in ``output_dir/run`` (none without an ``output_dir``)
     """
-    if output_dir or cfg.device.output_dir:
-        raise NotImplementedError("checkpointing is not ported yet: run without output_dir")
     num_steps = num_steps or cfg.optimizer.num_train_steps
+    save_every = save_every or cfg.device.iterations_per_loop
+    output_dir = output_dir or cfg.device.output_dir or None
     device = resolve_device(device)
     mesh = mesh or config_mesh(cfg, device)
+    if tracker is None:
+        tracker = make_tracker(f"jsonl:{os.path.join(output_dir, 'run')}" if output_dir else None)
+    tracker.log_config(dataclasses.asdict(cfg))
+
+    loader_state_path = os.path.join(output_dir, "loader_state.json") if output_dir else None
+    if (loader_state_path and os.path.exists(loader_state_path)
+            and hasattr(batch_iterator, "load_state_dict")):
+        with open(loader_state_path) as f:
+            try:
+                batch_iterator.load_state_dict(json.load(f))
+                print("restored loader position", flush=True)
+            except ValueError as e:
+                print(f"loader state ignored: {e}", flush=True)
+
+    def save_loader_state():
+        if loader_state_path and hasattr(batch_iterator, "state_dict"):
+            tmp = loader_state_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(batch_iterator.state_dict(), f)
+            os.replace(tmp, loader_state_path)
+
     model = MerlotReservePretrainer(cfg, device=device, seed=seed)
     state = create_train_state(cfg, model)
+    if output_dir:
+        ckpt_lib.load_checkpoint(output_dir, state=state)
+        if state.step:
+            print(f"resumed from step {state.step}", flush=True)
 
-    for step, batch in zip(range(num_steps), batch_iterator):
-        with activate_mesh(mesh):
-            state, metrics = train_step(state, batch_to_tensors(batch, device))
-        if log_fn is not None:
-            log_fn(step, {k: float(v) for k, v in metrics.items()})
-    if state.step < num_steps:
-        print(f"input exhausted after {state.step} of {num_steps} steps", flush=True)
+    metrics_q = MetricsQueue(delay=log_every)
+    async_ckpt = ckpt_lib.AsyncCheckpointer()
+
+    def report(ready):
+        if ready is not None:
+            tracker.log(*ready)
+            if log_fn is not None:
+                log_fn(*ready)
+
+    batches = iter(batch_iterator)
+    t_block = time.time()
+    with _StopFlag() as stop:
+        for step in range(state.step, num_steps):
+            try:
+                batch = next(batches)
+            except StopIteration:
+                print(f"input exhausted after {state.step} of {num_steps} steps", flush=True)
+                break
+            with activate_mesh(mesh):
+                state, metrics = train_step(state, batch_to_tensors(batch, device))
+            report(metrics_q.push(step, metrics))
+            if output_dir and (step + 1) % save_every == 0:
+                async_ckpt.save(state, output_dir)
+                save_loader_state()
+                # contrastive temperature health print
+                scales = model.contrastive_scales.detach().float().cpu()
+                print(f"step {step + 1} contrastive temps: "
+                      f"{torch.exp(scales / 2.0).numpy().round(3).tolist()}", flush=True)
+            if (step + 1) % 100 == 0:
+                dt = time.time() - t_block
+                print(f"steps {step - 98}..{step + 1}: {dt:.1f}s ({100 / dt:.2f} it/s)",
+                      flush=True)
+                t_block = time.time()
+            if stop.set:
+                break
+
+    for ready in metrics_q.drain():
+        report(ready)
+    tracker.finish()
+    async_ckpt.wait()
+    if output_dir:
+        ckpt_lib.save_checkpoint(state, output_dir)
+        save_loader_state()
     return state
 
 

@@ -17,8 +17,9 @@ step's host and device time by them (``scripts/profile_torch_training.py``).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.func import functional_call
@@ -32,22 +33,25 @@ from merlot_reserve_tpu_torch.utils.weights import flax_leaf_shapes
 @dataclass
 class TrainState:
     """The model (f32 master parameters), its optimizer, and the number of
-    steps taken."""
+    steps taken. The model is a ``MerlotReservePretrainer`` or a finetuning
+    head (``finetune.models``)."""
 
-    model: MerlotReservePretrainer
+    model: torch.nn.Module
     optimizer: PretrainOptimizer
     step: int = 0
 
 
-def weight_decay_names(model: MerlotReservePretrainer):
+def weight_decay_names(model: torch.nn.Module, min_size: int = 0):
     """The parameters that take weight decay: those whose flax leaf has more
-    than one axis, read through the weight bridge's name map in the JAX
-    package's layout (``scan_layers``: every per-layer leaf carries the
-    stacked layer axis, so per-layer biases and LayerNorm scales decay too,
-    as in the JAX package)."""
+    than one axis and more than ``min_size`` elements (0 for the pretraining
+    chain's mask, 4096 for the finetuning chain's), read through the weight
+    bridge's name map in the JAX package's layout (``scan_layers``: every
+    per-layer leaf carries the stacked layer axis, so per-layer biases and
+    LayerNorm scales decay too, as in the JAX package)."""
     shapes = flax_leaf_shapes(dict(model.named_parameters()), model.config.size_per_head,
                               model.config.scan_layers)
-    return [name for name, shape in shapes.items() if len(shape) > 1]
+    return [name for name, shape in shapes.items()
+            if len(shape) > 1 and math.prod(shape) > min_size]
 
 
 def create_train_state(cfg, model: MerlotReservePretrainer) -> TrainState:
@@ -100,3 +104,44 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         state.optimizer.step(grads)
     state.step += 1
     return state, info
+
+
+class MetricsQueue:
+    """Metrics read ``delay`` steps late, so that logging never makes the
+    host wait for the device (the JAX package's ``MetricsQueue``, the
+    reference's copy_to_host_async pattern).
+
+    ``push`` starts the copy of a step's 0-d device tensors to pinned host
+    memory and records an event behind it; once more than ``delay`` steps
+    are pending, it returns the oldest step's metrics as floats, waiting only
+    for that step's copies (``delay`` 0: the pushed step's own, at once).
+    ``drain`` yields the rest in order.
+    """
+
+    def __init__(self, delay: int = 50):
+        self.delay = delay
+        self._queue: List[Tuple[int, Dict[str, torch.Tensor], Any]] = []
+
+    def push(self, step: int, metrics: Dict[str, Any]) -> Optional[Tuple[int, Dict[str, float]]]:
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        event = None
+        if any(v.is_cuda for v in metrics.values()):
+            metrics = {k: v.to("cpu", non_blocking=True) for k, v in metrics.items()}
+            event = torch.cuda.Event()
+            event.record()
+        self._queue.append((step, metrics, event))
+        if len(self._queue) > max(self.delay, 0):
+            return self.pop()
+        return None
+
+    def pop(self) -> Optional[Tuple[int, Dict[str, float]]]:
+        if not self._queue:
+            return None
+        step, metrics, event = self._queue.pop(0)
+        if event is not None:
+            event.synchronize()
+        return step, {k: float(v) for k, v in metrics.items()}
+
+    def drain(self):
+        while self._queue:
+            yield self.pop()

@@ -1,17 +1,322 @@
-"""Layer-layout converters for flax parameter trees held as numpy arrays.
+"""Checkpoints in the flax-msgpack format, and layer-layout converters.
 
-The reference checkpoints store one ``layer_NN`` subtree per transformer
-layer; the JAX package's scan-over-layers models store one ``layers``
-subtree whose leaves are stacked along a leading [num_layers] axis.
+The port of ``merlot_reserve_tpu/utils/checkpoint.py``'s msgpack half. A
+checkpoint is one file ``<path>/ckpt_<step>``: the msgpack
+(``utils.msgpack``) of the tree a flax ``TrainState`` serializes to,
+``{"step", "params", "opt_state"}``, with every f32 leaf stored as f16 and
+the Adam moments as bf16, as the JAX package and the released
+``gs://merlotreserve`` checkpoints store them. So either package reads the
+other's files. ``state_to_flax`` / ``load_state_from_flax`` map a port
+``TrainState`` to and from that tree, with ``opt_state`` in the optax
+chain's layout (see ``state_to_flax``).
+
+The JAX package's writer produces this format only with flax's
+``flax_use_orbax_checkpointing`` set to False: under newer flax its
+default writes an orbax directory instead, which ``load_checkpoint``
+refuses with a message naming that flag. The orbax half of the JAX module
+(per-shard parallel writes of a train state sharded across processes)
+waits for the port's multi-card work.
+
+The layer-layout converters: the reference checkpoints store one
+``layer_NN`` subtree per transformer layer; the JAX package's
+scan-over-layers models store one ``layers`` subtree whose leaves are
+stacked along a leading [num_layers] axis.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import threading
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from merlot_reserve_tpu_torch.utils import msgpack
+from merlot_reserve_tpu_torch.utils.weights import (
+    flax_tensors_from_state_dict,
+    state_dict_from_flax,
+)
+
+PREFIX = "ckpt_"
+_STEP_RE = re.compile(r"^ckpt_(\d+)$")
 _LAYER_RE = re.compile(r"^layer_(\d+)$")
+_ORBAX_FILES = ("manifest.ocdbt", "_METADATA", "_CHECKPOINT_METADATA", "checkpoint")
+
+
+# ---------------------------------------------------------------------------
+# dtype maps over trees
+# ---------------------------------------------------------------------------
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _cast(from_dtype, to_dtype, tree):
+    return _map_leaves(lambda x: x.to(to_dtype) if isinstance(x, torch.Tensor)
+                       and x.dtype == from_dtype else x, tree)
+
+
+def compress_state(tree):
+    """f32 leaves -> f16 (more mantissa than bf16), as checkpoints store them."""
+    return _cast(torch.float32, torch.float16, tree)
+
+
+def decompress_state(tree):
+    return _cast(torch.float16, torch.float32, tree)
+
+
+def bf16_to_f32(tree):
+    return _cast(torch.bfloat16, torch.float32, tree)
+
+
+def f32_to_bf16(tree):
+    return _cast(torch.float32, torch.bfloat16, tree)
+
+
+# ---------------------------------------------------------------------------
+# the train state as a flax tree
+# ---------------------------------------------------------------------------
+
+
+def _flax_tree(model, named: Dict[str, torch.Tensor]) -> Dict:
+    tree = flax_tensors_from_state_dict(named, model.config.size_per_head)
+    return tree if model.config.scan_layers else unstack_layer_params(tree)
+
+
+def state_to_flax(state) -> Dict:
+    """The tree a JAX ``TrainState`` of the same model and chain serializes
+    to, its leaves tensors on the state's device (views of the parameters
+    where the map is a transpose or reshape: copy before the next update):
+
+        {"step": int32,
+         "params": the flax parameter tree (f32),
+         "opt_state": {"0": {"count": int32, "mu": tree (bf16), "nu": tree (bf16)},
+                       "1": {"inner_state": {}}                  (pretraining:
+                                                 add_decayed_weights' MaskedState)
+                          or {"orig_params": tree (bf16)}        (finetuning:
+                                                 subtract_old_weights' anchor),
+                       "2": {"count": int32},                    (scale_by_schedule)
+                       "3": {}}}                                 (scale)
+
+    mu, nu and the anchor take the parameters' name map and kernel
+    reshapes. With ``scan_layers`` off the per-layer leaves are in the
+    ``layer_NN`` layout, as the JAX model's tree is."""
+    model, opt = state.model, state.optimizer
+    params = dict(model.named_parameters())
+    count = torch.tensor(opt.count, dtype=torch.int32)
+    second = ({"inner_state": {}} if opt.anchor is None
+              else {"orig_params": _flax_tree(model, opt.anchor)})
+    return {"step": torch.tensor(state.step, dtype=torch.int32),
+            "params": _flax_tree(model, params),
+            "opt_state": {"0": {"count": count, "mu": _flax_tree(model, opt.mu),
+                                "nu": _flax_tree(model, opt.nu)},
+                          "1": second, "2": {"count": count.clone()}, "3": {}}}
+
+
+def _load_named(target: Dict[str, torch.Tensor], tree, what: str) -> None:
+    sd = state_dict_from_flax(tree, dtype=None)
+    missing = sorted(set(target) - set(sd))
+    unused = sorted(set(sd) - set(target))
+    shapes = sorted(k for k in set(sd) & set(target) if sd[k].shape != target[k].shape)
+    if missing or unused or shapes:
+        raise ValueError(f"checkpoint {what} do not fit: missing {missing}, unused {unused}, "
+                         f"wrong shape {shapes}")
+    with torch.no_grad():
+        for k, t in target.items():
+            t.copy_(sd[k])
+
+
+def load_state_from_flax(state, tree: Dict):
+    """Copy a ``state_to_flax``-shaped tree (f32 or f16 parameters, either
+    layer layout) into ``state`` in place; returns it. Without an
+    ``opt_state`` (a ``no_optimizer`` checkpoint) only the parameters and
+    the step are read."""
+    model, opt = state.model, state.optimizer
+    _load_named(dict(model.named_parameters()), tree["params"], "params")
+    state.step = int(tree["step"])
+    opt_state = tree.get("opt_state")
+    if opt_state is not None:
+        adam = opt_state["0"]
+        _load_named(opt.mu, adam["mu"], "mu")
+        _load_named(opt.nu, adam["nu"], "nu")
+        opt.count = int(adam["count"])
+        has_anchor = "orig_params" in opt_state["1"]
+        if has_anchor != (opt.anchor is not None):
+            raise ValueError("the checkpoint's optimizer chain is not the state's: "
+                             f"{'finetuning' if has_anchor else 'pretraining'} in the file")
+        if has_anchor:
+            _load_named(opt.anchor, opt_state["1"]["orig_params"], "orig_params")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# files
+# ---------------------------------------------------------------------------
+
+
+def _checkpoints(path: str) -> List[tuple]:
+    """(step, file) of every ``ckpt_<step>`` in ``path``, oldest first."""
+    if not os.path.isdir(path):
+        return []
+    found = [(int(m.group(1)), os.path.join(path, name))
+             for name in os.listdir(path) if (m := _STEP_RE.match(name))]
+    return sorted(found)
+
+
+def save_checkpoint(state, path: str, keep: Optional[int] = None, overwrite: bool = True,
+                    no_optimizer: bool = False) -> str:
+    """Write ``state`` (a port ``TrainState``, or a flax-shaped tree with a
+    ``step``) to ``path/ckpt_<step>`` with f32 leaves compressed to f16, as
+    flax's msgpack writer does: to ``path/ckpt_tmp`` first, then renamed.
+    Keeps the newest ``keep`` checkpoints (default all); with ``overwrite``
+    a checkpoint of a later step is removed, without it one of the same or
+    a later step raises. Returns the file's path."""
+    tree = state if isinstance(state, dict) else state_to_flax(state)
+    if no_optimizer:
+        tree = dict(tree, opt_state=None)
+    return _write(compress_state(tree), path, keep, overwrite)
+
+
+def _write(tree: Dict, path: str, keep: Optional[int], overwrite: bool) -> str:
+    step = int(tree.get("step", 0) or 0)
+    existing = _checkpoints(path)
+    if not overwrite and existing and existing[-1][0] >= step:
+        raise FileExistsError(f"{path} holds a checkpoint at step {existing[-1][0]} >= {step}")
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, PREFIX + "tmp")
+    target = os.path.join(path, f"{PREFIX}{step}")
+    with open(tmp, "wb") as f:
+        msgpack.dump(tree, f)
+    os.replace(tmp, target)
+    kept = [(s, f) for s, f in _checkpoints(path) if s <= step]
+    for s, f in _checkpoints(path):
+        if s > step:
+            os.remove(f)
+    if keep is not None and len(kept) > keep:
+        for _, f in kept[:-keep]:
+            os.remove(f)
+    return target
+
+
+def _resolve(path: str, step: Optional[int]) -> Optional[str]:
+    if os.path.isfile(path):
+        return path
+    if step is not None:
+        file = os.path.join(path, f"{PREFIX}{step}")
+        if not os.path.exists(file):
+            raise FileNotFoundError(f"no checkpoint {file}")
+        return file
+    found = _checkpoints(path)
+    return found[-1][1] if found else None
+
+
+def load_checkpoint(path: str, state=None, step: Optional[int] = None,
+                    use_bfloat16_weights: bool = False):
+    """Read ``path`` (a ``ckpt_<step>`` file, or a directory: its newest
+    checkpoint by step number, or ``ckpt_<step>``), written by either
+    package or by the reference's release, and decompress f16 leaves to f32.
+
+    With ``state`` (a port ``TrainState``) the file is loaded into it in
+    place and the state returned; with none the raw tree (CPU tensors) is
+    returned, its params in bf16 under ``use_bfloat16_weights``. A directory
+    with no checkpoint gives ``state`` back unchanged (None without one)."""
+    file = _resolve(path, step)
+    if file is None:
+        return state
+    if os.path.isdir(file):
+        if any(os.path.exists(os.path.join(file, f)) for f in _ORBAX_FILES):
+            raise ValueError(
+                f"{file} is an orbax checkpoint directory, not a flax-msgpack file: write it "
+                "from the JAX package with flax.config.update("
+                "'flax_use_orbax_checkpointing', False)")
+        raise ValueError(f"{file} is a directory, not a checkpoint file")
+    tree = decompress_state(msgpack.load(file))
+    if state is not None:
+        return load_state_from_flax(state, tree)
+    if use_bfloat16_weights and "params" in tree:
+        tree = dict(tree, params=f32_to_bf16(tree["params"]))
+    return tree
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes off the training loop's critical path.
+
+    ``save`` takes a snapshot of the state on its device: ``state_to_flax``
+    with every leaf copied, f32 leaves straight to f16, enqueued on the
+    current stream, so it is ordered before the next step's in-place
+    updates and the host does not wait. A background thread then copies the
+    snapshot to pinned host memory on a stream of its own (behind an event
+    recorded after the snapshot, not behind the next steps), and writes it. At most one save is in flight: ``save`` first waits for the last
+    one. Call ``wait()`` before exiting; it raises what the write raised.
+    Costs a transient copy of the train state in device memory (half of it,
+    the parameters, in f16)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, state, path: str, **kw) -> None:
+        self.wait()
+        snapshot = _map_leaves(lambda x: x.to(torch.float16) if x.dtype == torch.float32
+                               else x.clone(), state_to_flax(state))
+        device = next((x.device for x in _leaves(snapshot) if x.is_cuda), None)
+        event = None
+        if device is not None:
+            event = torch.cuda.Event()
+            event.record()
+
+        def write():
+            try:
+                if device is None:
+                    host = snapshot
+                else:  # on a side stream: the copies wait for the snapshot only
+                    with torch.cuda.device(device):
+                        stream = torch.cuda.Stream()
+                        stream.wait_event(event)
+                        with torch.cuda.stream(stream):
+                            host = _map_leaves(_to_pinned, snapshot)
+                        stream.synchronize()
+                _write(host, path, kw.get("keep"), kw.get("overwrite", True))
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+
+def _to_pinned(x: torch.Tensor) -> torch.Tensor:
+    """Start the copy of ``x`` to pinned host memory on the current stream:
+    a copy to pageable memory is staged by the driver, and stalls the
+    training thread's launches while it runs."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# layer layouts
+# ---------------------------------------------------------------------------
 
 
 def stack_layer_params(tree):
@@ -30,6 +335,8 @@ def _stack(subtrees):
     first = subtrees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in subtrees]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(subtrees, 0)
     return np.stack([np.asarray(t) for t in subtrees], 0)
 
 
@@ -40,21 +347,9 @@ def unstack_layer_params(tree):
     out = {}
     for k, v in tree.items():
         if k == "layers" and isinstance(v, dict):
-            num_layers = _first_leaf(v).shape[0]
+            num_layers = next(_leaves(v)).shape[0]
             for i in range(num_layers):
-                out[f"layer_{i:02d}"] = _index(v, i)
+                out[f"layer_{i:02d}"] = _map_leaves(lambda x: x[i], v)
         else:
             out[k] = unstack_layer_params(v)
     return out
-
-
-def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return np.asarray(tree)
-
-
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]

@@ -15,12 +15,15 @@ Module names are the same on both sides; what differs is the leaf layout:
   layer_NN/...                                layers.<n>....   (reference layout)
 
 Every conversion is a transpose or reshape, so a round trip is bit-exact.
+The tree's leaves may be numpy arrays (read as f32) or tensors of any
+dtype, which keep it (a checkpoint's bf16 moments take the same map).
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,24 +34,26 @@ _HEAD_SPLIT = ("qkv", "query", "key", "value")  # kernels [in, heads, d]
 _PLAIN_LEAVES = ("cls", "pe", "contrastive_scales")
 
 
-def _kernel_in_axes(modules: List[str], x: np.ndarray) -> int:
+def _kernel_in_axes(modules: List[str], x: torch.Tensor) -> int:
     """How many leading axes of a flax kernel are its input: two for the
     3-D attn_proj, seq_attnpool out and audio Conv kernels, else one."""
     return 2 if x.ndim == 3 and modules[-1] in ("attn_proj", "out", "embedding") else 1
 
 
-def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _flatten(v, prefix + (k,))
+        elif isinstance(v, torch.Tensor):
+            yield prefix + (k,), v
         else:
-            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+            yield prefix + (k,), torch.tensor(np.asarray(v, dtype=np.float32))
 
 
-def _torch_leaf(modules: List[str], leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
+def _torch_leaf(modules: List[str], leaf: str, x: torch.Tensor) -> Tuple[str, torch.Tensor]:
     if leaf == "kernel":
         n_in = _kernel_in_axes(modules, x)
-        return "weight", x.reshape(int(np.prod(x.shape[:n_in])), -1).T
+        return "weight", x.reshape(math.prod(x.shape[:n_in]), -1).T
     if leaf == "bias":
         return "bias", x.reshape(-1)
     if leaf in ("scale", "embedding"):
@@ -58,9 +63,12 @@ def _torch_leaf(modules: List[str], leaf: str, x: np.ndarray) -> Tuple[str, np.n
     raise KeyError(f"unknown flax parameter {'/'.join(modules + [leaf])}")
 
 
-def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
-    """Flax tree (scan-stacked ``layers`` or ``layer_NN`` layout, numpy or
-    array-like leaves) -> f32 CPU state_dict of the matching port module."""
+def state_dict_from_flax(params, dtype: Optional[torch.dtype] = torch.float32
+                         ) -> Dict[str, torch.Tensor]:
+    """Flax tree (scan-stacked ``layers`` or ``layer_NN`` layout; numpy or
+    array-like leaves, or tensors) -> state_dict of the matching port module,
+    every entry a new contiguous tensor: in ``dtype`` (None: the leaf's own
+    dtype), on the leaf's device (numpy leaves: the CPU)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(modules, leaf, x):
@@ -68,7 +76,8 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
         key = ".".join(modules + [name])
         if key in sd:
             raise KeyError(f"parameter {key} given twice (mixed layer layouts?)")
-        sd[key] = torch.from_numpy(np.array(value, order="C"))
+        value = value if dtype is None else value.to(dtype)
+        sd[key] = value.clone(memory_format=torch.contiguous_format)
 
     for path, x in _flatten(params):
         *modules, leaf = path
@@ -85,8 +94,8 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _flax_leaf(modules: List[str], name: str, x: np.ndarray,
-               size_per_head: int) -> Tuple[str, np.ndarray]:
+def _flax_leaf(modules: List[str], name: str, x: torch.Tensor,
+               size_per_head: int) -> Tuple[str, torch.Tensor]:
     mod = modules[-1] if modules else ""
     if name == "weight":
         if mod.endswith("_ln"):
@@ -109,10 +118,26 @@ def _flax_leaf(modules: List[str], name: str, x: np.ndarray,
 
 
 def flax_from_state_dict(sd: Dict[str, torch.Tensor], size_per_head: int = 64) -> Dict:
-    """Port state_dict -> flax tree in the scan-stacked ``layers`` layout
-    (``utils.checkpoint.unstack_layer_params`` gives the ``layer_NN`` one)."""
+    """Port state_dict -> flax tree of f32 numpy arrays in the scan-stacked
+    ``layers`` layout (``utils.checkpoint.unstack_layer_params`` gives the
+    ``layer_NN`` one)."""
+    return _map_tree(lambda t: t.detach().cpu().float().numpy(),
+                     flax_tensors_from_state_dict(sd, size_per_head))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flax_tensors_from_state_dict(sd: Dict[str, torch.Tensor], size_per_head: int = 64) -> Dict:
+    """Port state_dict -> flax tree in the scan-stacked ``layers`` layout,
+    its leaves tensors of the entries' dtype on their device (views where a
+    leaf is a transpose or reshape of one entry, new tensors where per-layer
+    entries are stacked)."""
     tree: Dict = {}
-    stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    stacked: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
 
     def set_leaf(path, value):
         node = tree
@@ -122,8 +147,7 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], size_per_head: int = 64) -
 
     for key, tensor in sd.items():
         *modules, name = key.split(".")
-        leaf, value = _flax_leaf(modules, name, tensor.detach().cpu().float().numpy(),
-                                 size_per_head)
+        leaf, value = _flax_leaf(modules, name, tensor.detach(), size_per_head)
         if "layers" in modules:
             i = modules.index("layers")
             path = tuple(modules[:i + 1] + modules[i + 2:] + [leaf])
@@ -131,7 +155,7 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor], size_per_head: int = 64) -
         else:
             set_leaf(modules + [leaf], value)
     for path, per_layer in stacked.items():
-        set_leaf(list(path), np.stack([per_layer[n] for n in range(len(per_layer))], 0))
+        set_leaf(list(path), torch.stack([per_layer[n] for n in range(len(per_layer))], 0))
     return tree
 
 
@@ -150,9 +174,9 @@ def flax_leaf_shapes(sd: Dict[str, torch.Tensor], size_per_head: int = 64,
     shapes = {}
     for key, tensor in sd.items():
         *modules, name = key.split(".")
-        _, leaf = _flax_leaf(modules, name, np.empty(tuple(tensor.shape), np.bool_),
+        _, leaf = _flax_leaf(modules, name, torch.empty(tensor.shape, device="meta"),
                              size_per_head)
-        shape = leaf.shape
+        shape = tuple(leaf.shape)
         if scan_layers and "layers" in modules:
             shape = (num_layers[tuple(modules[:modules.index("layers")])],) + shape
         shapes[key] = shape

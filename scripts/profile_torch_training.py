@@ -16,8 +16,9 @@ the port's dummy batch of 8 examples, takes two warm-up steps, and measures:
   call; a backward node belongs to the tower whose forward op made it (they
   share a sequence number). Each part gets its host ms (wall time of its
   ranges on the host) and its device ms (the kernels and copies launched
-  from inside it). Device time launched outside every range is reported as
-  ``outside``;
+  from inside it; a kernel launched through ctypes, which the profiler ties
+  to no host op, goes to its part by name, as ``KERNEL_PARTS`` says). Device
+  time launched outside every range is reported as ``outside``;
 * from the same trace: the device's busy share of the traced window,
   device ops per step, and the device ops that take the most time.
 
@@ -54,6 +55,13 @@ from chip_smoke import cuda_time_ms  # noqa: E402
 TOWERS = {"vision_encoder": "vision", "audio_encoder": "audio", "token_encoder": "tokens",
           "joint_transformer": "joint", "span_encoder": "span"}
 RANGES = ("train_step/", "tower/")
+# kernels launched through ctypes, which the profiler ties to no host op:
+# their part by kernel name
+KERNEL_PARTS = {"adam_update_kernel": "optimizer"}
+
+
+def _kernel_part(name):
+    return next((p for k, p in KERNEL_PARTS.items() if k in name), None)
 EVALUATE = "autograd::engine::evaluate_function: "
 
 
@@ -129,7 +137,8 @@ def split_step(events, steps):
 
     host, device = defaultdict(float), defaultdict(float)
     for e in cpu:
-        device[part_of(e)] += sum(k.duration for k in e.kernels if k.name != e.name)
+        device[part_of(e)] += sum(k.duration for k in e.kernels
+                                  if k.name != e.name and _kernel_part(k.name) is None)
         if e.name.startswith("train_step/"):
             part = e.name[len("train_step/"):]
             host[part + "/other" if part in ("forward", "backward") else part] += e.cpu_time_total
@@ -140,8 +149,11 @@ def split_step(events, steps):
                 a.name.startswith(EVALUATE) for a in _ancestors(e.cpu_parent)):
             host["backward/" + node_tower[e.id]] += e.cpu_time_total
             host["backward/other"] -= e.cpu_time_total
-    total = sum(e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA and not _is_annotation(e))
+    gpu = [e for e in events if e.device_type == DeviceType.CUDA and not _is_annotation(e)]
+    for e in gpu:
+        if _kernel_part(e.name) is not None:
+            device[_kernel_part(e.name)] += e.time_range.elapsed_us()
+    total = sum(e.time_range.elapsed_us() for e in gpu)
     device["outside"] += total - sum(device.values())
     parts = {p: {"host_ms": host[p] / 1e3 / steps, "device_ms": device[p] / 1e3 / steps}
              for p in sorted(set(host) | set(device))}

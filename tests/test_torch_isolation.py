@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py) loads no JAX, flax, merlot_reserve_tpu or
-HuggingFace tokenizers module, and the entry points refuse to run on their
-default device, the CUDA card, where there is none: they never fall back to
-the CPU on their own."""
+(and running chip_smoke.py) loads no JAX, flax, optax, merlot_reserve_tpu,
+HuggingFace tokenizers, msgpack, ml_dtypes or PIL module, and the entry
+points refuse to run on their default device, the CUDA card, where there is
+none: they never fall back to the CPU on their own."""
 
 import ast
 import json
@@ -26,10 +26,14 @@ from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
 from merlot_reserve_tpu_torch.parallel.mesh import make_mesh
 from merlot_reserve_tpu_torch.serving import VideoEmbedService
 from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+from merlot_reserve_tpu_torch.finetune.models import MerlotReserveTVQA, MerlotReserveVCR
+from merlot_reserve_tpu_torch.finetune.train import create_finetune_state
+from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "merlot_reserve_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlot_reserve_tpu", "tokenizers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlot_reserve_tpu", "tokenizers", "msgpack",
+             "ml_dtypes", "PIL")
 TINY = dict(hidden_size=128, joint_num_layers=1, vit_num_layers=1, audio_num_layers=1,
             span_num_layers=1, output_grid=(4, 4), use_bfloat16=False)
 
@@ -57,7 +61,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "merlot_reserve_tpu_torch.parallel.mesh" in loaded
     for module in ("ops.vision", "ops.audio", "tokenizer", "preprocess", "zero_shot",
                    "utils.subtitles", "utils.profiling", "models.layers", "models.towers",
-                   "models.pretrainer", "training.trainer", "training.pretrain"):
+                   "models.pretrainer", "training.trainer", "training.pretrain",
+                   "training.optimization", "finetune.models", "finetune.train",
+                   "utils.checkpoint", "utils.msgpack", "utils.experiment"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -71,7 +77,7 @@ def test_no_source_imports_jax(path):
     assert [n for n in names if _forbidden(n)] == []
 
 
-def test_entry_points_refuse_a_missing_card():
+def test_entry_points_refuse_a_missing_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     cfg = load_config("base", **TINY)
@@ -102,6 +108,15 @@ def test_entry_points_refuse_a_missing_card():
         preprocess_video([{"frame": frames[0], "spectrogram": None, "text": "a"}], (2, 2))
     with pytest.raises(RuntimeError, match="cuda"):
         bench_main([])
+    # finetuning: the heads, and a checkpoint loaded into a state on the card
+    for head in (MerlotReserveVCR, MerlotReserveTVQA):
+        with pytest.raises(RuntimeError, match="cuda"):
+            head(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_checkpoint(str(tmp_path), state=create_finetune_state(cfg, MerlotReserveVCR(cfg)))
+    with pytest.raises(RuntimeError, match="cuda"):  # checkpointing and resume
+        run_pretraining(cfg, iter([]), num_steps=1, output_dir=str(tmp_path))
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):

@@ -36,6 +36,7 @@ from merlot_reserve_tpu_torch.models import MerlotReserve, MerlotReservePretrain
 from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
 from merlot_reserve_tpu_torch.ops import attention as tattn
 from merlot_reserve_tpu_torch.ops import ring_attention as tring
+from merlot_reserve_tpu_torch.training import optimization as topt
 from merlot_reserve_tpu_torch.training.trainer import create_train_state, train_step
 
 TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
@@ -774,3 +775,174 @@ def test_checkpointed_ring_encoder_recomputes_through_the_ring_on_card(cuda_devi
     rows = valid > 0
     err = (g_remat - g_plain).float()[rows].abs().max().item()
     assert err <= BWD_REL_TOL[torch.bfloat16] * g_plain.float()[rows].abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's update kernel (csrc/adam_update.cu)
+# ---------------------------------------------------------------------------
+
+
+def test_adam_structs_match_the_c_layout():
+    # AdamTensor: 4 pointers, int64, 2 x int32; AdamHyper: 11 floats, 2 x int32;
+    # AdamParams: 4 pointers, 2 x int32, AdamHyper (padded to 8)
+    assert ctypes.sizeof(topt._AdamTensor) == 48 and topt._AdamTensor.decay.offset == 40
+    assert ctypes.sizeof(topt._AdamHyper) == 52 and topt._AdamHyper.finetune.offset == 48
+    assert ctypes.sizeof(topt._AdamParams) == 96 and topt._AdamParams.h.offset == 40
+
+
+def test_adam_hyper_is_the_eager_ops_f32_scalars():
+    """What the card's eager ops see: each Python float rounded to f32, and a
+    division by 1 - b^t as a product with its f32 reciprocal."""
+    cfg = load_config("base").optimizer
+    cfg = dataclasses.replace(cfg, do_bias_correction=True)
+    h = topt.adam_hyper(cfg, 3, 0.5, finetune=True)
+    assert h.one_minus_b1 == np.float32(1 - cfg.beta_1) and h.b2 == np.float32(cfg.beta_2)
+    assert h.inv_bc2 == np.float32(1) / np.float32(1 - cfg.beta_2 ** 3)
+    assert h.neg_lr == np.float32(-cfg.learning_rate) and h.one_third == np.float32(1 / 3)
+    assert h.bias_correction == 1 and h.finetune == 1
+
+
+# odd sizes: one element, 4097 (past the finetuning mask's 4096), a tensor
+# that is not a whole number of the kernel's chunks, a 2-D one
+_ADAM_SHAPES = {"one": (1,), "w4097": (4097,), "ragged": (2 * topt.CHUNK + 5,),
+                "matrix": (3, 1500), "big": (64, 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", topt.CHAINS)
+def test_adam_update_kernel_matches_plain_loop_bit_for_bit_on_card(cuda_device, chain):
+    cfg = dataclasses.replace(load_config("base").optimizer, num_warmup_steps=0,
+                              learning_rate=1e-2, do_bias_correction=chain == "finetune")
+    g = torch.Generator().manual_seed(0)
+    start = {n: torch.randn(s, generator=g) * 0.1 for n, s in _ADAM_SHAPES.items()}
+    decay = {"w4097", "ragged", "matrix"}
+    opts = [topt.PretrainOptimizer({n: p.clone().to(cuda_device) for n, p in start.items()}
+                                   .items(), decay, cfg, chain=chain) for _ in range(2)]
+    kernel, plain = opts
+    if chain == "finetune":  # move the parameters off the anchor
+        for opt in opts:
+            with torch.no_grad():
+                for p in opt.params.values():
+                    p.add_(0.3)
+    for update in range(3):
+        grads = {n: (torch.randn(s, generator=g) * 10.0 ** -(i + update)).to(cuda_device)
+                 for i, (n, s) in enumerate(_ADAM_SHAPES.items())}
+        grads["ragged"][::5] = 0.0
+        before = kernels.LAUNCHES["adam_update"]
+        kernel.step(grads)
+        assert kernels.LAUNCHES["adam_update"] == before + 1
+        topt.adam_update_reference(plain.params, grads, plain.mu, plain.nu, plain.decay, cfg,
+                                   plain.count + 1, float(plain.schedule(plain.count)),
+                                   plain.anchor)
+        plain.count += 1
+    torch.cuda.synchronize()
+    for n in _ADAM_SHAPES:
+        assert torch.equal(kernel.params[n].view(torch.int32), plain.params[n].view(torch.int32)), n
+        assert torch.equal(kernel.mu[n].view(torch.int16), plain.mu[n].view(torch.int16)), n
+        assert torch.equal(kernel.nu[n].view(torch.int16), plain.nu[n].view(torch.int16)), n
+        assert not torch.equal(kernel.params[n].cpu(), start[n] + (0.3 if chain == "finetune"
+                                                                    else 0.0)), n
+
+
+@pytest.mark.cuda
+def test_adam_decode_matches_torch_pow_on_every_bf16_code(cuda_device):
+    codes = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16)).to(
+        cuda_device).view(torch.bfloat16)
+    ours = topt.adam_decode_probe(codes)
+    plain = topt.unsigned_bfloat16_decode(codes)
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(ours), nan)
+    assert torch.equal(ours[~nan].view(torch.int32), plain[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_adam_update_wrapper_rejects_bad_inputs(cuda_device):
+    cfg = load_config("base").optimizer
+    params = {"w": torch.zeros(4, 6, device=cuda_device)}
+    opt = topt.PretrainOptimizer(params.items(), {"w"}, cfg)
+    with pytest.raises(ValueError, match="gradient of w"):
+        opt.step({"w": torch.zeros(6, 4, device=cuda_device).t()})  # not contiguous
+    with pytest.raises(ValueError, match="gradient of w"):
+        opt.step({"w": torch.zeros(4, 6, device=cuda_device, dtype=torch.bfloat16)})
+    with pytest.raises(ValueError, match="table lives on the card"):
+        topt.AdamTable({"w": torch.zeros(3)}, {"w": torch.zeros(3, dtype=torch.bfloat16)},
+                       {"w": torch.zeros(3, dtype=torch.bfloat16)}, set())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rebind", ["mu", "param", "dict"])
+def test_adam_update_refuses_a_state_that_is_not_the_tables(cuda_device, rebind):
+    """After the first update the kernel's table points at the state's
+    tensors: a moment rebound, a parameter cast in place of being updated,
+    or a replaced dict stops the next update before it launches."""
+    cfg = load_config("base").optimizer
+    params = {"w": torch.zeros(4, 6, device=cuda_device)}
+    opt = topt.PretrainOptimizer(params.items(), {"w"}, cfg)
+    grads = {"w": torch.ones(4, 6, device=cuda_device)}
+    opt.step(grads)
+    if rebind == "mu":
+        opt.mu["w"] = opt.mu["w"].clone()
+        match = "no longer the tensor"
+    elif rebind == "param":
+        opt.params["w"].data = opt.params["w"].data.clone()
+        match = "no longer the tensor"
+    else:
+        opt.nu = dict(opt.nu)
+        match = "dict was replaced"
+    before = kernels.LAUNCHES["adam_update"]
+    with pytest.raises(RuntimeError, match=match):
+        opt.step(grads)
+    assert kernels.LAUNCHES["adam_update"] == before
+
+
+def _finetune_case(task, device):
+    """A tiny VCR or TVQA head on ``device`` and a batch of 2 (f32, flash
+    joint attention), with weights from seed 0."""
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_tvqa_batch, make_dummy_vcr_batch
+    from merlot_reserve_tpu_torch.finetune import models as tm
+
+    cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
+                      audio_num_layers=2, span_num_layers=2, output_grid=(4, 4),
+                      use_bfloat16=False, joint_attention_impl="flash")
+    cfg = cfg.replace_data(lang_seq_len=48, num_segments=7)
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, learning_rate=1e-3, num_warmup_steps=0, num_train_steps=20,
+        do_bias_correction=True))
+    cls, make = ((tm.MerlotReserveVCR, make_dummy_vcr_batch) if task == "vcr"
+                 else (tm.MerlotReserveTVQA, make_dummy_tvqa_batch))
+    return cfg, cls(cfg, device=device, seed=0), make(cfg, 2, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task,scan_minibatch", [("vcr", False), ("tvqa", False),
+                                                 ("tvqa", True)])
+def test_finetune_step_on_card_matches_cpu(cuda_device, task, scan_minibatch):
+    """One finetune_train_step with f32 gradients on the card (flash joint
+    attention, the update kernel) against the plain path on the CPU: the
+    flash launches worked out from the config (one per joint layer per
+    (micro)batch, the backward's three each too), one update launch; the
+    metrics within 1e-5 and the parameters within 5e-5, the bound that
+    tests/test_torch_finetune.py holds the step to against JAX (an element
+    whose |g| is near eps moves by lr * g / (|g| + eps))."""
+    from merlot_reserve_tpu_torch.finetune import train as tt
+
+    cfg, card_model, batch = _finetune_case(task, cuda_device)
+    _, cpu_model, _ = _finetune_case(task, "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    loss_fn = tt.vcr_loss_fn if task == "vcr" else tt.tvqa_loss_fn
+    states = [tt.create_finetune_state(cfg, m) for m in (card_model, cpu_model)]
+    before = dict(kernels.LAUNCHES)
+    card, card_info = tt.finetune_train_step(states[0], batch_to_tensors(batch, cuda_device),
+                                             loss_fn, scan_minibatch, use_bfloat16_grads=False)
+    torch.cuda.synchronize()
+    per_step = cfg.model.joint_num_layers * (2 if scan_minibatch else 1)
+    for name in ("flash_fwd", *BWD_LAUNCHES[torch.float32]):
+        assert kernels.LAUNCHES[name] == before.get(name, 0) + per_step, name
+    assert kernels.LAUNCHES["adam_update"] == before.get("adam_update", 0) + 1
+    cpu, cpu_info = tt.finetune_train_step(states[1], batch_to_tensors(batch, "cpu"), loss_fn,
+                                           scan_minibatch, use_bfloat16_grads=False)
+    for k, v in cpu_info.items():
+        assert abs(float(card_info[k]) - float(v)) <= 1e-5, k
+    card_params = dict(card.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        assert (card_params[name].detach().cpu() - p.detach()).abs().max().item() <= 5e-5, name
