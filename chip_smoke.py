@@ -6,7 +6,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
 2. build: every CUDA source of the port (``flash_fwd``, ``flash_bwd``,
    ``ring_fwd``, ``adam_update``), one nvcc each, all started together,
-   with nvcc's register, shared-memory and spill report;
+   with nvcc's register, shared-memory and spill report, and beside them
+   the host data library (``csrc/merlot_native.cc``, g++);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes and a few more, with its time, the plain version's,
    the nearest single PyTorch call's, and its bound: the flash forward
@@ -94,7 +95,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    flash and update launches per step worked out from the config, step ms,
    examples/s and peaks; then ``flash_fwd`` and the backward against their
    plain versions at those two joint shapes and labels, with times,
-   bounds and SDPA.
+   bounds and SDPA;
+15. data to the device: the data library's JPEG codec (libjpeg, or nvJPEG
+   where libjpeg is absent) against known pixels; a synthetic corpus of
+   16 records at the base shapes, written by the port into a temporary
+   directory; ``run_pretraining`` at full base width, batch 8, 5 steps
+   through each of three feeds, every one through a ``DeviceFeed`` (pinned
+   buffers, a side stream): dummy batches, the host-assembled
+   ``PretrainLoader``, and the fused step on raw batches with frames
+   augmented on the card; finite step-0 losses near ln N, the kernels'
+   launches per step as worked out from the config; step ms on both
+   clocks, examples/s, the busy share under the profiler, the H2D bytes
+   and ms per step, peaks; the builder's device ms and launches per batch;
+   then the card's ``build_batch`` against the CPU's on one batch with the
+   same draws.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -220,11 +234,25 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from merlot_reserve_tpu_torch.data import native
     from merlot_reserve_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    built = build.build(["flash_fwd", "flash_bwd", "ring_fwd", "adam_update"])
-    out = {}
+
+    def build_native():
+        start = time.perf_counter()
+        return native.build(), time.perf_counter() - start
+
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        data_lib = pool.submit(build_native)
+        built = build.build(["flash_fwd", "flash_bwd", "ring_fwd", "adam_update"])
+        data_path, data_s = data_lib.result()
+    print(f"[build] data library (g++): {data_s:.2f} s -> {data_path.name}, JPEG codec "
+          f"{native.jpeg_codec()}", flush=True)
+    out = {"merlot_native": {"seconds": data_s, "file": data_path.name,
+                             "codec": native.jpeg_codec()}}
     for name, b in built.items():
         report = [ln.strip() for ln in b.log.splitlines()
                   if any(key in ln for key in ("registers", "spill", "Compiling entry",
@@ -2352,6 +2380,323 @@ def phase_finetune(card, pretrained_dir):
     return out, {task: labels[task][max(labels[task])] for task in labels}
 
 
+# ---------------------------------------------------------------------------
+# 15. data to the device: TFRecords to training steps through three feeds
+# ---------------------------------------------------------------------------
+
+DATA_BATCH, DATA_STEPS = 8, 4
+DATA_SHARDS, DATA_RECORDS_PER_SHARD = 2, 8
+# step-0 losses of an untrained model on the synthetic corpus: within this
+# of ln N (phase 5 holds the dummy batch to 0.05; real frames and text are
+# allowed twice that)
+DATA_INIT_LOSS_TOL = 0.1
+# the JPEG codec against known smooth pixels (gradients plus a constant),
+# encoded at quality 90: mean |decoded - known| in levels of 255
+JPEG_MEAN_TOL = 3.0
+# the card's build_batch against the CPU's on the same raw batch and draws:
+# integers exactly; patches in [0, 1] within 2e-6 and the other floats
+# within 1e-6 (the resize's products sum in another order; sin and cos of
+# its weights may differ in the last bit)
+BUILD_IMAGE_TOL, BUILD_FLOAT_TOL = 2e-6, 1e-6
+BUILD_COMPARE_BATCH = 2
+
+
+class _ReplayDraws:
+    """The builder's draws taken on the CPU (``BuilderDraws``) and handed to
+    a builder on ``device``: both builders see the same numbers."""
+
+    def __init__(self, seed, step, device):
+        from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws
+
+        self.cpu = BuilderDraws(seed, step, "cpu")
+        self.device = device
+        self.step = step
+
+    def __getattr__(self, name):
+        fn = getattr(self.cpu, name)
+
+        def call(site, *args):
+            args = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+            return fn(site, *args).to(self.device)
+        return call
+
+
+def _smooth_pixels(h, w):
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([yy * 200 // h + 20, xx * 200 // w + 10, (yy + xx) * 100 // (h + w) + 60],
+                    -1).astype(np.uint8)
+
+
+def _check_jpeg():
+    """The data library's codec on the card machine: encode and decode of
+    known pixels, RGB and grayscale, several decoding threads against one,
+    and the decode rate of a 180x320 frame on 1 and 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from merlot_reserve_tpu_torch.data import native
+
+    codec = native.jpeg_codec()
+    res = {"codec": codec, "errors": {}}
+    img = _smooth_pixels(180, 320)
+    for name, pixels in (("rgb", img), ("gray", img[..., 1])):
+        data = native.encode_jpeg_native(pixels, 90)
+        out = native.decode_jpeg_native(data, 3 if pixels.ndim == 3 else 1)
+        check(out.shape == pixels.shape, f"jpeg {name}: decoded {out.shape} != {pixels.shape}")
+        err = np.abs(out.astype(np.int64) - pixels)
+        res["errors"][name] = {"mean": float(err.mean()), "max": int(err.max()),
+                               "bytes": len(data)}
+        check(err.mean() <= JPEG_MEAN_TOL, f"jpeg {name} ({codec}): mean error {err.mean()} > "
+              f"{JPEG_MEAN_TOL} levels")
+    data = native.encode_jpeg_native(img, 90)
+    one = native.decode_jpeg_native(data)
+    rates = {}
+    for threads in (1, 8):
+        n = 64 * threads
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            outs = list(pool.map(lambda _: native.decode_jpeg_native(data), range(n)))
+            rates[threads] = n / (time.perf_counter() - t0)
+        check(all(np.array_equal(o, one) for o in outs),
+              f"jpeg: {threads} threads decoded other pixels than one")
+    res["decodes_per_s_180x320"] = rates
+    print(f"[data] JPEG codec {codec}: mean |error| on known pixels "
+          f"{ {k: round(v['mean'], 3) for k, v in res['errors'].items()} } (max "
+          f"{ {k: v['max'] for k, v in res['errors'].items()} }); 180x320 decodes/s "
+          f"{ {k: round(v, 1) for k, v in rates.items()} } on 1 and 8 threads", flush=True)
+    return res
+
+
+def _device_events(prof):
+    """Kernels and copies on the device timeline (not the ranges' spans)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("train_step/", "ProfilerStep"))]
+
+
+def _busy_ms(events):
+    """Device ms covered by at least one event (the union of their spans)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def _profile(fn, steps=2):
+    """(wall ms per call under the profiler, device events) of ``steps``
+    calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    return wall, _device_events(prof)
+
+
+def phase_data(card, device="cuda"):
+    """TFRecords to training steps at full base width: the synthetic corpus
+    written by the port, then ``run_pretraining`` through three feeds
+    (dummy batches, the host-assembled ``PretrainLoader``, and the fused
+    step on raw batches with frames augmented on the card), each through a
+    ``DeviceFeed``; the builder on the card against the CPU. (``device``:
+    "cpu" for a rehearsal at tiny widths with the timers patched.)"""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.device_builder import (BuilderDraws, DeviceExampleBuilder,
+                                                              stack_raw_examples)
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.data.loader import (DeviceFeed, DevicePretrainLoader,
+                                                      PretrainLoader)
+    from merlot_reserve_tpu_torch.data.native import read_records_native
+    from merlot_reserve_tpu_torch.data.pretrain_pipeline import parse_segment_record
+    from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import make_fused_data_train_step, train_step
+
+    res = {"jpeg": _check_jpeg()}
+    cfg = load_config("base", joint_attention_impl="flash")
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+    m, d = cfg.model, cfg.data
+    expected = _expected_init_losses(cfg, DATA_BATCH)
+    narrow = {"images": torch.bfloat16, "audio_clips": torch.bfloat16}
+    per_step = m.joint_num_layers + m.span_num_layers
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        t0 = time.perf_counter()
+        files = [write_synthetic_corpus(os.path.join(tmp, f"shard{i}.tfrecord"), cfg,
+                                        num_records=DATA_RECORDS_PER_SHARD, seed=i,
+                                        structured=True) for i in range(DATA_SHARDS)]
+        res["corpus"] = {"records": DATA_SHARDS * DATA_RECORDS_PER_SHARD,
+                         "seconds": time.perf_counter() - t0,
+                         "bytes": sum(os.path.getsize(f) for f in files)}
+        print(f"[data] corpus: {res['corpus']['records']} records of {d.num_segments} segments "
+              f"({res['corpus']['bytes'] / 2**20:.1f} MiB) written in "
+              f"{res['corpus']['seconds']:.2f} s", flush=True)
+        loader_kw = dict(seed=0, num_workers=8, use_bfloat16=m.use_bfloat16,
+                         files_per_cycle=DATA_SHARDS, parallel_reads=DATA_SHARDS,
+                         shuffle_buffer=DATA_RECORDS_PER_SHARD)
+        feeds = {
+            "dummy": (itertools.repeat(make_dummy_batch(cfg, DATA_BATCH, seed=0)), None),
+            "host": (PretrainLoader(files, cfg, DATA_BATCH, **loader_kw), None),
+            "fused_frames": None,
+        }
+        fused_loader = DevicePretrainLoader(files, cfg, DATA_BATCH, fused=True,
+                                            on_device_frames=True, **loader_kw)
+        feeds["fused_frames"] = (fused_loader, fused_loader._dev_builder)
+
+        runs = {}
+        for name, (batches, builder) in feeds.items():
+            feed = DeviceFeed(batches, device, narrow=narrow, widen_ints=builder is None)
+            last = {}
+
+            def keep(it):
+                for b in it:
+                    last["batch"] = b
+                    yield b
+
+            logged, stamps = [], []
+
+            def log_fn(step, metrics):
+                stamps.append(time.perf_counter())  # the metrics are floats: the step ended
+                logged.append(metrics)
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            state = run_pretraining(cfg, keep(iter(feed)), num_steps=DATA_STEPS, log_fn=log_fn,
+                                    log_every=0, device=device, seed=0, fused_builder=builder,
+                                    data_seed=0)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+            check(len(logged) == DATA_STEPS, f"{name}: {len(logged)} steps of {DATA_STEPS}")
+            check(all(math.isfinite(v) for m_ in logged for v in m_.values()),
+                  f"{name}: non-finite loss")
+            for head, ln_n in expected.items():
+                check(abs(logged[0][head] - ln_n) < DATA_INIT_LOSS_TOL,
+                      f"{name}: step-0 {head} loss {logged[0][head]} is not near ln N = {ln_n}")
+            for k in ("flash_fwd", *BWD_LAUNCHES):
+                check(launches.get(k, 0) == per_step * DATA_STEPS,
+                      f"{name}: {k} launches {launches.get(k, 0)} != {per_step} x {DATA_STEPS}")
+            check(launches.get("adam_update", 0) == DATA_STEPS,
+                  f"{name}: adam_update launches {launches.get('adam_update', 0)}")
+            for k in (*BWD_LAUNCHES_F32, "ring_fwd"):
+                check(launches.get(k, 0) == 0, f"{name}: launched {k}")
+
+            # the step on the device clock, and (but for the host feed, whose
+            # step is the dummy feed's on other numbers) a profiled pair
+            batch = last["batch"]
+            if builder is None:
+                step = lambda: train_step(state, batch)  # noqa: E731
+            else:
+                fused = make_fused_data_train_step(builder, data_seed=0)
+                step = lambda: fused(state, batch)  # noqa: E731
+            device_ms = cuda_time_ms(step, iters=2, warmup=1)
+            wall, events = _profile(step) if name != "host" else (None, None)
+            copies = feed.copy_ms()
+            host_med = float(np.median(step_ms[2:]))
+            r = {"launches": launches, "launches_per_step": {k: v / DATA_STEPS
+                                                             for k, v in launches.items()},
+                 "losses": logged, "step_ms_host": step_ms, "step_ms_host_median": host_med,
+                 "step_ms_device": device_ms, "examples_per_s": DATA_BATCH / host_med * 1e3,
+                 "device_examples_per_s": DATA_BATCH / device_ms * 1e3,
+                 "profiled_ms_per_step": wall,
+                 "busy_share": _busy_ms(events) / 2 / wall if events is not None else None,
+                 "device_events_per_step": len(events) / 2 if events is not None else None,
+                 "h2d_bytes_per_step": feed.bytes_per_batch, "h2d_pinned": feed.pinned,
+                 "h2d_ms": copies, "max_memory_allocated_bytes": peak}
+            runs[name] = r
+            r["seconds"] = time.perf_counter() - t0
+            print(f"[data] {card}: {name} feed ({r['seconds']:.1f} s): {host_med:.1f} ms per step "
+                  f"on the host clock "
+                  f"(median of steps 3-{DATA_STEPS}; all {[round(t, 1) for t in step_ms]}), "
+                  f"{device_ms:.1f} ms on the device clock; {r['examples_per_s']:.2f} examples/s; "
+                  + (f"busy {r['busy_share']:.3f} of {wall:.1f} ms under the profiler; "
+                     if wall is not None else "") + f"H2D "
+                  f"{feed.bytes_per_batch / 1e6:.2f} MB per step, pinned {feed.pinned}, "
+                  f"{np.median(copies) if copies else float('nan'):.3f} ms (median); peak "
+                  f"{peak / 2**30:.2f} GiB; "
+                  f"step-0 losses { {k: round(logged[0][k], 4) for k in expected} }", flush=True)
+            if builder is not None:
+                # the builder alone, on the last raw batch
+                raw = {k: v for k, v in batch.items() if k != "images"}
+                build = lambda: builder.build_batch(raw, BuilderDraws(0, 0, device))  # noqa: E731
+                r["build_ms_device"] = cuda_time_ms(build, iters=3, warmup=1)
+                bwall, bevents = _profile(build)
+                r["build_launches_per_batch"] = len(bevents) / 2
+                r["build_busy_share"] = _busy_ms(bevents) / 2 / bwall
+                r["build_profiled_ms"] = bwall
+                vt = lambda: builder._frames(raw, BuilderDraws(0, 0, device))  # noqa: E731
+                r["frames_ms_device"] = cuda_time_ms(vt, iters=3, warmup=1)
+                print(f"[data] {card}: the builder on a batch of {DATA_BATCH}: "
+                      f"{r['build_ms_device']:.2f} ms on the device clock (frames "
+                      f"{r['frames_ms_device']:.2f}), {r['build_launches_per_batch']:.0f} "
+                      f"device launches per batch, busy {r['build_busy_share']:.3f} of "
+                      f"{bwall:.1f} ms under the profiler", flush=True)
+                if hasattr(builder, "stats"):
+                    r["builder_stats"] = dict(builder.stats)
+            del state, batch, step, feed
+            torch.cuda.empty_cache()
+        res["feeds"] = runs
+
+        # the card's builder against the CPU's on one batch, the same draws
+        t0 = time.perf_counter()
+        cfg32 = cfg.replace_model(use_bfloat16=False)
+        builder = DeviceExampleBuilder(cfg32)
+        raws = []
+        for record in itertools.islice(read_records_native(files[0]), BUILD_COMPARE_BATCH):
+            segs = parse_segment_record(record, d.num_segments)
+            raws.append({**builder.host_prepare(segs), **builder.host_prepare_frames(segs)})
+        raw = {k: torch.from_numpy(v) for k, v in stack_raw_examples(raws).items()}
+        want = builder.build_batch(raw, _ReplayDraws(3, 1, torch.device("cpu")))
+        got = builder.build_batch({k: v.to(device) for k, v in raw.items()},
+                                  _ReplayDraws(3, 1, torch.device(device)))
+        check(got.keys() == want.keys(), "build_batch: the card's keys differ")
+        errs = {}
+        for k in want:
+            g = got[k].cpu()
+            check(g.dtype == want[k].dtype and g.shape == want[k].shape,
+                  f"build_batch {k}: {g.dtype} {tuple(g.shape)} on the card")
+            if g.is_floating_point():
+                errs[k] = (g - want[k]).abs().max().item()
+                tol = BUILD_IMAGE_TOL if k == "images" else BUILD_FLOAT_TOL
+                check(errs[k] <= tol, f"build_batch {k}: card vs CPU {errs[k]} > {tol}")
+            else:
+                errs[k] = int((g != want[k]).sum())
+                check(errs[k] == 0, f"build_batch {k}: {errs[k]} integers differ")
+        res["build_card_vs_cpu"] = errs
+        print(f"[data] build_batch on the card against the CPU ({time.perf_counter() - t0:.1f} "
+              f"s), batch {BUILD_COMPARE_BATCH} at base shapes with frames: max |err| "
+              f"{ {k: v for k, v in errs.items() if isinstance(v, float)} }, integers equal",
+              flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -2385,6 +2730,7 @@ def main():
     ft, ft_labels = phase_finetune(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"))
     ft_fwd, ft_bwd = phase_kernels([("vcr_joint", *ft_labels["vcr"]),
                                     ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
+    data = phase_data(dev["nvidia_smi"])
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -2400,7 +2746,9 @@ def main():
                                .get(name, 0),
                                "train_checkpointed": ckpt["launches"].get(name, 0),
                                "finetune_vcr": ft["vcr"]["launches"].get(name, 0),
-                               "finetune_tvqa": ft["tvqa"]["launches"].get(name, 0)}
+                               "finetune_tvqa": ft["tvqa"]["launches"].get(name, 0),
+                               **{f"train_data_{feed}": r["launches"].get(name, 0)
+                                  for feed, r in data["feeds"].items()}}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
@@ -2502,7 +2850,7 @@ def main():
               "train_long": long, "hop_fwd_kernels": hop_fwd, "hop_bwd_kernels": hop_bwd,
               "adam": adam, "train_checkpointed": ckpt, "finetune": ft,
               "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
-              "kernels_line": kernels_line}
+              "data": data, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

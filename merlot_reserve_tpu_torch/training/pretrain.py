@@ -15,6 +15,12 @@ iterator has ``state_dict`` / ``load_state_dict``; it resumes from the
 newest checkpoint there. SIGTERM or SIGINT finishes the step, checkpoints
 and stops. Metrics reach ``log_fn`` and the tracker ``log_every`` steps
 late (``MetricsQueue``), so that logging never waits on the device.
+
+Batches reach the device through a ``data.loader.DeviceFeed`` (pinned
+buffers and a side stream on the card; images and audio in bf16 when the
+model computes in bf16). With a ``fused_builder`` the loader yields raw
+batches and each step assembles its own on the device
+(``trainer.make_fused_data_train_step``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from merlot_reserve_tpu_torch.config import MerlotConfig
+from merlot_reserve_tpu_torch.data.loader import DeviceFeed
 from merlot_reserve_tpu_torch.models.pretrainer import (
     MerlotReservePretrainer,
     batch_to_tensors,
@@ -40,6 +47,7 @@ from merlot_reserve_tpu_torch.training.trainer import (
     MetricsQueue,
     TrainState,
     create_train_state,
+    make_fused_data_train_step,
     train_step,
 )
 from merlot_reserve_tpu_torch.utils import checkpoint as ckpt_lib
@@ -86,13 +94,16 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
                     device="cuda", seed: int = 0, mesh: Optional[Mesh] = None,
                     log_every: int = 50, save_every: Optional[int] = None,
-                    tracker=None) -> TrainState:
+                    tracker=None, fused_builder=None, data_seed: int = 0) -> TrainState:
     """Build a ``MerlotReservePretrainer`` (weights from ``seed``) on
     ``device`` and train it up to step ``num_steps`` under ``mesh``,
     resuming from ``output_dir``'s newest checkpoint; returns the final
     ``TrainState``.
 
-    :param batch_iterator: yields ``make_dummy_batch``-shaped numpy batches
+    :param batch_iterator: yields ``make_dummy_batch``-shaped batches (numpy
+        arrays or tensors: ``PretrainLoader``, ``make_dummy_batch``), or with
+        ``fused_builder`` raw batches (``DevicePretrainLoader(fused=True)``).
+        They reach the device through a ``DeviceFeed``
     :param num_steps: overrides ``cfg.optimizer.num_train_steps``
     :param output_dir: checkpoint directory (default ``cfg.device.output_dir``;
         none: no checkpoints)
@@ -103,6 +114,10 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
     :param save_every: default ``cfg.device.iterations_per_loop``
     :param tracker: a ``utils.experiment`` tracker; default a ``JsonlTracker``
         in ``output_dir/run`` (none without an ``output_dir``)
+    :param fused_builder: a ``data.device_builder.DeviceExampleBuilder``: each
+        step assembles its batch on the device from the raw batch
+        (``make_fused_data_train_step``), with draws keyed by
+        ``(data_seed, step)``
     """
     num_steps = num_steps or cfg.optimizer.num_train_steps
     save_every = save_every or cfg.device.iterations_per_loop
@@ -146,7 +161,12 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
             if log_fn is not None:
                 log_fn(*ready)
 
-    batches = iter(batch_iterator)
+    narrow = ({"images": torch.bfloat16, "audio_clips": torch.bfloat16}
+              if cfg.model.use_bfloat16 else {})
+    feed = DeviceFeed(batch_iterator, device, narrow=narrow, widen_ints=fused_builder is None)
+    step_fn = (train_step if fused_builder is None
+               else make_fused_data_train_step(fused_builder, data_seed))
+    batches = iter(feed)
     t_block = time.time()
     with _StopFlag() as stop:
         for step in range(state.step, num_steps):
@@ -156,7 +176,7 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                 print(f"input exhausted after {state.step} of {num_steps} steps", flush=True)
                 break
             with activate_mesh(mesh):
-                state, metrics = train_step(state, batch_to_tensors(batch, device))
+                state, metrics = step_fn(state, batch)
             report(metrics_q.push(step, metrics))
             if output_dir and (step + 1) % save_every == 0:
                 async_ckpt.save(state, output_dir)

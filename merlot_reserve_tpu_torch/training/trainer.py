@@ -25,6 +25,7 @@ import torch
 from torch.func import functional_call
 from torch.profiler import record_function
 
+from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws
 from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer, loss_fn_given_preds
 from merlot_reserve_tpu_torch.training.optimization import PretrainOptimizer
 from merlot_reserve_tpu_torch.utils.weights import flax_leaf_shapes
@@ -104,6 +105,47 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         state.optimizer.step(grads)
     state.step += 1
     return state, info
+
+
+def model_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A batch in the dtypes the model takes: integer tensors widened to
+    int64 (its index dtype) where they are narrower."""
+    return {k: v.long() if not (v.is_floating_point() or v.dtype in (torch.int64, torch.bool))
+            else v for k, v in batch.items()}
+
+
+def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: bool = True):
+    """The training step from a raw batch: example assembly on the card
+    (``DeviceExampleBuilder.build_batch``), then ``train_step``. The port of
+    the JAX package's ``make_jit_fused_data_train_step``.
+
+    The builder's draws are a pure function of ``(data_seed, state.step)``
+    (``BuilderDraws``), as JAX folds ``state.step`` into its key: fresh masks
+    every step, and the same masks at a step after a resume.
+
+    The raw batch is ``stack_raw_examples`` of ``host_prepare`` outputs as
+    int32, float32 and uint8 tensors on the card (``DeviceFeed(...,
+    widen_ints=False)``), with either ``images`` decoded on the host or the
+    frames (``frames_u8``, ``frame_hw``) that the builder augments on the
+    card. Returns ``step(state, raw, split_at=None, gumbel=None,
+    draws=None)``; ``draws`` replaces the builder's sampler (a test's hook),
+    ``split_at`` and ``gumbel`` are ``train_step``'s.
+    """
+    def step(state: TrainState, raw: Dict[str, torch.Tensor], split_at=None, gumbel=None,
+             draws=None):
+        raw = dict(raw)
+        images = raw.pop("images", None)
+        with record_function("train_step/build"):
+            if draws is None:
+                draws = BuilderDraws(data_seed, state.step, raw["tok_ids"].device)
+            batch = builder.build_batch(raw, draws)
+            if images is not None:
+                batch["images"] = (images.to(torch.bfloat16) if builder.cfg.model.use_bfloat16
+                                   else images)
+            batch = model_batch(batch)
+        return train_step(state, batch, use_bfloat16_grads, split_at, gumbel)
+
+    return step
 
 
 class MetricsQueue:

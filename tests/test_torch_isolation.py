@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py) loads no JAX, flax, optax, merlot_reserve_tpu,
-HuggingFace tokenizers, msgpack, ml_dtypes or PIL module, and the entry
+(and running chip_smoke.py or scripts/pretrain_torch.py) loads no JAX,
+flax, optax, merlot_reserve_tpu, HuggingFace tokenizers, msgpack, ml_dtypes
+or PIL module, and the entry
 points refuse to run on their default device, the CUDA card, where there is
 none: they never fall back to the CPU on their own."""
 
@@ -29,6 +30,10 @@ from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
 from merlot_reserve_tpu_torch.finetune.models import MerlotReserveTVQA, MerlotReserveVCR
 from merlot_reserve_tpu_torch.finetune.train import create_finetune_state
 from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint
+from merlot_reserve_tpu_torch.data.device_builder import DeviceExampleBuilder
+from merlot_reserve_tpu_torch.data.loader import DeviceFeed, DevicePretrainLoader
+from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+from scripts.pretrain_torch import main as pretrain_main
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "merlot_reserve_tpu_torch"
@@ -63,13 +68,16 @@ def test_importing_every_port_module_loads_no_jax():
                    "utils.subtitles", "utils.profiling", "models.layers", "models.towers",
                    "models.pretrainer", "training.trainer", "training.pretrain",
                    "training.optimization", "finetune.models", "finetune.train",
-                   "utils.checkpoint", "utils.msgpack", "utils.experiment"):
+                   "utils.checkpoint", "utils.msgpack", "utils.experiment", "data.tfrecord",
+                   "data.native", "data.masking", "data.debug", "data.synthetic",
+                   "data.pretrain_pipeline", "data.loader", "data.device_builder",
+                   "ops.masking_device", "ops.vision_train"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py", "bench_torch.py"])
+                         + ["chip_smoke.py", "bench_torch.py", "scripts/pretrain_torch.py"])
 def test_no_source_imports_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -117,6 +125,20 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):  # checkpointing and resume
         run_pretraining(cfg, iter([]), num_steps=1, output_dir=str(tmp_path))
     assert list(tmp_path.iterdir()) == []
+    # the data plane: the device feed, the device loader, the fused step's
+    # run and the pretraining script
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceFeed([], "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_pretraining(cfg, iter([]), num_steps=1, fused_builder=DeviceExampleBuilder(cfg))
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    write_synthetic_corpus(str(corpus / "c.tfrecord"), cfg, num_records=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DevicePretrainLoader([str(corpus / "c.tfrecord")], cfg, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_main(["base", "-train_fns", str(corpus / "c.tfrecord"), "-num_steps", "1",
+                       "--fused_data"])
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):

@@ -946,3 +946,134 @@ def test_finetune_step_on_card_matches_cpu(cuda_device, task, scan_minibatch):
     card_params = dict(card.model.named_parameters())
     for name, p in cpu.model.named_parameters():
         assert (card_params[name].detach().cpu() - p.detach()).abs().max().item() <= 5e-5, name
+
+
+# ---------------------------------------------------------------------------
+# the data plane on the card: the native library's codec, the device feed,
+# the device builder
+# ---------------------------------------------------------------------------
+
+
+def _smooth_image(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([yy * 200 // h, xx * 200 // w, (yy + xx) * 100 // (h + w)], -1)
+    return (base + rng.integers(0, 20, (1, 1, 3))).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_native_library_builds_with_a_codec_and_no_fallback(cuda_device):
+    """The data library is built from the checkout and loaded; its JPEG codec
+    (libjpeg, or nvJPEG where libjpeg is absent) encodes and decodes known
+    smooth pixels within 3 levels on average (JPEG quality 90), RGB and
+    grayscale; several threads decode the same bytes as one; a corrupt
+    JPEG raises."""
+    import ast
+    import inspect
+    from concurrent.futures import ThreadPoolExecutor
+
+    from merlot_reserve_tpu_torch.data import native
+
+    assert native.build().exists()
+    assert native.jpeg_codec() in ("libjpeg", "nvjpeg")
+    names = [a.name for n in ast.walk(ast.parse(inspect.getsource(native)))
+             if isinstance(n, ast.Import) for a in n.names]
+    assert "PIL" not in names
+    img = _smooth_image(180, 320)
+    for pixels in (img, img[..., 0]):
+        data = native.encode_jpeg_native(pixels, 90)
+        out = native.decode_jpeg_native(data, 3 if pixels.ndim == 3 else 1)
+        assert out.shape == pixels.shape
+        assert np.abs(out.astype(int) - pixels).mean() < 3.0
+    data = native.encode_jpeg_native(img, 90)
+    one = native.decode_jpeg_native(data)
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(lambda _: native.decode_jpeg_native(data), range(32)))
+    assert all(np.array_equal(o, one) for o in outs)
+    with pytest.raises(RuntimeError, match="jpeg decode failed"):
+        native.decode_jpeg_native(b"\xff\xd8 not a jpeg")
+
+
+@pytest.mark.cuda
+def test_device_feed_is_bit_for_bit_with_a_slow_copy_stream(cuda_device):
+    """Batches through the feed's reused pinned buffers equal the host's,
+    bit for bit, when the copies are held back (a sleep queued on the copy
+    stream): a buffer refilled before its copy had ended would show here."""
+    from merlot_reserve_tpu_torch.data.loader import DeviceFeed
+
+    rng = np.random.default_rng(0)
+    batches = [{"frames": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+                "tokens": rng.integers(0, 30000, (4, 640)).astype(np.int64),
+                "images": rng.standard_normal((4, 240, 768)).astype(np.float32)}
+               for _ in range(6)]
+    feed = DeviceFeed(batches, cuda_device, narrow={"images": torch.bfloat16})
+    got = []
+    for i, b in enumerate(feed):
+        got.append({k: v.clone() for k, v in b.items()})
+        with torch.cuda.stream(feed._stream):
+            torch.cuda._sleep(50_000_000)  # tens of ms: the next copies queue behind it
+    torch.cuda.synchronize()
+    assert feed.pinned and feed.bytes_per_batch == 4 * 64 * 64 * 3 + 4 * 640 * 4 + 4 * 240 * 768 * 2
+    assert len(feed.copy_ms()) == 6
+    want = list(DeviceFeed(batches, "cpu", narrow={"images": torch.bfloat16}))
+    for g, w in zip(got, want):
+        assert g["tokens"].dtype == torch.int64 and g["images"].dtype == torch.bfloat16
+        for k in w:
+            assert torch.equal(g[k].cpu(), w[k]), k
+
+
+class _Replay:
+    """A sampler that draws on the CPU (``BuilderDraws``) and hands the same
+    numbers to a builder on ``device``."""
+
+    def __init__(self, seed, step, device):
+        from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws
+
+        self.cpu = BuilderDraws(seed, step, "cpu")
+        self.device = torch.device(device)
+        self.step = step
+
+    def __getattr__(self, name):
+        fn = getattr(self.cpu, name)
+
+        def call(site, *args):
+            args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+            return fn(site, *args).to(self.device)
+        return call
+
+
+@pytest.mark.cuda
+def test_build_batch_on_card_matches_cpu(cuda_device, tmp_path):
+    """The device builder, frames included, on the card against the CPU on
+    the same raw batch and draws: integers exact, audio clips within 1e-6,
+    patches in [0, 1] within 2e-6 (the resize's products sum in another
+    order; cuBLAS in IEEE f32, not TF32)."""
+    from merlot_reserve_tpu_torch.data.device_builder import (DeviceExampleBuilder,
+                                                              stack_raw_examples)
+    from merlot_reserve_tpu_torch.data.pretrain_pipeline import parse_segment_record
+    from merlot_reserve_tpu_torch.data.native import read_records_native
+    from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+
+    cfg = load_config("base", output_grid=(4, 4), use_bfloat16=False).replace_data(
+        num_segments=4, seq_len=80, lang_seq_len=40, num_text_spans_to_include=8,
+        text_span_budget=10, frame_buffer_size=328)
+    path = str(tmp_path / "c.tfrecord")
+    write_synthetic_corpus(path, cfg, num_records=3, seed=0)
+    builder = DeviceExampleBuilder(cfg)
+    raws = []
+    for r in read_records_native(path):
+        segs = parse_segment_record(r, 4)
+        raws.append({**builder.host_prepare(segs), **builder.host_prepare_frames(segs)})
+    raw = {k: torch.from_numpy(v) for k, v in stack_raw_examples(raws).items()}
+    want = builder.build_batch(raw, _Replay(5, 2, "cpu"))
+    got = builder.build_batch({k: v.to(cuda_device) for k, v in raw.items()},
+                              _Replay(5, 2, cuda_device))
+    assert got.keys() == want.keys()
+    for k in want:
+        g = got[k].cpu()
+        assert g.dtype == want[k].dtype, k
+        if g.is_floating_point():
+            tol = 2e-6 if k == "images" else 1e-6
+            assert (g.float() - want[k].float()).abs().max().item() <= tol, k
+        else:
+            assert torch.equal(g, want[k]), k
