@@ -108,7 +108,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    clocks, examples/s, the busy share under the profiler, the H2D bytes
    and ms per step, peaks; the builder's device ms and launches per batch;
    then the card's ``build_batch`` against the CPU's on one batch with the
-   same draws.
+   same draws;
+16. fixres: phase 13's ``ckpt_4`` into the mixed-resolution step
+   (``make_mixed_res_train_step``) at the two grids of
+   ``scripts/pretrain_fixres_torch.py`` (18x32 and 24x24, joint 24 rows of
+   1312 at each), full base width and depth, 4 examples per grid: the
+   forward and the backward against their plain versions at that joint
+   shape with both grids' labels, with times, bounds and SDPA; 3 steps with
+   32 launches of the forward and of each backward launch and one
+   ``adam_update`` per step, finite step-0 losses near ln N, step ms on both
+   clocks, examples/s and the peak; the kernel path's gradient against the
+   plain path's in bf16 at full depth (the towers recomputed in the
+   backward, so that the plain path fits) and in f32 at 2 layers per tower;
+   then
+   2 steps of ``scripts/pretrain_fixres_torch.py`` on two shards of
+   synthetic records (a checkpoint after each) and
+   ``scripts/validate_torch.py`` over those checkpoints, each against
+   ``evaluate_loss`` called directly;
+17. downstream: from the fixres checkpoint, ``scripts/finetune_vcr_torch.py``
+   (batch 8, 3 steps and a validation pass) and
+   ``scripts/finetune_tvqa_torch.py`` (batch 4, 2 steps and a validation
+   pass) on 16 synthetic records each, decoded by the data library: step-0
+   losses near ln 4 and ln 5, the launches worked out from the steps and
+   validation batches, the host's data ms per batch and each step on both
+   clocks; then ``zero_shot_qa_eval`` with both rankers over the same
+   records in batches of 8 (VCR at 18x32: joint 16 rows of 288; TVQA: 16 rows
+   of 676), 16 ``flash_fwd`` per batch, the kernel path's logits and
+   predictions against the plain path's, ms per batch and examples/s.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -126,6 +152,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2068,7 +2095,7 @@ def phase_adam(card, seed=6):
 # 13. pretraining with checkpoints and resume
 # ---------------------------------------------------------------------------
 
-CKPT_DIR = ROOT / "_smoke_ckpt"  # gitignored; removed after phase 14
+CKPT_DIR = ROOT / "_smoke_ckpt"  # gitignored; removed at the end of the run
 CKPT_STEPS, CKPT_SAVE_EVERY, RESUME_STEPS = 4, 2, 6
 # the resumed run's losses at steps 5-6 against two uninterrupted runs: the
 # card's backward is not deterministic (dq's atomics), and the resumed run
@@ -2266,8 +2293,6 @@ def phase_finetune(card, pretrained_dir):
     """VCR and TVQA heads from the port's pretraining checkpoint: the
     kernel path's first gradient against the plain attention path in an f32
     copy, then steps with launches, losses, times and peaks."""
-    import shutil
-
     import torch
 
     from merlot_reserve_tpu_torch import kernels
@@ -2376,7 +2401,6 @@ def phase_finetune(card, pretrained_dir):
               flush=True)
         del state, model, dev_batch
         torch.cuda.empty_cache()
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return out, {task: labels[task][max(labels[task])] for task in labels}
 
 
@@ -2697,6 +2721,513 @@ def phase_data(card, device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 16. fixres: the mixed-resolution step, its kernels, the scripts
+# ---------------------------------------------------------------------------
+
+FIXRES_BATCH, FIXRES_STEPS = 8, 3  # the global batch: half at each grid
+FIXRES_JOINT_LEN = 1312  # lang 160 + 8 segments x 144 pooled tokens, at both grids
+# step-0 losses of the mixed step from phase 13's ckpt_4 (4 updates on
+# another batch at the base grid) against ln N of the whole batch: as
+# phase 15 allows for losses that are not those of a fresh init
+FIXRES_INIT_LOSS_TOL = 0.1
+# the f32 comparison of the mixed step's gradient, kernel path vs plain
+# path: full width, this many layers in every tower, random weights
+FIXRES_F32_LAYERS = 2
+FIXRES_SCRIPT_STEPS, FIXRES_SHARD_RECORDS = 2, 4
+# validate_torch.py's losses against evaluate_loss called directly on the
+# same checkpoint and records: the same kernels on the same inputs
+VALIDATE_TOL = 1e-5
+
+
+def _fixres_configs(**model):
+    """scripts/pretrain_fixres_torch.py's two grid configs (POSSIBLE_RES),
+    warmup 1, joint attention on the flash kernels."""
+    from scripts.pretrain_fixres_torch import POSSIBLE_RES, fixres_config
+
+    return [fixres_config("base", g, num_steps=1000, warmup=1, lr_scale=0.02)
+            .replace_model(joint_attention_impl="flash", **model) for g in POSSIBLE_RES]
+
+
+def _fixres_batches(cfgs, device="cuda"):
+    """make_dummy_batch at each grid, FIXRES_BATCH / 2 examples each, on the
+    card, images and audio in the compute dtype (as the DeviceFeed gives
+    them)."""
+    import torch
+
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+
+    out = []
+    for i, c in enumerate(cfgs):
+        b = batch_to_tensors(make_dummy_batch(c, FIXRES_BATCH // 2, seed=i), device)
+        if c.model.use_bfloat16:
+            b.update({k: b[k].to(torch.bfloat16) for k in ("images", "audio_clips")})
+        out.append(b)
+    return out
+
+
+def _mixed_draws(model, cfgs, batches, generator):
+    """(split_at, gumbel) pairs, one per half, for ``mixed_loss_and_grads``."""
+    import torch
+
+    split_at, gumbel = [], []
+    for c, b in zip(cfgs, batches):
+        d = c.data
+        B, spans = b["text_spans"].shape[:2]
+        split_at.append([model.draw_split_at(B * d.num_segment_groups, d.num_segments_per_group,
+                                             generator) for _ in range(2)])
+        u = torch.rand((B, spans), generator=generator, device=generator.device)
+        gumbel.append(-torch.log(-torch.log(u)))
+    return tuple(split_at), tuple(gumbel)
+
+
+def _mixed_pair(mixed_loss_and_grads, model, model_b, batches, bf16, draws):
+    """The mixed step's (loss terms, gradients) on the kernel path and on the
+    plain path, with the launches each made."""
+    from merlot_reserve_tpu_torch import kernels
+
+    runs = {}
+    for path in ("kernel", "plain"):
+        before = dict(kernels.LAUNCHES)
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                for patch in _plain_flash():
+                    stack.enter_context(patch)
+            runs[path] = mixed_loss_and_grads(model, model_b, *batches, bf16, *draws)
+        check((path == "plain") == (dict(kernels.LAUNCHES) == before),
+              f"mixed step {path} path: launched {'a' if path == 'plain' else 'no'} kernel")
+    return runs
+
+
+def phase_fixres(card, pretrained_dir, device="cuda"):
+    """The mixed-resolution step at full base width and depth from phase
+    13's ckpt_4: the kernels at its joint shape (B24 L1312, both grids'
+    labels), its launches, losses, times and peak, the kernel path's
+    gradient against the plain path's (bf16 at full depth, f32 at
+    FIXRES_F32_LAYERS), then scripts/pretrain_fixres_torch.py on two shards
+    of synthetic records and scripts/validate_torch.py over its checkpoints
+    against evaluate_loss called directly. (``device``: "cpu" for a
+    rehearsal at tiny widths with the timers patched.)"""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.loader import PretrainLoader
+    from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+    from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
+    from merlot_reserve_tpu_torch.training.pretrain import evaluate_loss
+    from merlot_reserve_tpu_torch.training.trainer import (TrainState, create_train_state,
+                                                           make_mixed_res_train_step,
+                                                           mixed_loss_and_grads)
+    from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint, pretrained_params
+    from merlot_reserve_tpu_torch.utils.weights import load_flax_params
+    from scripts import pretrain_fixres_torch, validate_torch
+
+    res = {}
+    cfgs = _fixres_configs()
+    m, d = cfgs[0].model, cfgs[0].data
+    ckpt = os.path.join(pretrained_dir, f"ckpt_{CKPT_STEPS}")
+    model = MerlotReservePretrainer(cfgs[0], device=device)
+    load_flax_params(model, pretrained_params(ckpt))
+    model_b = MerlotReservePretrainer(cfgs[1], device="meta")
+    batches = _fixres_batches(cfgs, device)
+    print(f"[fixres] base pretrainer from {ckpt}, grids {[c.model.output_grid for c in cfgs]}, "
+          f"{FIXRES_BATCH // 2} examples each, seq_len {[c.data.seq_len for c in cfgs]}",
+          flush=True)
+
+    # the joint attention's labels at each grid, then the kernels at that shape
+    labels = [_capture_labels(model, batches[0])]
+    with torch.no_grad(), _recorded_labels() as seen:
+        torch.func.functional_call(model_b, dict(model.named_parameters()), (batches[1],))
+    labels.append({L: lab for (_, L), lab in seen.items()})
+    L = max(labels[0])
+    check(L == FIXRES_JOINT_LEN and max(labels[1]) == L,
+          f"joint lengths {max(labels[0])}, {max(labels[1])} != {FIXRES_JOINT_LEN}")
+    res["labels"] = [{n: (v.shape[0], int((v > 0).sum()), int(s.max())) for n, (v, s) in
+                      lab.items()} for lab in labels]
+    fwd, bwd = (phase_kernels([("fixres_joint_a", *labels[0][L]),
+                               ("fixres_joint_b", *labels[1][L])], seed=8)
+                if device == "cuda" else ([], []))
+
+    # the counted mixed steps
+    state = create_train_state(cfgs[0], model)
+    step = make_mixed_res_train_step(cfgs[0], state, model_b)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES.clear()
+    infos, step_ms = [], []
+    for _ in range(FIXRES_STEPS):
+        t0 = time.perf_counter()
+        state, info = step(state, *batches)
+        infos.append({k: float(v) for k, v in info.items()})  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * (m.joint_num_layers + m.span_num_layers)
+    for name in ("flash_fwd", *BWD_LAUNCHES):
+        check(launches.get(name, 0) == per_step * FIXRES_STEPS,
+              f"mixed step: {name} launches {launches.get(name, 0)} != {per_step} x "
+              f"{FIXRES_STEPS}")
+    check(launches.get("adam_update", 0) == FIXRES_STEPS,
+          f"mixed step: adam_update launches {launches.get('adam_update', 0)}")
+    for name in (*BWD_LAUNCHES_F32, "ring_fwd"):
+        check(launches.get(name, 0) == 0, f"mixed step launched {name}")
+    check(all(math.isfinite(v) for i in infos for v in i.values()), "mixed step: non-finite loss")
+    expected = _expected_init_losses(cfgs[0], FIXRES_BATCH)
+    for head, ln_n in expected.items():
+        check(abs(infos[0][head] - ln_n) < FIXRES_INIT_LOSS_TOL,
+              f"mixed step-0 {head} loss {infos[0][head]} is not near ln N = {ln_n}")
+    device_ms = cuda_time_ms(lambda: step(state, *batches), iters=2, warmup=1)
+    host_med = float(np.median(step_ms[1:]))
+    res.update({"batch": FIXRES_BATCH, "steps": FIXRES_STEPS, "launches": launches,
+                "launches_per_step": {k: v / FIXRES_STEPS for k, v in launches.items()},
+                "losses": infos, "expected_init_losses": expected, "step_ms_host": step_ms,
+                "step_ms_host_median": host_med, "step_ms_device": device_ms,
+                "examples_per_s": FIXRES_BATCH / host_med * 1e3,
+                "device_examples_per_s": FIXRES_BATCH / device_ms * 1e3,
+                "max_memory_allocated_bytes": peak})
+    print(f"[fixres] {card}: mixed step, {FIXRES_STEPS} steps: {host_med:.1f} ms on the host "
+          f"clock (median of steps 2-{FIXRES_STEPS}; all {[round(t, 1) for t in step_ms]}), "
+          f"{device_ms:.1f} ms on the device clock; {res['examples_per_s']:.2f} examples/s; "
+          f"peak {peak / 2**30:.2f} GiB; launches per step {res['launches_per_step']}; step-0 "
+          f"losses { {k: round(infos[0][k], 4) for k in expected} } (ln N "
+          f"{ {k: round(v, 4) for k, v in expected.items()} })", flush=True)
+    # the kernel path's gradient against the plain path's: bf16 at full
+    # depth, on a copy of the model whose towers recompute their layers in
+    # the backward (the same gradient; the plain path's f32 scores, 24 x 12
+    # x 1312 x 1312, would not fit beside the step's activations)
+    remat_cfgs = _fixres_configs(tower_gradient_checkpoint=True)
+    model_r = MerlotReservePretrainer(remat_cfgs[0], device=device)
+    model_r.load_state_dict(model.state_dict())
+    del state, model, step
+    torch.cuda.empty_cache()
+    model_rb = MerlotReservePretrainer(remat_cfgs[1], device="meta")
+    g = torch.Generator(device=device).manual_seed(9)
+    draws = _mixed_draws(model_r, cfgs, batches, g)
+    runs = _mixed_pair(mixed_loss_and_grads, model_r, model_rb, batches, True, draws)
+    agree = _agreement(runs["kernel"][1], runs["plain"][1])
+    loss_diff = {k: abs(float(runs["kernel"][0][k]) - float(runs["plain"][0][k]))
+                 for k in expected}
+    del runs
+    check(agree["whole"] >= TRAIN_MIN_COSINE,
+          f"mixed step bf16 whole-gradient cosine {agree['whole']} below {TRAIN_MIN_COSINE}")
+    for k, v in loss_diff.items():
+        check(v <= TRAIN_LOSS_TOL, f"mixed step bf16 {k} kernel vs plain {v} > {TRAIN_LOSS_TOL}")
+    res["bf16_kernel_vs_plain"] = {"whole": agree["whole"], "towers": agree["towers"],
+                                   "loss_diff": loss_diff}
+    del model_r, model_rb, batches
+    torch.cuda.empty_cache()
+
+    # ... and in f32 at FIXRES_F32_LAYERS layers per tower, random weights
+    depth = {k: FIXRES_F32_LAYERS for k in ("joint_num_layers", "vit_num_layers",
+                                            "audio_num_layers", "span_num_layers")}
+    cfgs32 = _fixres_configs(use_bfloat16=False, **depth)
+    model32 = MerlotReservePretrainer(cfgs32[0], device=device, seed=0)
+    model32_b = MerlotReservePretrainer(cfgs32[1], device="meta")
+    batches32 = _fixres_batches(cfgs32, device)
+    runs = _mixed_pair(mixed_loss_and_grads, model32, model32_b, batches32, False,
+                       _mixed_draws(model32, cfgs32, batches32, g))
+    held = [n for n in runs["plain"][1] if n not in ZERO_GRAD]
+    agree32 = _agreement({n: runs["kernel"][1][n] for n in held},
+                         {n: runs["plain"][1][n] for n in held})
+    lowest = min(agree32["tensors"].items(), key=lambda kv: kv[1])
+    loss_diff32 = {k: abs(float(runs["kernel"][0][k]) - float(runs["plain"][0][k]))
+                   for k in expected}
+    peak32 = torch.cuda.max_memory_allocated()
+    del runs, model32, model32_b, batches32
+    torch.cuda.empty_cache()
+    check(lowest[1] >= TRAIN_F32_MIN_COSINE,
+          f"mixed step f32 gradient cosine of {lowest[0]} {lowest[1]} below "
+          f"{TRAIN_F32_MIN_COSINE}")
+    for k, v in loss_diff32.items():
+        check(v <= TRAIN_F32_LOSS_TOL,
+              f"mixed step f32 {k} kernel vs plain {v} > {TRAIN_F32_LOSS_TOL}")
+    res["f32_kernel_vs_plain"] = {"layers": FIXRES_F32_LAYERS, "whole": agree32["whole"],
+                                  "lowest": lowest, "loss_diff": loss_diff32}
+    print(f"[fixres] mixed step gradient, kernel vs plain: bf16 at full depth whole cosine "
+          f"{agree['whole']:.6f}, per tower { {k: round(v, 6) for k, v in agree['towers'].items()} }"
+          f", loss diffs { {k: f'{v:.2e}' for k, v in loss_diff.items()} }; f32 at "
+          f"{FIXRES_F32_LAYERS} layers per tower whole {agree32['whole']:.8f}, lowest tensor "
+          f"{lowest}, loss diffs { {k: f'{v:.2e}' for k, v in loss_diff32.items()} }",
+          flush=True)
+
+    # the fixres script on two shards, then the validation script over its checkpoints
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fixres_") as tmp:
+        t0 = time.perf_counter()
+        shards = [write_synthetic_corpus(os.path.join(tmp, f"shard{i}.tfrecord"), cfgs[0],
+                                         num_records=FIXRES_SHARD_RECORDS, seed=10 + i,
+                                         structured=True) for i in range(2)]
+        corpus_s = time.perf_counter() - t0
+        # the base config, a checkpoint after every step, the global batch,
+        # and the loaders' cycle and shuffle sized to the two small shards
+        raw = yaml.safe_load((ROOT / "merlot_reserve_tpu_torch" / "configs" / "base.yaml")
+                             .read_text())
+        raw["device"].update(iterations_per_loop=1, batch_size=FIXRES_BATCH, n_fns_per_cycle=1,
+                             num_parallel_reads=1, shuffle_buffer_size=FIXRES_SHARD_RECORDS)
+        raw["model"]["joint_attention_impl"] = "flash"
+        cfg_path = os.path.join(tmp, "base_fixres_smoke.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(raw, f)
+        out_dir = str(CKPT_DIR / "fixres")
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        _, logged = pretrain_fixres_torch.main(
+            [cfg_path, "-ckpt", ckpt, "-train_fns", os.path.join(tmp, "shard*.tfrecord"),
+             "-output_dir", out_dir, "-num_steps", str(FIXRES_SCRIPT_STEPS), "-warmup", "1",
+             "-seed", "0", "-log_every", "1", "--device", device])
+        script_s = time.perf_counter() - t0
+        script_launches = dict(kernels.LAUNCHES)
+        files = sorted(os.listdir(out_dir))
+        check(files == [f"ckpt_{s + 1}" for s in range(FIXRES_SCRIPT_STEPS)],
+              f"fixres script checkpoints {files}")
+        check(load_checkpoint(out_dir)["opt_state"] is None,
+              "the fixres script saved its optimizer")
+        check([s for s, _ in logged] == list(range(FIXRES_SCRIPT_STEPS))
+              and all(math.isfinite(v) for _, i in logged for v in i.values()),
+              f"fixres script losses {logged}")
+        for name in ("flash_fwd", *BWD_LAUNCHES):
+            check(script_launches.get(name, 0) == per_step * FIXRES_SCRIPT_STEPS,
+                  f"fixres script: {name} launches {script_launches.get(name, 0)}")
+
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        val_args = ["-num_batches", "2", "-batch_size", str(FIXRES_BATCH // 2)]
+        losses = validate_torch.main([cfg_path, "-ckpt_dir", out_dir, "-val_fns",
+                                      os.path.join(tmp, "shard*.tfrecord"), *val_args,
+                                      "--device", device])
+        validate_s = time.perf_counter() - t0
+        validate_launches = dict(kernels.LAUNCHES)
+        check(sorted(losses) == list(range(1, FIXRES_SCRIPT_STEPS + 1)),
+              f"validated checkpoints {sorted(losses)}")
+        vcfg = load_config(cfg_path)
+        vmodel = MerlotReservePretrainer(vcfg, device=device)
+        diffs = {}
+        for s, info in losses.items():
+            load_flax_params(vmodel, pretrained_params(os.path.join(out_dir, f"ckpt_{s}")))
+            direct = evaluate_loss(vcfg, TrainState(model=vmodel, optimizer=None),
+                                   PretrainLoader(shards, vcfg, FIXRES_BATCH // 2, seed=0,
+                                                  repeat=False), num_batches=2)
+            diffs[s] = max(abs(direct[k] - info[k]) for k in direct)
+            check(diffs[s] <= VALIDATE_TOL,
+                  f"validate ckpt_{s}: {info} against evaluate_loss {direct}")
+        del vmodel
+        torch.cuda.empty_cache()
+    res["script"] = {"corpus_s": corpus_s, "seconds": script_s, "losses": logged,
+                     "launches": script_launches, "checkpoints": files}
+    res["validate"] = {"seconds": validate_s, "losses": losses, "launches": validate_launches,
+                       "vs_evaluate_loss": diffs}
+    print(f"[fixres] {card}: pretrain_fixres_torch.py, {FIXRES_SCRIPT_STEPS} steps on 2 shards "
+          f"of {FIXRES_SHARD_RECORDS} records: {script_s:.1f} s (checkpoint load, loaders, "
+          f"steps, a save per step), losses "
+          f"{[round(i['total'], 4) for _, i in logged]}; validate_torch.py over {files}: "
+          f"{validate_s:.1f} s, totals {[round(v['total'], 4) for v in losses.values()]}, "
+          f"against evaluate_loss {diffs}", flush=True)
+    return res, fwd, bwd, labels[0][L]
+
+
+# ---------------------------------------------------------------------------
+# 17. downstream: finetuning on records, zero-shot QA
+# ---------------------------------------------------------------------------
+
+DOWNSTREAM_RECORDS = 16
+VCR_FT_STEPS, TVQA_FT_STEPS = 3, 2
+ZERO_SHOT_BATCH = 8
+# the rankers' cosine logits, kernel path vs plain path on the same weights
+# and records, in bf16 (the joint and span towers on either attention, then
+# the projection and a product of unit vectors). Read on an H100 80GB HBM3
+# at 700 W: 4.9e-4 (VCR) and 6.1e-4 (TVQA); the limit is about three times
+# those. A prediction is held where the plain path's top-two margin exceeds
+# twice the limit: a smaller margin may be turned by that error
+ZERO_SHOT_LOGIT_TOL = 2e-3
+
+
+def _held_predictions(kernel_logits, plain_logits):
+    """Rows whose prediction the logits' limit cannot flip: the plain path's
+    top-two margin above twice ZERO_SHOT_LOGIT_TOL. Returns a bool array."""
+    import numpy as np
+
+    top2 = np.sort(plain_logits, -1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > 2 * ZERO_SHOT_LOGIT_TOL
+
+
+def phase_downstream(card, ckpt, device="cuda"):
+    """From the fixres checkpoint ``ckpt``: scripts/finetune_vcr_torch.py
+    (batch 8, 3 steps and a validation pass) and finetune_tvqa_torch.py
+    (batch 4, 2 steps and a validation pass) on synthetic records decoded
+    by the data library (nvJPEG here), then zero_shot_qa_eval with both
+    rankers over 16 records each, kernel path against plain path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_finetune_corpus
+    from merlot_reserve_tpu_torch.finetune import models as tm
+    from merlot_reserve_tpu_torch.finetune import train as tt
+    from merlot_reserve_tpu_torch.finetune.data import finetune_batches
+    from merlot_reserve_tpu_torch.utils.checkpoint import pretrained_params
+    from merlot_reserve_tpu_torch.zero_shot import zero_shot_qa_eval
+    from scripts import finetune_tvqa_torch, finetune_vcr_torch
+
+    res = {"finetune": {}, "zero_shot": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_downstream_") as tmp:
+        records = {}
+        t0 = time.perf_counter()
+        for task in ("vcr", "tvqa"):
+            records[task] = write_synthetic_finetune_corpus(
+                os.path.join(tmp, f"{task}.tfrecord"), load_config("base"), task,
+                num_records=DOWNSTREAM_RECORDS, seed=20)
+        res["corpus_s"] = time.perf_counter() - t0
+
+        # finetuning through the scripts, each step timed on both clocks
+        original = tt.finetune_train_step
+        for task, main, B, steps, expected in (
+                ("vcr", finetune_vcr_torch.main, VCR_BATCH, VCR_FT_STEPS,
+                 {"loss": math.log(4)}),
+                ("tvqa", finetune_tvqa_torch.main, TVQA_BATCH, TVQA_FT_STEPS,
+                 {"loss_audio": math.log(5), "loss_text": math.log(5)})):
+            events = []
+
+            def timed_step(*args, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = original(*args, **kw)
+                end.record()
+                events.append((start, end))
+                return out
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            with mock.patch.object(tt, "finetune_train_step", timed_step):
+                record = main(["base", "-ckpt", ckpt, "-train_fns", records[task], "-val_fns",
+                               records[task], "-ne", "1", "-batch_size", str(B),
+                               "-train_size", str(B * steps), "-log_every", "1",
+                               "--device", device])
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            step_device_ms = [a.elapsed_time(b) for a, b in events]
+            metrics = [s["metrics"] for s in record["steps"]]
+            check(len(metrics) == steps and all(math.isfinite(v) for m_ in metrics
+                                                for v in m_.values()),
+                  f"finetune {task}: metrics {metrics}")
+            for k, ln_n in expected.items():
+                check(abs(metrics[0][k] - ln_n) < FINETUNE_LOSS_TOL,
+                      f"finetune {task}: step-0 {k} {metrics[0][k]} is not near ln N = {ln_n}")
+            val_batches = -(-DOWNSTREAM_RECORDS // B)
+            layers = load_config("base").model.joint_num_layers
+            check(launches.get("flash_fwd", 0) == layers * (steps + val_batches),
+                  f"finetune {task}: flash_fwd launches {launches.get('flash_fwd', 0)} != "
+                  f"{layers} x ({steps} steps + {val_batches} validation batches)")
+            for name in BWD_LAUNCHES:
+                check(launches.get(name, 0) == layers * steps,
+                      f"finetune {task}: {name} launches {launches.get(name, 0)}")
+            check(launches.get("adam_update", 0) == steps,
+                  f"finetune {task}: adam_update launches {launches.get('adam_update', 0)}")
+            (evaluation,) = record["evaluations"]
+            r = {"batch": B, "steps": steps, "seconds": seconds, "launches": launches,
+                 "metrics": metrics, "evaluation": evaluation,
+                 "data_ms": [s["data_ms"] for s in record["steps"]],
+                 "step_ms_host": [s["step_ms"] for s in record["steps"]],
+                 "step_ms_device": step_device_ms, "max_memory_allocated_bytes": peak}
+            r["examples_per_s"] = B / float(np.median(r["step_ms_host"][1:])) * 1e3
+            res["finetune"][task] = r
+            print(f"[downstream] {card}: finetune_{task}_torch.py, batch {B}, {steps} steps "
+                  f"and a validation pass over {DOWNSTREAM_RECORDS} records ({seconds:.1f} s "
+                  f"with the checkpoint load): data {[round(t, 1) for t in r['data_ms']]} ms "
+                  f"per batch on the host, steps {[round(t, 1) for t in r['step_ms_host']]} ms "
+                  f"on the host clock and {[round(t, 1) for t in step_device_ms]} ms on the "
+                  f"device clock; {r['examples_per_s']:.2f} examples/s; peak "
+                  f"{peak / 2**30:.2f} GiB; step-0 { {k: round(metrics[0][k], 5) for k in expected} }"
+                  f"; validation {evaluation}; launches {launches}", flush=True)
+            torch.cuda.empty_cache()
+
+        # zero-shot QA with both rankers, kernel path against plain path
+        params = pretrained_params(ckpt)
+        for task, cls, cfg in (
+                ("vcr", tm.MerlotReserveVCRZeroShot,
+                 load_config("base", output_grid=(18, 32), joint_attention_impl="flash")
+                 .replace_data(lang_seq_len=144)),
+                ("tvqa", tm.MerlotReserveTVQAZeroShot,
+                 load_config("base", joint_attention_impl="flash")
+                 .replace_data(lang_seq_len=256, num_segments=7))):
+            t0 = time.perf_counter()
+            batches = list(finetune_batches([records[task]], cfg, f"{task}_zero_shot",
+                                            ZERO_SHOT_BATCH, is_training=False, repeat=False,
+                                            return_ids=True))
+            data_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+            model = cls(cfg, device=device)
+            logits = []
+            hook = model.register_forward_hook(lambda mod, args, out: logits.append(
+                torch.stack(out, 1) if isinstance(out, tuple) else out))
+            zero_shot_qa_eval(model, params, batches, task)  # loads the weights, warms up
+            runs = {}
+            for path in ("kernel", "plain"):
+                logits.clear()
+                kernels.LAUNCHES.clear()
+                with contextlib.ExitStack() as stack:
+                    if path == "plain":
+                        for patch in _plain_flash():
+                            stack.enter_context(patch)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics, rows = zero_shot_qa_eval(model, None, batches, task)
+                    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+                runs[path] = {"metrics": metrics, "rows": rows, "ms_per_batch": ms,
+                              "launches": dict(kernels.LAUNCHES),
+                              "logits": torch.cat(logits).float().cpu().numpy()}
+            hook.remove()
+            del model
+            torch.cuda.empty_cache()
+            k, p = runs["kernel"], runs["plain"]
+            per_batch = cfg.model.joint_num_layers + cfg.model.span_num_layers
+            check(k["launches"].get("flash_fwd", 0) == per_batch * len(batches),
+                  f"zero-shot {task}: flash_fwd launches {k['launches']} != {per_batch} x "
+                  f"{len(batches)} batches")
+            check(not p["launches"], f"zero-shot {task}: the plain path launched {p['launches']}")
+            check(k["metrics"]["n"] == DOWNSTREAM_RECORDS, f"zero-shot {task}: {k['metrics']}")
+            err = float(np.abs(k["logits"] - p["logits"]).max())
+            check(err <= ZERO_SHOT_LOGIT_TOL,
+                  f"zero-shot {task}: logits kernel vs plain {err} > {ZERO_SHOT_LOGIT_TOL}")
+            # [examples, (streams or tasks), options]: a prediction per row of each
+            held = _held_predictions(k["logits"], p["logits"])
+            same = k["logits"].argmax(-1) == p["logits"].argmax(-1)
+            check(bool(same[held].all()),
+                  f"zero-shot {task}: predictions differ where the margin holds them")
+            if task == "tvqa":  # joint: held where both streams are held and agree
+                both = held.all(1) & (p["logits"].argmax(-1)[:, 0] == p["logits"].argmax(-1)[:, 1])
+                joint = [(a["pred_joint"], b["pred_joint"]) for a, b in zip(k["rows"], p["rows"])]
+                check(all(a == b for (a, b), h in zip(joint, both) if h),
+                      f"zero-shot tvqa: joint predictions differ where both streams hold")
+            r = {"batch": ZERO_SHOT_BATCH, "batches": len(batches), "data_ms_per_batch": data_ms,
+                 "ms_per_batch": k["ms_per_batch"], "plain_ms_per_batch": p["ms_per_batch"],
+                 "examples_per_s": ZERO_SHOT_BATCH / k["ms_per_batch"] * 1e3,
+                 "launches": k["launches"],
+                 "flash_fwd_per_batch": k["launches"].get("flash_fwd", 0) / len(batches),
+                 "metrics": k["metrics"], "plain_metrics": p["metrics"],
+                 "logit_max_abs_err": err, "rows_held": int(held.sum()),
+                 "rows": int(held.size), "predictions_equal": int(same.sum())}
+            res["zero_shot"][task] = r
+            print(f"[downstream] {card}: zero_shot_qa_eval {task}, {DOWNSTREAM_RECORDS} records "
+                  f"in batches of {ZERO_SHOT_BATCH}: {r['ms_per_batch']:.1f} ms per batch "
+                  f"({r['examples_per_s']:.1f} examples/s; plain path "
+                  f"{r['plain_ms_per_batch']:.1f} ms), data {data_ms:.1f} ms per batch on the "
+                  f"host; {r['flash_fwd_per_batch']:.0f} flash_fwd per batch; logits kernel vs "
+                  f"plain {err:.2e}; predictions equal {r['predictions_equal']} of {r['rows']} "
+                  f"({r['rows_held']} held by their margin); metrics {k['metrics']}", flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -2727,10 +3258,17 @@ def main():
     hop_fwd, hop_bwd = phase_hop_kernels(long_labels[LONG_JOINT_LEN], seed=5)
     adam = phase_adam(dev["nvidia_smi"], seed=6)
     ckpt = phase_train_ckpt(dev["nvidia_smi"])
-    ft, ft_labels = phase_finetune(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"))
-    ft_fwd, ft_bwd = phase_kernels([("vcr_joint", *ft_labels["vcr"]),
-                                    ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
-    data = phase_data(dev["nvidia_smi"])
+    try:
+        ft, ft_labels = phase_finetune(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"))
+        ft_fwd, ft_bwd = phase_kernels([("vcr_joint", *ft_labels["vcr"]),
+                                        ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
+        data = phase_data(dev["nvidia_smi"])
+        fixres, fixres_fwd, fixres_bwd, _ = phase_fixres(dev["nvidia_smi"],
+                                                         str(CKPT_DIR / "pretrain"))
+        down = phase_downstream(dev["nvidia_smi"],
+                                str(CKPT_DIR / "fixres" / f"ckpt_{FIXRES_SCRIPT_STEPS}"))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -2748,7 +3286,15 @@ def main():
                                "finetune_vcr": ft["vcr"]["launches"].get(name, 0),
                                "finetune_tvqa": ft["tvqa"]["launches"].get(name, 0),
                                **{f"train_data_{feed}": r["launches"].get(name, 0)
-                                  for feed, r in data["feeds"].items()}}
+                                  for feed, r in data["feeds"].items()},
+                               "train_fixres_mixed": fixres["launches"].get(name, 0),
+                               "pretrain_fixres_script": fixres["script"]["launches"]
+                               .get(name, 0),
+                               "validate_script": fixres["validate"]["launches"].get(name, 0),
+                               **{f"finetune_{t}_records": r["launches"].get(name, 0)
+                                  for t, r in down["finetune"].items()},
+                               **{f"zero_shot_{t}": r["launches"].get(name, 0)
+                                  for t, r in down["zero_shot"].items()}}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
@@ -2768,6 +3314,8 @@ def main():
                 "launches_per_train_step": launches_by_path[name]["train"] / TRAIN_STEPS,
                 "launches_per_sp4_long_train_step":
                     launches_by_path[name]["train_sp4_long"] / LONG_TRAIN_STEPS,
+                "launches_per_fixres_mixed_step":
+                    launches_by_path[name]["train_fixres_mixed"] / FIXRES_STEPS,
                 "case": "train_joint bf16",
                 "max_abs_err": err.get(name, max(e["max_abs_err"]
                                                  for e in joint["errors"].values())),
@@ -2787,7 +3335,14 @@ def main():
                     "backward_bound_ms": r["bounds"]["both"]["bound_ms"],
                     "backward_bound_by": r["bounds"]["both"]["bound_by"],
                     "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
-                    for r in ft_bwd16}}
+                    for r in ft_bwd16},
+                "fixres_shapes": {f"{r['case']} B{r['B']} L{r['L']}": {
+                    "ms": r["launch_ms"][name], "bound_ms": r["bounds"][name]["bound_ms"],
+                    "bound_by": r["bounds"][name]["bound_by"], "backward_ms": r["ms"],
+                    "backward_bound_ms": r["bounds"]["both"]["bound_ms"],
+                    "backward_bound_by": r["bounds"]["both"]["bound_by"],
+                    "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
+                    for r in fixres_bwd if r["dtype"] == "bf16"}}
 
     def shapes(records, keys):
         """Per case: the times on both clocks, the bound and the factor over
@@ -2798,9 +3353,10 @@ def main():
 
     fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
     fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"] + hop_fwd
-                         + ft_fwd if r["dtype"] == "bf16" and r["case"] in (
+                         + ft_fwd + fixres_fwd if r["dtype"] == "bf16" and r["case"] in (
                              "serving", "train_joint", "train_span", "long_video",
                              "zero_shot_joint", "zero_shot_span", "vcr_joint", "tvqa_joint",
+                             "fixres_joint_a", "fixres_joint_b",
                              *(c for c, _, _ in HOP_CASES))], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
@@ -2813,6 +3369,8 @@ def main():
          "launches_by_path": launches_by_path["flash_fwd"], "case": "serving bf16",
          "launches_per_sp4_long_train_step":
              launches_by_path["flash_fwd"]["train_sp4_long"] / LONG_TRAIN_STEPS,
+         "launches_per_fixres_mixed_step":
+             launches_by_path["flash_fwd"]["train_fixres_mixed"] / FIXRES_STEPS,
          "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["graph_ms"],
          "event_ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
          "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -2850,7 +3408,9 @@ def main():
               "train_long": long, "hop_fwd_kernels": hop_fwd, "hop_bwd_kernels": hop_bwd,
               "adam": adam, "train_checkpointed": ckpt, "finetune": ft,
               "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
-              "data": data, "kernels_line": kernels_line}
+              "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
+              "fixres_bwd_kernels": fixres_bwd, "downstream": down,
+              "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

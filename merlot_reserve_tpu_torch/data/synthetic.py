@@ -1,8 +1,8 @@
-"""Synthetic TFRecord corpus generator with the exact pretraining schema
-(reference pretrain/dataloader.py:30-60 ``segment_k2f``): the port's copy of
-``merlot_reserve_tpu/data/synthetic.py``'s pretraining half, used by the
-tests, ``chip_smoke.py`` and as executable documentation of the record
-format. Its JPEGs are encoded by the port's native library
+"""Synthetic TFRecord corpora with the exact pretraining schema
+(reference pretrain/dataloader.py:30-60 ``segment_k2f``) and the VCR and
+TVQA finetuning schemas (reference finetune/common_dataloader.py): the
+port's copy of ``merlot_reserve_tpu/data/synthetic.py``, used by the tests,
+``chip_smoke.py`` and as executable documentation of the record formats. Its JPEGs are encoded by the port's native library
 (``data/native.py``), not PIL, so its bytes differ from the JAX package's
 writer; the schema and the pixels it encodes are the same."""
 
@@ -118,6 +118,56 @@ def make_video_record(cfg: MerlotConfig, rng: np.random.Generator,
             uid=None if uid_base is None else uid_base + i)
         features.update({f"c{i:02d}/{k}": v for k, v in seg.items()})
     return T.encode_example(features)
+
+
+def make_vcr_record(cfg: MerlotConfig, rng: np.random.Generator,
+                    num_answers: int = 4) -> bytes:
+    """One synthetic VCR example: a 200x300 noise image and its left-right
+    flip, and per task (qa, qar) a query, ``num_answers`` choices and a label."""
+    img = rng.integers(0, 256, (200, 300, 3), dtype=np.uint8)
+    feats = {
+        "image": T.bytes_feature([_jpeg_bytes(img)]),
+        "image_fliplr": T.bytes_feature([_jpeg_bytes(img[:, ::-1])]),
+        "id": T.bytes_feature([b"vcr-0"]),
+    }
+    for prefix in ("qa", "qar"):
+        feats[f"{prefix}_query"] = T.int64_feature(rng.integers(100, 1000, 12).tolist())
+        for i in range(num_answers):
+            feats[f"{prefix}_choice_{i}"] = T.int64_feature(rng.integers(100, 1000, 8).tolist())
+        feats[f"{prefix}_label"] = T.int64_feature([int(rng.integers(0, num_answers))])
+    return T.encode_example(feats)
+
+
+def make_tvqa_record(cfg: MerlotConfig, rng: np.random.Generator,
+                     num_answers: int = 5, num_segments: int = 7) -> bytes:
+    """One synthetic TVQA example: a query, ``num_answers`` choices and a
+    label; per segment a 180x320 noise frame, a [3 * 60, 65] noise
+    spectrogram (one grayscale JPEG) and subtitle tokens."""
+    feats = {
+        "id": T.bytes_feature([b"tvqa-0"]),
+        "magic_number": T.float_feature([float(rng.uniform(20, 60))]),
+        "qa_query": T.int64_feature(rng.integers(100, 1000, 10).tolist()),
+        "qa_label": T.int64_feature([int(rng.integers(0, num_answers))]),
+        "num_frames": T.int64_feature([num_segments]),
+    }
+    for i in range(num_answers):
+        feats[f"qa_choice_{i}"] = T.int64_feature(rng.integers(100, 1000, 6).tolist())
+    for i in range(num_segments):
+        img = rng.integers(0, 256, (180, 320, 3), dtype=np.uint8)
+        spec = rng.integers(0, 256, (3 * 60, 65), dtype=np.uint8)
+        feats[f"c{i:02d}/image_encoded"] = T.bytes_feature([_jpeg_bytes(img)])
+        feats[f"c{i:02d}/spec_encoded"] = T.bytes_feature([_jpeg_bytes(spec)])
+        feats[f"c{i:02d}/sub"] = T.int64_feature(rng.integers(100, 1000, 8).tolist())
+    return T.encode_example(feats)
+
+
+def write_synthetic_finetune_corpus(path: str, cfg: MerlotConfig, task: str,
+                                    num_records: int = 4, seed: int = 0):
+    """``num_records`` synthetic ``task`` ('vcr' or 'tvqa') examples to ``path``."""
+    rng = np.random.default_rng(seed)
+    make = {"vcr": make_vcr_record, "tvqa": make_tvqa_record}[task]
+    T.write_records(path, [make(cfg, rng) for _ in range(num_records)])
+    return path
 
 
 def write_synthetic_corpus(path: str, cfg: MerlotConfig, num_records: int = 4,

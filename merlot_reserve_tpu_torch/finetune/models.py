@@ -1,11 +1,14 @@
-"""Finetuning task heads: VCR (QA and QA->R jointly) and TVQA (subtitles
-and audio streams), the port of ``merlot_reserve_tpu/finetune/models.py``.
+"""Task heads: VCR (QA and QA->R jointly) and TVQA (subtitles and audio
+streams), finetuned and zero-shot; the port of
+``merlot_reserve_tpu/finetune/models.py``.
 
-Both heads are a ``MerlotReserve`` without the towers the task does not
-use (and so without their parameters, as the JAX model's adapted tree has
-none): the span tower and the contrastive ``head`` always, the audio tower
-too for VCR. A logit is ``proj`` (Dense H -> 1, no bias) of the joint
-transformer's hidden state at each option's MASK. Masks travel as
+Each head is a ``MerlotReserve`` built with only the towers it uses (and so
+with only their parameters, as the JAX model's tree has no others). The
+finetune heads have no span tower and no contrastive ``head``, and VCR's
+no audio tower either; a logit is ``proj`` (Dense H -> 1, no bias) of the
+joint transformer's hidden state at each option's MASK. The zero-shot
+rankers keep the span tower and ``head`` and have no ``proj`` (VCR's has no
+audio tower). Masks travel as
 per-position labels, so the TVQA splice of the dummy first image is a 1-D
 slice of each field, and the joint attention is the flash kernel on the
 card.
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 from merlot_reserve_tpu_torch.models.layers import linear
-from merlot_reserve_tpu_torch.models.model import MerlotReserve
+from merlot_reserve_tpu_torch.models.model import OPTIONAL_TOWERS, MerlotReserve, seeded_generator
+from merlot_reserve_tpu_torch.ops.pooling import unit_normalize
 from merlot_reserve_tpu_torch.tokenizer import AUDIOSPAN, MASK
 
 
@@ -30,17 +34,24 @@ def pool_at_mask(joint: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return joint[torch.arange(joint.shape[0], device=joint.device), pool_idx]
 
 
-class _FinetuneHead(MerlotReserve):
-    """A ``MerlotReserve`` without the towers in ``DROP``, plus ``proj``."""
+class _TaskHead(MerlotReserve):
+    """A ``MerlotReserve`` with only the towers in ``TOWERS``."""
 
-    DROP: Tuple[str, ...] = ("span_encoder", "head")
+    TOWERS: Tuple[str, ...] = OPTIONAL_TOWERS
+
+    def __init__(self, config, device="cuda", seed: int = 0):
+        super().__init__(config, device=device, seed=seed, towers=self.TOWERS)
+
+
+class _FinetuneHead(_TaskHead):
+    """A ``MerlotReserve`` without the span tower and ``head``, plus ``proj``."""
+
+    TOWERS = ("vision_encoder", "audio_encoder")
 
     def __init__(self, config, device="cuda", seed: int = 0):
         super().__init__(config, device=device, seed=seed)
-        for name in self.DROP:
-            delattr(self, name)
         device = self.contrastive_scales.device
-        generator = torch.Generator(device=device).manual_seed(seed + 1)
+        generator = seeded_generator(device, seed + 1)
         with device:
             self.proj = nn.Linear(self.config.hidden_size, 1, bias=False)
         with torch.no_grad():
@@ -53,7 +64,7 @@ class MerlotReserveVCR(_FinetuneHead):
     ``forward(batch)``: ``image`` [B, P, 768] patches, ``answers`` [B, 2, 4,
     L] tokens -> logits [B, 2, 4]."""
 
-    DROP = ("audio_encoder", "span_encoder", "head")
+    TOWERS = ("vision_encoder",)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         B, two, num_ans, L = batch["answers"].shape
@@ -133,6 +144,65 @@ class MerlotReserveTVQA(_FinetuneHead):
         logits = linear(pooled, self.proj, self.dtype).squeeze(-1)
         from_audio, from_text = torch.chunk(logits, 2, 0)
         return from_audio.reshape(B, num_ans), from_text.reshape(B, num_ans)
+
+
+class _ZeroShotHead(_TaskHead):
+    """Ranks answers without a finetuned head: the joint transformer's hidden
+    state at a statement's MASK goes through the pretrained ``head`` (the
+    JAX model's ``joint_proj``, which the contrastive objective trained to
+    infill masks), is unit-normalised, and scores each candidate answer
+    embedded by the span tower: cosine logits."""
+
+    def _mask_embedding(self, pooled: torch.Tensor) -> torch.Tensor:
+        return unit_normalize(linear(pooled, self.head, self.dtype))
+
+    def _answer_embeddings(self, answers: torch.Tensor) -> torch.Tensor:
+        """[..., n_opt, span_len] tokens -> [..., n_opt, H] unit-normalised."""
+        *lead, span_len = answers.shape
+        emb = self.embed_text_spans_only(answers.reshape(-1, span_len))
+        return emb.reshape(*lead, self.config.hidden_size)
+
+
+class MerlotReserveTVQAZeroShot(_ZeroShotHead):
+    """Zero-shot TVQA: one statement per stream (``textonly_seqs`` and
+    ``audio_seqs`` [B, 1, L, 2]: question, 'answer:', MASK, then the
+    subtitle or AUDIOSPAN rows) fused as the finetune head fuses them
+    (``tvqa_pool_mask_hidden``), ranked against the 5 span-encoded choices
+    (``answers`` [B, 5, span_len]).
+
+    ``forward(batch)`` -> (cosine logits of the audio stream [B, 5], of the
+    text stream [B, 5])."""
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        pooled, (B, num_ans) = tvqa_pool_mask_hidden(self, batch)
+        h = self._mask_embedding(pooled).reshape(2, B * num_ans, self.config.hidden_size)
+        opts = self._answer_embeddings(batch["answers"])  # [B, n_opt, H]
+        logits = torch.einsum("sbh,boh->sbo", h, opts)
+        return logits[0], logits[1]
+
+
+class MerlotReserveVCRZeroShot(_ZeroShotHead):
+    """Zero-shot VCR: one image and two statements ending in MASK (QA:
+    question + 'answer:'; QA->R: question + 'rationale:'), each ranked
+    against its task's 4 span-encoded choices. No audio tower.
+
+    ``forward(batch)``: ``image`` [B, P, 768], ``statements`` [B, 2, L],
+    ``answers`` [B, 2, 4, span_len] -> cosine logits [B, 2, 4]."""
+
+    TOWERS = ("vision_encoder", "span_encoder", "head")
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        B, n_tasks, L = batch["statements"].shape
+        stmts = batch["statements"].reshape(B * n_tasks, L)
+        imgs_enc = self.vision_encoder(batch["image"])["seq_attnpool"].repeat_interleave(
+            n_tasks, 0)
+        mm_inputs = self.prepare_multimodal_inputs(
+            tokens=stmts, token_segment_idx=torch.zeros_like(stmts), vision_input=imgs_enc)
+        joint = self._run_joint(mm_inputs)["seq"][:, :L]
+        h = self._mask_embedding(pool_at_mask(joint, stmts)).reshape(
+            B, n_tasks, self.config.hidden_size)
+        opts = self._answer_embeddings(batch["answers"])  # [B, n_tasks, n_opt, H]
+        return torch.einsum("bth,btoh->bto", h, opts)
 
 
 def adapt_pretrained_params(params: Dict, hidden_size: int, drop_audio: bool = False,

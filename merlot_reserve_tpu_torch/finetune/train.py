@@ -8,12 +8,15 @@ the pretraining step, the gradient is taken at the bf16 copy of the
 parameters (under ``use_bfloat16_grads``): with ``scan_minibatch`` the
 microbatches of one example sum their bf16 gradients in bf16, as the
 reference does, and the sum is cast up to f32 once. Then ``nan_to_num`` and
-the optimizer, which updates the f32 masters in place.
+the optimizer, which updates the f32 masters in place. ``run_finetuning``
+is the scripts' epoch loop around it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,3 +131,50 @@ def tvqa_pred_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
             "preds_joint": torch.argmax(joint, -1),
             "logprobs_audio": F.log_softmax(from_audio, -1),
             "logprobs_text": F.log_softmax(from_text, -1)}
+
+
+def run_finetuning(state: TrainState, batches, loss_fn: LossFn, steps_per_epoch: int,
+                   num_epochs: int, mesh=None, scan_minibatch: bool = False,
+                   evaluate: Optional[Callable[[TrainState], Dict[str, float]]] = None,
+                   output_dir: str = "", log_every: int = 100) -> Dict:
+    """The finetuning scripts' loop: ``num_epochs`` epochs of
+    ``steps_per_epoch`` ``finetune_train_step``s under ``activate_mesh(mesh)``
+    on numpy batches from ``batches`` (``finetune_batches``), each moved to
+    the model's device; after each epoch ``evaluate(state)`` (printed) and,
+    with an ``output_dir``, a checkpoint without the optimizer.
+
+    :return: {'steps': per step {'step', 'data_ms' (the host's time to
+        produce the batch), 'step_ms' (the host's time in the step, which
+        waits for the device only on a logged step), and on every
+        ``log_every``-th step 'metrics' as floats}, 'evaluations': per epoch
+        ``evaluate``'s result}
+    """
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
+    from merlot_reserve_tpu_torch.utils.checkpoint import save_checkpoint
+
+    device = next(state.model.parameters()).device
+    record = {"steps": [], "evaluations": []}
+    for epoch in range(num_epochs):
+        for it in range(steps_per_epoch):
+            t0 = time.perf_counter()
+            batch = batch_to_tensors(next(batches), device)
+            t1 = time.perf_counter()
+            with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+                state, info = finetune_train_step(state, batch, loss_fn,
+                                                  scan_minibatch=scan_minibatch)
+            entry = {"step": state.step - 1, "data_ms": (t1 - t0) * 1e3}
+            if log_every and (it + 1) % log_every == 0:
+                entry["metrics"] = {k: float(v) for k, v in info.items()}
+                print(f"epoch {epoch} it {it + 1}: {entry['metrics']}", flush=True)
+            entry["step_ms"] = (time.perf_counter() - t1) * 1e3
+            record["steps"].append(entry)
+        if evaluate is not None:
+            with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+                acc = evaluate(state)
+            record["evaluations"].append(acc)
+            print(f"epoch {epoch}: " + " ".join(f"{k} acc {v:.4f}" for k, v in acc.items()),
+                  flush=True)
+        if output_dir:
+            save_checkpoint(state, output_dir, no_optimizer=True)
+    return record

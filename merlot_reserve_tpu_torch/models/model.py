@@ -13,7 +13,7 @@ the ring kernel over the active mesh's sp ranks under
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -36,28 +36,52 @@ from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 # config knobs of the JAX package that the port does not implement yet
 _UNPORTED = ("pipeline_axis",)
 
+# the towers a MerlotReserve may leave out (the token embedder, the joint
+# transformer and the temperatures are always built), in build order
+OPTIONAL_TOWERS = ("vision_encoder", "audio_encoder", "span_encoder", "head")
+
+
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator for drawing weights on ``device``; on the meta device
+    (a model whose weights are supplied at call time) a CPU one, which
+    draws nothing there."""
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
 
 class MerlotReserve(nn.Module):
     """The base model. Built on ``device`` (the card unless the caller asks
-    for the CPU) with weights drawn from a ``torch.Generator`` seeded with
-    ``seed``; load trained weights with ``utils.weights.load_flax_params``."""
+    for the CPU; "meta" builds no storage, for a model run only through
+    ``torch.func.functional_call`` on another's weights) with weights drawn
+    from a ``torch.Generator`` seeded with ``seed``; load trained weights with
+    ``utils.weights.load_flax_params``.
 
-    def __init__(self, config: MerlotConfig, device="cuda", seed: int = 0):
+    ``towers`` names the parts of ``OPTIONAL_TOWERS`` to build: a head that
+    uses fewer builds and initialises no weights for the rest, as the JAX
+    package's heads create no parameters for modules they never call."""
+
+    def __init__(self, config: MerlotConfig, device="cuda", seed: int = 0,
+                 towers: Sequence[str] = OPTIONAL_TOWERS):
         super().__init__()
         cfg = config.model
         for knob in _UNPORTED:
             if getattr(cfg, knob):
                 raise NotImplementedError(f"ModelConfig.{knob} is not ported yet")
+        unknown = set(towers) - set(OPTIONAL_TOWERS)
+        if unknown:
+            raise ValueError(f"unknown towers {sorted(unknown)}; choose from {OPTIONAL_TOWERS}")
         device = resolve_device(device)
         self.config = cfg
         self.dtype = torch.bfloat16 if cfg.use_bfloat16 else torch.float32
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = seeded_generator(device, seed)
         with device:
-            self.vision_encoder = VisionTransformer(cfg, self.dtype, generator)
-            self.audio_encoder = AudioTransformer(cfg, self.dtype, generator)
+            if "vision_encoder" in towers:
+                self.vision_encoder = VisionTransformer(cfg, self.dtype, generator)
+            if "audio_encoder" in towers:
+                self.audio_encoder = AudioTransformer(cfg, self.dtype, generator)
             self.token_encoder = TokenEmbedder(cfg.hidden_size, cfg.vocab_size, self.dtype,
                                                generator)
-            self.span_encoder = SpanTransformer(cfg, self.dtype, generator)
+            if "span_encoder" in towers:
+                self.span_encoder = SpanTransformer(cfg, self.dtype, generator)
             joint_impl = (cfg.attention_impl if cfg.joint_attention_impl is None
                           else cfg.joint_attention_impl)
             self.joint_transformer = TransformerEncoder(
@@ -67,9 +91,10 @@ class MerlotReserve(nn.Module):
                 pe_len=None if cfg.do_rotary else config.joint_seq_len,
                 seq_shard_axis=cfg.seq_shard_axis, remat=cfg.gradient_checkpoint,
                 remat_policy=cfg.gradient_checkpoint_policy)
-            # named "head" like the flax param; the JAX module calls it joint_proj
-            self.head = init_linear(cfg.hidden_size, cfg.hidden_size,
-                                    (cfg.hidden_size, cfg.hidden_size), generator)
+            if "head" in towers:
+                # named "head" like the flax param; the JAX module calls it joint_proj
+                self.head = init_linear(cfg.hidden_size, cfg.hidden_size,
+                                        (cfg.hidden_size, cfg.hidden_size), generator)
             self.contrastive_scales = nn.Parameter(torch.ones(3))
 
     # ------------------------------------------------------------------

@@ -418,6 +418,14 @@ def loss_fn_given_preds(preds: Dict) -> tuple:
     return loss, loss_info
 
 
+def concat_preds(preds_list: Sequence[Dict]) -> Dict:
+    """Several forwards' preds (head -> side -> tensor) concatenated on dim
+    0, so that one ``loss_fn_given_preds`` spans all their targets."""
+    return {head: {side: torch.cat([p[head][side] for p in preds_list], 0)
+                   for side in preds_list[0][head]}
+            for head in preds_list[0]}
+
+
 def batch_to_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A ``make_dummy_batch``-shaped numpy batch on ``device``: float arrays
     as f32, integer arrays as int64 (index tensors)."""

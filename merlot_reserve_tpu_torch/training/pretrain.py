@@ -40,6 +40,7 @@ from merlot_reserve_tpu_torch.data.loader import DeviceFeed
 from merlot_reserve_tpu_torch.models.pretrainer import (
     MerlotReservePretrainer,
     batch_to_tensors,
+    concat_preds,
     loss_fn_given_preds,
 )
 from merlot_reserve_tpu_torch.parallel.mesh import Mesh, activate_mesh, make_mesh
@@ -216,10 +217,7 @@ def evaluate_loss(cfg: MerlotConfig, state: TrainState, batch_iterator,
     it = iter(batch_iterator)
     with activate_mesh(mesh):
         preds_acc = [model(batch_to_tensors(next(it), device)) for _ in range(num_batches)]
-    preds = {head: {side: torch.cat([p[head][side] for p in preds_acc], 0)
-                    for side in preds_acc[0][head]}
-             for head in preds_acc[0]}
-    loss, info = loss_fn_given_preds(preds)
+    loss, info = loss_fn_given_preds(concat_preds(preds_acc))
     info = {k: float(v) for k, v in info.items()}
     info["total"] = float(loss)
     return info

@@ -26,7 +26,12 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws
-from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer, loss_fn_given_preds
+from merlot_reserve_tpu_torch.models.pretrainer import (
+    MerlotReservePretrainer,
+    concat_preds,
+    loss_fn_given_preds,
+)
+from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
 from merlot_reserve_tpu_torch.training.optimization import PretrainOptimizer
 from merlot_reserve_tpu_torch.utils.weights import flax_leaf_shapes
 
@@ -63,6 +68,27 @@ def create_train_state(cfg, model: MerlotReservePretrainer) -> TrainState:
     return TrainState(model=model, optimizer=optimizer)
 
 
+def _loss_and_grads(model: torch.nn.Module, forward_loss, use_bfloat16_grads: bool):
+    """The core of every step: ``forward_loss(used)`` -> (loss, loss_info)
+    with ``used`` the tensors to run the model on (the bf16 copies of its
+    parameters under ``use_bfloat16_grads``, made once), then the f32
+    gradient of every parameter through ``nan_to_num``."""
+    params = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
+    with record_function("train_step/cast"):
+        used = ({n: p.to(torch.bfloat16) for n, p in params.items()} if use_bfloat16_grads
+                else params)
+    with record_function("train_step/forward"):
+        loss, loss_info = forward_loss(used)
+    with record_function("train_step/backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    with record_function("train_step/grads"):
+        grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
+                 for (n, p), g in zip(params.items(), grads)}
+        info = {k: torch.as_tensor(v).detach().float() for k, v in loss_info.items()}
+        info["total"] = loss.detach().float()
+    return info, grads
+
+
 def loss_and_grads(model: MerlotReservePretrainer, batch: Dict[str, torch.Tensor],
                    use_bfloat16_grads: bool = True,
                    split_at: Optional[Sequence[torch.Tensor]] = None,
@@ -77,21 +103,11 @@ def loss_and_grads(model: MerlotReservePretrainer, batch: Dict[str, torch.Tensor
     :param split_at, gumbel: injected draws, see ``MerlotReservePretrainer``;
         by default the model draws them from the batch's content
     """
-    params = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
-    with record_function("train_step/cast"):
-        used = ({n: p.to(torch.bfloat16) for n, p in params.items()} if use_bfloat16_grads
-                else params)
-    with record_function("train_step/forward"):
+    def forward_loss(used):
         preds = functional_call(model, used, (batch,), {"split_at": split_at, "gumbel": gumbel})
-        loss, loss_info = loss_fn_given_preds(preds)
-    with record_function("train_step/backward"):
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    with record_function("train_step/grads"):
-        grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
-                 for (n, p), g in zip(params.items(), grads)}
-        info = {k: torch.as_tensor(v).detach().float() for k, v in loss_info.items()}
-        info["total"] = loss.detach().float()
-    return info, grads
+        return loss_fn_given_preds(preds)
+
+    return _loss_and_grads(model, forward_loss, use_bfloat16_grads)
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -105,6 +121,77 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         state.optimizer.step(grads)
     state.step += 1
     return state, info
+
+
+def mixed_loss_and_grads(model_a: MerlotReservePretrainer, model_b: MerlotReservePretrainer,
+                         batch_a: Dict[str, torch.Tensor], batch_b: Dict[str, torch.Tensor],
+                         use_bfloat16_grads: bool = True, split_at=(None, None),
+                         gumbel=(None, None)
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """``loss_and_grads`` of the two-resolution step (``make_mixed_res_train_step``):
+    ``model_a`` on ``batch_a`` and ``model_b`` on ``batch_b``, both run on
+    ``model_a``'s parameters (one bf16 copy under ``use_bfloat16_grads``),
+    their preds concatenated before one loss; ``split_at`` and ``gumbel``
+    are each half's injected draws."""
+    def forward_loss(used):
+        preds = [functional_call(m, used, (b,), {"split_at": s, "gumbel": g})
+                 for m, b, s, g in zip((model_a, model_b), (batch_a, batch_b), split_at, gumbel)]
+        return loss_fn_given_preds(concat_preds(preds))
+
+    return _loss_and_grads(model_a, forward_loss, use_bfloat16_grads)
+
+
+def make_mixed_res_train_step(cfg, state: TrainState, model_b: MerlotReservePretrainer,
+                              mesh=None, use_bfloat16_grads: bool = True):
+    """The two-resolution (fixres) pretraining step: the port of the JAX
+    package's ``make_jit_mixed_res_train_step``.
+
+    ``state.model`` (grid A) runs on ``batch_a`` and ``model_b``, a
+    ``MerlotReservePretrainer`` built at grid B, runs on ``batch_b``, both on
+    the same tensors: ``state.model``'s parameters, cast to bf16 once under
+    ``use_bfloat16_grads``, so that the two halves' gradients sum in bf16
+    before the cast's backward takes them to f32, as in JAX. The two preds
+    trees are concatenated on dim 0 before one ``loss_fn_given_preds``, so
+    every InfoNCE denominator spans both grids. Then one optimizer update.
+
+    Rotary positions make the parameters independent of the grid, so model
+    B has A's names and shapes (checked here); build it on the "meta" device
+    (``MerlotReservePretrainer(cfg_b, device="meta")``): it then holds no
+    weights and no optimizer of its own, and its grid-dependent state (the
+    rotary coordinates) is computed in its forward. The two batches must
+    come from disjoint data (``scripts/pretrain_fixres_torch.py``): the same
+    examples on both grids would put each row's exact positive into the
+    other half's denominator.
+
+    Returns ``step(state, batch_a, batch_b, split_at=(None, None),
+    gumbel=(None, None))``, which runs under ``activate_mesh(mesh)`` (default
+    ``cfg``'s mesh on the model's device, as ``run_pretraining``), updates
+    ``state`` in place and returns it with the loss terms; ``split_at`` and
+    ``gumbel`` are each half's injected draws (``train_step``'s).
+    """
+    from merlot_reserve_tpu_torch.training.pretrain import config_mesh
+
+    model_a = state.model
+    shapes_a = [(n, p.shape) for n, p in model_a.named_parameters()]
+    shapes_b = [(n, p.shape) for n, p in model_b.named_parameters()]
+    if shapes_a != shapes_b:
+        raise ValueError("the grid-B model's parameters are not grid A's: the mixed step "
+                         "needs resolution-independent parameters (do_rotary)")
+    if mesh is None:
+        mesh = config_mesh(cfg, next(model_a.parameters()).device)
+
+    def step(state: TrainState, batch_a: Dict[str, torch.Tensor],
+             batch_b: Dict[str, torch.Tensor], split_at=(None, None), gumbel=(None, None)
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with activate_mesh(mesh):
+            info, grads = mixed_loss_and_grads(state.model, model_b, batch_a, batch_b,
+                                               use_bfloat16_grads, split_at, gumbel)
+            with record_function("train_step/optimizer"):
+                state.optimizer.step(grads)
+        state.step += 1
+        return state, info
+
+    return step
 
 
 def model_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -353,3 +353,12 @@ def unstack_layer_params(tree):
         else:
             out[k] = unstack_layer_params(v)
     return out
+
+
+def pretrained_params(path: str, scan_layers: bool = True):
+    """The parameter tree of the checkpoint at ``path`` (CPU tensors), in the
+    scan-stacked layout when ``scan_layers`` (a ``layer_NN`` tree is stacked;
+    a stacked one is left as it is), as the JAX package's scripts read a
+    pretrained checkpoint."""
+    params = load_checkpoint(path)["params"]
+    return stack_layer_params(params) if scan_layers else params

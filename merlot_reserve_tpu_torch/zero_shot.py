@@ -1,6 +1,6 @@
-"""Zero-shot inference: mask-infilling ranking and batched MASK features,
-the library core behind the demos and the zero-shot scripts (the JAX
-package's ``zero_shot.py``).
+"""Zero-shot inference: mask-infilling ranking, batched MASK features and
+batched zero-shot QA over VCR and TVQA records, the library core behind
+the demos and the zero-shot scripts (the JAX package's ``zero_shot.py``).
 
 The model is a ``models.model.PretrainedMerlotReserve``; it runs where its
 weights are (the card unless it was built on the CPU). Scores are taken in
@@ -9,12 +9,16 @@ f32 from the model's embeddings, and returned as numpy arrays.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import contextlib
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
 from merlot_reserve_tpu_torch.tokenizer import MASK
+from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
 _EMBED_FIELDS = ("images", "audio_clips", "tokens", "subseg_idxs")
 
@@ -82,6 +86,63 @@ def verb_noun_action_accuracy(logits: np.ndarray, labels: np.ndarray,
         for k, v in topk_accuracy(lg, lb, ks).items():
             out[f"{name}_{k}"] = v
     return out
+
+
+@torch.no_grad()
+def zero_shot_qa_eval(model, params, batches, task: str, temperature: float = 100.0,
+                      mesh=None) -> Tuple[Dict[str, float], List[Dict]]:
+    """Batched zero-shot TVQA or VCR evaluation.
+
+    :param model: ``finetune.models.MerlotReserveTVQAZeroShot`` or
+        ``MerlotReserveVCRZeroShot``, on the device it runs on
+    :param params: a flax parameter tree (a pretrained checkpoint's), loaded
+        into ``model`` once (its subtrees for towers the model lacks are
+        ignored, as flax's ``apply`` ignores unused parameters); None to run
+        with the weights ``model`` holds. They stay on the device across
+        batches
+    :param batches: ``(ids, batch)`` pairs from ``finetune.data.finetune_batches(...,
+        task='{tvqa,vcr}_zero_shot', return_ids=True, repeat=False)``; rows
+        whose id is 'pad' are skipped
+    :param task: 'tvqa' (audio and text streams; 'joint' ranks the sum of
+        their softmaxes) or 'vcr' (the qa and qar tasks; 'joint' is right
+        when both are)
+    :param mesh: run every batch under ``activate_mesh(mesh)``
+    :return: (metrics {'acc_<name>': mean, 'n': rows}, one row per example:
+        {'id', 'pred_<name>'})
+    """
+    if params is not None:
+        load_flax_params(model, {k: v for k, v in params.items() if hasattr(model, k)})
+    device = next(model.parameters()).device
+    rows, hits = [], []
+    with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for ids, batch in batches:
+            out = model(batch_to_tensors({k: v for k, v in batch.items() if k != "labels"},
+                                         device))
+            if task == "tvqa":
+                la, lt = (x.float().cpu() * temperature for x in out)
+                joint = torch.softmax(la, -1) + torch.softmax(lt, -1)
+                preds = {"audio": la.argmax(-1), "text": lt.argmax(-1),
+                         "joint": joint.argmax(-1)}
+            else:
+                lg = out.float().cpu()  # [B, 2, num_answers]
+                preds = {"qa": lg[:, 0].argmax(-1), "qar": lg[:, 1].argmax(-1)}
+            preds = {k: v.numpy() for k, v in preds.items()}
+            labels = np.asarray(batch["labels"])
+            for i, ex_id in enumerate(ids):
+                if ex_id == "pad":
+                    continue
+                row, hit = {"id": ex_id}, {}
+                for name, p in preds.items():
+                    row[f"pred_{name}"] = int(p[i])
+                    lab = labels[i] if labels.ndim == 1 else labels[i, 0 if name == "qa" else 1]
+                    hit[name] = float(p[i] == lab)
+                if task == "vcr":
+                    hit["joint"] = hit["qa"] * hit["qar"]
+                rows.append(row)
+                hits.append(hit)
+    metrics = {f"acc_{k}": float(np.mean([h[k] for h in hits])) for k in hits[0]} if hits else {}
+    metrics["n"] = len(hits)
+    return metrics, rows
 
 
 _WARNED_HEURISTIC_REWRITE = False

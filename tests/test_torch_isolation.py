@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py or scripts/pretrain_torch.py) loads no JAX,
+(and running chip_smoke.py or a scripts/*_torch.py) loads no JAX,
 flax, optax, merlot_reserve_tpu, HuggingFace tokenizers, msgpack, ml_dtypes
 or PIL module, and the entry
 points refuse to run on their default device, the CUDA card, where there is
@@ -27,13 +27,24 @@ from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
 from merlot_reserve_tpu_torch.parallel.mesh import make_mesh
 from merlot_reserve_tpu_torch.serving import VideoEmbedService
 from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
-from merlot_reserve_tpu_torch.finetune.models import MerlotReserveTVQA, MerlotReserveVCR
+from merlot_reserve_tpu_torch.finetune.models import (
+    MerlotReserveTVQA,
+    MerlotReserveTVQAZeroShot,
+    MerlotReserveVCR,
+    MerlotReserveVCRZeroShot,
+)
 from merlot_reserve_tpu_torch.finetune.train import create_finetune_state
 from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint
 from merlot_reserve_tpu_torch.data.device_builder import DeviceExampleBuilder
 from merlot_reserve_tpu_torch.data.loader import DeviceFeed, DevicePretrainLoader
 from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+from scripts.finetune_tvqa_torch import main as finetune_tvqa_main
+from scripts.finetune_vcr_torch import main as finetune_vcr_main
+from scripts.pretrain_fixres_torch import main as fixres_main
 from scripts.pretrain_torch import main as pretrain_main
+from scripts.validate_torch import main as validate_main
+from scripts.zero_shot_tvqa_torch import main as zero_shot_tvqa_main
+from scripts.zero_shot_vcr_torch import main as zero_shot_vcr_main
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "merlot_reserve_tpu_torch"
@@ -71,13 +82,15 @@ def test_importing_every_port_module_loads_no_jax():
                    "utils.checkpoint", "utils.msgpack", "utils.experiment", "data.tfrecord",
                    "data.native", "data.masking", "data.debug", "data.synthetic",
                    "data.pretrain_pipeline", "data.loader", "data.device_builder",
-                   "ops.masking_device", "ops.vision_train"):
+                   "ops.masking_device", "ops.vision_train", "finetune.data"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py", "bench_torch.py", "scripts/pretrain_torch.py"])
+                         + ["chip_smoke.py", "bench_torch.py"]
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+                             "*_torch.py")))
 def test_no_source_imports_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -139,6 +152,21 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         pretrain_main(["base", "-train_fns", str(corpus / "c.tfrecord"), "-num_steps", "1",
                        "--fused_data"])
+    # fixres, validation, finetuning on records and zero-shot QA: the rankers
+    # and every script, which refuse before they read a file
+    for head in (MerlotReserveVCRZeroShot, MerlotReserveTVQAZeroShot):
+        with pytest.raises(RuntimeError, match="cuda"):
+            head(cfg)
+    missing = str(tmp_path / "missing")
+    for main, argv in ((fixres_main, ["-train_fns", missing]),
+                       (validate_main, ["-ckpt_dir", missing, "-val_fns", missing]),
+                       (finetune_vcr_main, ["-train_fns", missing]),
+                       (finetune_tvqa_main, ["-train_fns", missing]),
+                       (zero_shot_vcr_main, ["-val_fns", missing]),
+                       (zero_shot_tvqa_main, ["-val_fns", missing])):
+        ckpt = [] if main is validate_main else ["-ckpt", missing]
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["base", *ckpt, *argv])
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):
