@@ -100,10 +100,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    where libjpeg is absent) against known pixels; a synthetic corpus of
    16 records at the base shapes, written by the port into a temporary
    directory; ``run_pretraining`` at full base width, batch 8, 5 steps
-   through each of three feeds, every one through a ``DeviceFeed`` (pinned
+   through each of four feeds, every one through a ``DeviceFeed`` (pinned
    buffers, a side stream): dummy batches, the host-assembled
-   ``PretrainLoader``, and the fused step on raw batches with frames
-   augmented on the card; finite step-0 losses near ln N, the kernels'
+   ``PretrainLoader`` on threads and on spawned processes, and the fused
+   step on raw batches with frames augmented on the card; finite step-0 losses near ln N, the kernels'
    launches per step as worked out from the config; step ms on both
    clocks, examples/s, the busy share under the profiler, the H2D bytes
    and ms per step, peaks; the builder's device ms and launches per batch;
@@ -134,7 +134,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    clocks; then ``zero_shot_qa_eval`` with both rankers over the same
    records in batches of 8 (VCR at 18x32: joint 16 rows of 288; TVQA: 16 rows
    of 676), 16 ``flash_fwd`` per batch, the kernel path's logits and
-   predictions against the plain path's, ms per batch and examples/s.
+   predictions against the plain path's, ms per batch and examples/s;
+18. created records: 8 synthetic videos of 50-90 s (360x640 frames,
+   22050 Hz PCM, timed words sparse enough in places for speeds 2 and 3)
+   through ``dataset_creation.process_video_arrays`` (segments/s; the
+   log-mels, one call per speed on the card, against the CPU), the
+   MobileNetV2 embedder and the static-video filter on the card against
+   the CPU (ms per 64 frames), ``pack_chunks`` with a random-text stream
+   from ``token_blob_iterator`` into ``ShufflingRecordWriter`` shards; the
+   records through ``PretrainLoader`` on threads and on spawned processes,
+   batch for batch equal, each timed alone, with the device memory each
+   worker takes; ``run_pretraining`` at full base width, batch 8, 3 steps
+   through a ``DeviceFeed`` from the processes (step-0 losses near ln N,
+   the launches per step worked out from the config, step ms on both
+   clocks); then the prep scripts' per-annotation functions
+   (``prep_vcr_torch.vcr_record``, ``prep_tvqa_torch.tvqa_record``) into
+   records that ``finetune_batches`` reads at the synthetic records' shapes.
+   Phase 15 also runs a fourth feed: the host loader on spawned processes.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -2408,7 +2424,7 @@ def phase_finetune(card, pretrained_dir):
 # 15. data to the device: TFRecords to training steps through three feeds
 # ---------------------------------------------------------------------------
 
-DATA_BATCH, DATA_STEPS = 8, 4
+DATA_BATCH, DATA_STEPS = 8, 7  # the step time: median of steps 3-7
 DATA_SHARDS, DATA_RECORDS_PER_SHARD = 2, 8
 # step-0 losses of an untrained model on the synthetic corpus: within this
 # of ln N (phase 5 holds the dummy batch to 0.05; real frames and text are
@@ -2536,9 +2552,10 @@ def _profile(fn, steps=2):
 
 def phase_data(card, device="cuda"):
     """TFRecords to training steps at full base width: the synthetic corpus
-    written by the port, then ``run_pretraining`` through three feeds
-    (dummy batches, the host-assembled ``PretrainLoader``, and the fused
-    step on raw batches with frames augmented on the card), each through a
+    written by the port, then ``run_pretraining`` through four feeds
+    (dummy batches, the host-assembled ``PretrainLoader`` on threads and on
+    spawned processes, and the fused step on raw batches with frames
+    augmented on the card), each through a
     ``DeviceFeed``; the builder on the card against the CPU. (``device``:
     "cpu" for a rehearsal at tiny widths with the timers patched.)"""
     import tempfile
@@ -2584,6 +2601,8 @@ def phase_data(card, device="cuda"):
         feeds = {
             "dummy": (itertools.repeat(make_dummy_batch(cfg, DATA_BATCH, seed=0)), None),
             "host": (PretrainLoader(files, cfg, DATA_BATCH, **loader_kw), None),
+            "host_processes": (PretrainLoader(files, cfg, DATA_BATCH, use_processes=True,
+                                              **loader_kw), None),
             "fused_frames": None,
         }
         fused_loader = DevicePretrainLoader(files, cfg, DATA_BATCH, fused=True,
@@ -2592,7 +2611,8 @@ def phase_data(card, device="cuda"):
 
         runs = {}
         for name, (batches, builder) in feeds.items():
-            feed = DeviceFeed(batches, device, narrow=narrow, widen_ints=builder is None)
+            source = iter(batches)  # closed after the run: a pool's workers stop
+            feed = DeviceFeed(source, device, narrow=narrow, widen_ints=builder is None)
             last = {}
 
             def keep(it):
@@ -2616,6 +2636,8 @@ def phase_data(card, device="cuda"):
                                     data_seed=0)
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
+            if hasattr(source, "close"):
+                source.close()
             peak = torch.cuda.max_memory_allocated()
             step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
             check(len(logged) == DATA_STEPS, f"{name}: {len(logged)} steps of {DATA_STEPS}")
@@ -2641,12 +2663,13 @@ def phase_data(card, device="cuda"):
                 fused = make_fused_data_train_step(builder, data_seed=0)
                 step = lambda: fused(state, batch)  # noqa: E731
             device_ms = cuda_time_ms(step, iters=2, warmup=1)
-            wall, events = _profile(step) if name != "host" else (None, None)
+            wall, events = _profile(step) if not name.startswith("host") else (None, None)
             copies = feed.copy_ms()
             host_med = float(np.median(step_ms[2:]))
             r = {"launches": launches, "launches_per_step": {k: v / DATA_STEPS
                                                              for k, v in launches.items()},
                  "losses": logged, "step_ms_host": step_ms, "step_ms_host_median": host_med,
+                 "step_ms_host_spread": [min(step_ms[2:]), max(step_ms[2:])],
                  "step_ms_device": device_ms, "examples_per_s": DATA_BATCH / host_med * 1e3,
                  "device_examples_per_s": DATA_BATCH / device_ms * 1e3,
                  "profiled_ms_per_step": wall,
@@ -2658,7 +2681,8 @@ def phase_data(card, device="cuda"):
             r["seconds"] = time.perf_counter() - t0
             print(f"[data] {card}: {name} feed ({r['seconds']:.1f} s): {host_med:.1f} ms per step "
                   f"on the host clock "
-                  f"(median of steps 3-{DATA_STEPS}; all {[round(t, 1) for t in step_ms]}), "
+                  f"(median of steps 3-{DATA_STEPS}, {_spread(step_ms[2:])}; "
+                  f"all {[round(t, 1) for t in step_ms]}), "
                   f"{device_ms:.1f} ms on the device clock; {r['examples_per_s']:.2f} examples/s; "
                   + (f"busy {r['busy_share']:.3f} of {wall:.1f} ms under the profiler; "
                      if wall is not None else "") + f"H2D "
@@ -3228,6 +3252,426 @@ def phase_downstream(card, ckpt, device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 18. created records: raw video arrays and annotations to records, records
+# to a training step through the loader's process pool
+# ---------------------------------------------------------------------------
+
+CREATED_VIDEOS = 8
+CREATED_DURATION = (50.0, 90.0)  # seconds, drawn per video
+CREATED_FRAME = (360, 640)
+CREATED_SR = 22050
+CREATED_SHARDS = 2
+CREATED_BATCH, CREATED_STEPS = 8, 6  # the step time: median of steps 2-6
+CREATED_LOADER_BATCHES = 20  # compared and timed per loader, after the first
+CREATED_LOADER_WINDOW = 5  # the spread: the rate over each 5 of those batches
+CREATED_WORKERS = 8
+EMBED_FRAMES = 64  # timed on the card
+EMBED_CPU_FRAMES = 16  # held against the CPU
+# the embedder in true f32 on the card against the CPU: relative to the
+# largest feature (convolutions summed in other orders)
+EMBED_REL_TOL = 1e-4
+# log-mels card vs CPU: FRONT_LOGMEL_TOL absolute; a magic number is 255 over
+# a percentile of at least 1, so it moves by at most that much relative
+CREATED_MAGIC_RTOL = FRONT_LOGMEL_TOL
+PREP_ANNOTATIONS = 4
+_WORDS = ("the a we this is that video and then to of in it you so now look here next "
+          "cook pasta water pan heat salt stir wait add sauce cheese plate serve eat "
+          "good very just make sure".split())
+
+
+def _created_words(rng, duration):
+    """Timed words: dense (about 2.5 a second) with one sparse stretch,
+    words 3.1 s apart (windows at speed 2) or 8 s apart (speed 3)."""
+    s0 = float(rng.uniform(5.0, duration - 30.0))
+    s1, step = s0 + float(rng.uniform(15.0, 25.0)), (3.1, 8.0)[int(rng.integers(2))]
+    words, t = [], 0.0
+    while t < duration:
+        w = _WORDS[int(rng.integers(len(_WORDS)))]
+        words.append({"word": w, "start": t, "end": t + float(rng.uniform(0.1, 0.3))})
+        t += step if s0 <= t < s1 else float(rng.uniform(0.25, 0.55))
+    return words
+
+
+def _created_videos(rng):
+    """CREATED_VIDEOS videos of 50-90 s: 360x640 frames (one per window; a
+    drifting gradient with noise, the last video static), PCM, timed words."""
+    from merlot_reserve_tpu_torch.dataset_creation.process import split_into_windows
+
+    import numpy as np
+
+    h, w = CREATED_FRAME
+    yy, xx = np.mgrid[0:h, 0:w]
+    videos = []
+    for v in range(CREATED_VIDEOS):
+        duration = float(rng.uniform(*CREATED_DURATION))
+        words = _created_words(rng, duration)
+        n = len(split_into_windows(words, duration))
+        frames = np.empty((n, h, w, 3), np.uint8)
+        for i in range(n):
+            shift = 0 if v == CREATED_VIDEOS - 1 else 37 * i
+            base = np.stack([(yy + shift) % 256, (xx * 3 + 2 * shift) % 256,
+                             (yy + xx + v * 40) % 256], -1)
+            frames[i] = np.clip(base + rng.integers(-8, 9, base.shape), 0, 255)
+        t = np.arange(int(CREATED_SR * duration)) / CREATED_SR
+        pcm = (0.2 * np.sin(2 * np.pi * 220 * (1 + v) * t)
+               + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        videos.append({"id": f"video{v}", "frames": frames, "pcm": pcm, "words": words,
+                       "duration": duration})
+    return videos
+
+
+def _text_corpus(path, rng, docs=48, words=400):
+    import gzip
+
+    with gzip.open(path, "wt") as f:
+        for i in range(docs):
+            text = " ".join(_WORDS[int(j)] for j in rng.integers(len(_WORDS), size=words))
+            f.write(json.dumps({"text": f"Document {i}. {text}.",
+                                "meta": {"pile_set_name": "Pile-CC"}}) + "\n")
+
+
+def _same_batch(a, b):
+    import numpy as np
+    import torch
+
+    if a.keys() != b.keys():
+        return False
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+               else np.array_equal(a[k], b[k]) for k in a)
+
+
+def _loader_run(it, n, want=None):
+    """The next ``n`` batches of a loader's iterator ``it``, which is closed
+    at the end (the workers stop): (batches/s over all ``n``, the rate over
+    each ``CREATED_LOADER_WINDOW`` of them, the batches). With ``want``
+    each batch is held against its batch there instead of kept."""
+    stamps, batches = [time.perf_counter()], []
+    for i in range(n):
+        b = next(it)
+        stamps.append(time.perf_counter())
+        if want is None:
+            batches.append(b)
+        else:
+            check(_same_batch(want[i], b), f"created: batch {i + 1} from the processes differs")
+    it.close()
+    w = CREATED_LOADER_WINDOW
+    windows = [w / (stamps[i + w] - stamps[i]) for i in range(0, n - w + 1, w)]
+    return n / (stamps[-1] - stamps[0]), windows, batches
+
+
+def _spread(xs):
+    return f"{min(xs):.2f}-{max(xs):.2f}"
+
+
+def _prep_records(tmp, rng, device):
+    """A few synthetic VCR and TVQA annotations through the prep scripts'
+    per-annotation functions into records; one batch of each read by
+    finetune_batches, against a batch of the synthetic writer's records at
+    the same config: the same keys, shapes and dtypes."""
+    import numpy as np
+
+    from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_finetune_corpus
+    from merlot_reserve_tpu_torch.data.tfrecord import write_records
+    from merlot_reserve_tpu_torch.finetune.data import finetune_batches
+    from scripts.prep_tvqa_torch import tvqa_record
+    from scripts.prep_vcr_torch import vcr_record
+
+    h, w = CREATED_FRAME
+    out = {}
+    t0 = time.perf_counter()
+    vcr = []
+    for i in range(PREP_ANNOTATIONS):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        ann = {"id": f"vcr-{i}", "boxes": [[10, 20, 200, 300], [300, 40, 600, 350]],
+               "names": ["person", "dog"], "qa_query": ["Why", "is", [0], "near", [1], "?"],
+               "qa_choices": [["Because", [1], "is", "hungry", "."]] * 4, "qa_label": i % 4,
+               "qar_query": ["Why", "?"], "qar_choices": [["It", "'s", "late", "."]] * 4,
+               "qar_label": (i + 1) % 4}
+        vcr.append(vcr_record(ann, img))
+    out["vcr_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tvqa = []
+    for i in range(PREP_ANNOTATIONS):
+        duration = 60.0
+        frames = rng.integers(0, 256, (7, h, w, 3), dtype=np.uint8)
+        pcm = (0.1 * rng.standard_normal(int(CREATED_SR * duration))).astype(np.float32)
+        ann = {"id": f"tvqa-{i}", "ts_start": 10.0 + 5 * i, "ts_end": 16.0 + 5 * i,
+               "question": "What is she cooking?", "answers": ["pasta", "rice", "soup",
+                                                              "eggs", "bread"],
+               "label": i % 5, "subtitles": [{"word": _WORDS[j % len(_WORDS)],
+                                              "start": 8.0 + j, "end": 8.4 + j}
+                                             for j in range(30)]}
+        tvqa.append(tvqa_record(ann, frames, pcm, duration, device=device))
+    out["tvqa_s"] = time.perf_counter() - t0
+    for task, records in (("vcr", vcr), ("tvqa", tvqa)):
+        cfg = _finetune_config(task)
+        path = os.path.join(tmp, f"prep_{task}.tfrecord")
+        write_records(path, records)
+        ref = write_synthetic_finetune_corpus(os.path.join(tmp, f"ref_{task}.tfrecord"), cfg,
+                                              task, num_records=PREP_ANNOTATIONS, seed=3)
+        got = next(finetune_batches([path], cfg, task, PREP_ANNOTATIONS, repeat=False))
+        want = next(finetune_batches([ref], cfg, task, PREP_ANNOTATIONS, repeat=False))
+        check(got.keys() == want.keys(), f"prep {task}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            check(got[k].shape == want[k].shape and got[k].dtype == want[k].dtype,
+                  f"prep {task} {k}: {got[k].dtype} {got[k].shape} != "
+                  f"{want[k].dtype} {want[k].shape}")
+            check(np.isfinite(got[k]).all(), f"prep {task} {k}: not finite")
+        out[task] = {k: list(v.shape) for k, v in got.items()}
+    print(f"[created] prep scripts: {PREP_ANNOTATIONS} VCR records in {out['vcr_s']:.2f} s, "
+          f"{PREP_ANNOTATIONS} TVQA records in {out['tvqa_s']:.2f} s (spectrograms on the "
+          f"card); finetune_batches reads both at the synthetic records' shapes: VCR "
+          f"image {out['vcr']['image']}, TVQA images {out['tvqa']['images']} audio "
+          f"{out['tvqa']['audio_clips']}", flush=True)
+    return out
+
+
+def phase_created(card, device="cuda"):
+    """Raw video arrays to records and records to the card: 8 synthetic
+    videos through ``process_video_arrays`` (log-mels on the card against
+    the CPU), the MobileNetV2 embedder and the static-video filter on the
+    card against the CPU, ``pack_chunks`` with a random-text stream from
+    ``token_blob_iterator`` into ``ShufflingRecordWriter`` shards; the
+    records through ``PretrainLoader`` on threads and on spawned processes
+    (batch for batch equal, both timed alone, the device memory each worker
+    takes), then ``run_pretraining`` at full base width fed by the
+    processes; last the prep scripts' per-annotation functions. (``device``:
+    "cpu" for a rehearsal at tiny widths with the timers patched.)"""
+    import itertools
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.loader import DeviceFeed, PretrainLoader
+    from merlot_reserve_tpu_torch.data.tfrecord import ShufflingRecordWriter
+    from merlot_reserve_tpu_torch.dataset_creation import filters
+    from merlot_reserve_tpu_torch.dataset_creation.frame_embedder import MobileNetV2Embedder
+    from merlot_reserve_tpu_torch.dataset_creation.process import (chunks_to_record,
+                                                                   pack_chunks,
+                                                                   process_video_arrays,
+                                                                   split_into_windows,
+                                                                   window_log_mels,
+                                                                   window_waveform)
+    from merlot_reserve_tpu_torch.dataset_creation.text_corpus import token_blob_iterator
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import train_step
+
+    res = {}
+    rng = np.random.default_rng(18)
+    t0 = time.perf_counter()
+    videos = _created_videos(rng)
+    res["videos"] = {"count": len(videos), "seconds": [v["duration"] for v in videos],
+                     "make_s": time.perf_counter() - t0}
+
+    # videos -> chunks on the card, timed; one video again on the CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = [process_video_arrays(v["frames"], v["pcm"], v["words"], v["duration"],
+                                   youtube_id=v["id"], title=f"how to cook {v['id']}",
+                                   device=device) for v in videos]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_chunks = sum(len(c) for c in chunks)
+    speeds = sorted({c.playback_speed for cs in chunks for c in cs})
+    check(speeds == [1, 2, 3], f"created: playback speeds {speeds}, want 1-3")
+    res["process"] = {"segments": n_chunks, "seconds": secs, "segments_per_s": n_chunks / secs,
+                      "speeds": {s: sum(c.playback_speed == s for cs in chunks for c in cs)
+                                 for s in speeds}}
+    cpu_chunks = process_video_arrays(videos[0]["frames"], videos[0]["pcm"], videos[0]["words"],
+                                      videos[0]["duration"], youtube_id=videos[0]["id"],
+                                      title=f"how to cook {videos[0]['id']}", device="cpu")
+    for a, b in zip(chunks[0], cpu_chunks):
+        check((a.tok_ids, a.tok_start_times, a.playback_speed, a.start_time)
+              == (b.tok_ids, b.tok_start_times, b.playback_speed, b.start_time),
+              "created: a chunk's tokens differ between the card and the CPU")
+        check(abs(a.magic_number - b.magic_number) <= CREATED_MAGIC_RTOL * b.magic_number,
+              f"created: magic {a.magic_number} on the card, {b.magic_number} on the CPU")
+    mel_err = {}
+    for speed in speeds:
+        wins = [(v, w) for v in videos for w in split_into_windows(v["words"], v["duration"])
+                if w["playback_speed"] == speed][:4]
+        wavs = np.stack([window_waveform(v["pcm"], w, CREATED_SR) for v, w in wins])
+        mel_err[speed] = float(np.abs(window_log_mels(wavs, speed, CREATED_SR, device)
+                                      - window_log_mels(wavs, speed, CREATED_SR, "cpu")).max())
+        check(mel_err[speed] <= FRONT_LOGMEL_TOL,
+              f"created: log-mel at speed {speed}, card vs CPU {mel_err[speed]}")
+    res["process"]["log_mel_card_vs_cpu"] = mel_err
+    print(f"[created] {card}: {len(videos)} videos of "
+          f"{min(res['videos']['seconds']):.1f}-{max(res['videos']['seconds']):.1f} s "
+          f"({CREATED_FRAME[0]}x{CREATED_FRAME[1]} frames) -> {n_chunks} segments "
+          f"{res['process']['speeds']} by speed in {secs:.2f} s: "
+          f"{res['process']['segments_per_s']:.1f} segments/s; log-mel card vs CPU max "
+          f"|err| {mel_err}; a video's chunks on the CPU: same tokens, magic within "
+          f"{CREATED_MAGIC_RTOL}", flush=True)
+
+    # the embedder and the static-video filter, card against CPU
+    emb = MobileNetV2Embedder(seed=0, device=device)
+    emb_cpu = MobileNetV2Embedder({k: v.cpu() for k, v in emb.model.state_dict().items()},
+                                  device="cpu")
+    pool = np.concatenate([v["frames"] for v in videos])[:EMBED_FRAMES]
+    frames_dev = torch.as_tensor(pool).to(device)
+    embed_ms = cuda_time_ms(lambda: emb._forward(frames_dev), iters=5, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb(pool)
+    embed_host_ms = (time.perf_counter() - t0) * 1e3
+    feats = emb(pool[:EMBED_CPU_FRAMES])
+    feats_cpu = emb_cpu(pool[:EMBED_CPU_FRAMES])
+    emb_err = float(np.abs(feats - feats_cpu).max() / np.abs(feats_cpu).max())
+    check(emb_err <= EMBED_REL_TOL, f"created: embedder card vs CPU {emb_err}")
+    decisions = []
+    for v in videos:
+        clip = v["frames"][:EMBED_CPU_FRAMES // 2]
+        cos = (filters.mean_pairwise_cosine(emb(clip)), filters.mean_pairwise_cosine(emb_cpu(clip)))
+        card_static = filters.is_static_video(clip, frame_embedder=emb)
+        check(card_static == filters.is_static_video(clip, frame_embedder=emb_cpu),
+              f"created: {v['id']} static-video decisions differ, cosines {cos}")
+        decisions.append({"video": v["id"], "static": card_static, "cosine_card": cos[0],
+                          "cosine_cpu": cos[1]})
+    res["embedder"] = {"ms_per_64_frames_device": embed_ms * EMBED_FRAMES / len(pool),
+                       "ms_per_64_frames_host": embed_host_ms * EMBED_FRAMES / len(pool),
+                       "card_vs_cpu_rel_err": emb_err, "decisions": decisions}
+    print(f"[created] {card}: MobileNetV2 (IEEE f32) {res['embedder']['ms_per_64_frames_device']:.2f} "
+          f"ms per {EMBED_FRAMES} frames of {CREATED_FRAME[0]}x{CREATED_FRAME[1]} on the device "
+          f"clock, {res['embedder']['ms_per_64_frames_host']:.2f} ms with the copy on the host "
+          f"clock; card vs CPU {emb_err:.2e} of the largest feature; static-video decisions "
+          f"equal {[d['static'] for d in decisions]}", flush=True)
+    del emb, emb_cpu, frames_dev
+
+    cfg = load_config("base", joint_attention_impl="flash")
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_created_") as tmp:
+        # chunks -> packed records with a random-text stream -> shuffled shards
+        t0 = time.perf_counter()
+        corpus = os.path.join(tmp, "pile.jsonl.gz")
+        _text_corpus(corpus, rng)
+        blobs = itertools.cycle(list(token_blob_iterator([corpus])))
+        files = [os.path.join(tmp, f"created{i}.tfrecord") for i in range(CREATED_SHARDS)]
+        writers = [ShufflingRecordWriter(f, buffer_size=4, seed=i) for i, f in enumerate(files)]
+        n_records = 0
+        for group in pack_chunks(iter(chunks)):
+            writers[n_records % CREATED_SHARDS].write(
+                chunks_to_record(group, [next(blobs) for _ in group]))
+            n_records += 1
+        for w_ in writers:
+            w_.close()
+        check(n_records >= CREATED_SHARDS, f"created: {n_records} records")
+        res["records"] = {"count": n_records, "seconds": time.perf_counter() - t0,
+                          "bytes": sum(os.path.getsize(f) for f in files)}
+        print(f"[created] {n_records} records of 16 segments ({res['records']['bytes'] / 2**20:.1f}"
+              f" MiB, {CREATED_SHARDS} shuffled shards) in {res['records']['seconds']:.2f} s",
+              flush=True)
+
+        # the loader alone: threads, then spawned processes, batch for batch
+        kw = dict(seed=0, num_workers=CREATED_WORKERS, use_bfloat16=cfg.model.use_bfloat16,
+                  files_per_cycle=CREATED_SHARDS, parallel_reads=CREATED_SHARDS,
+                  shuffle_buffer=4)
+        it = iter(PretrainLoader(files, cfg, CREATED_BATCH, **kw))
+        t0 = time.perf_counter()
+        want = [next(it)]
+        first_t = time.perf_counter() - t0
+        rate_t, windows_t, rest = _loader_run(it, CREATED_LOADER_BATCHES)
+        want += rest
+        torch.cuda.synchronize()
+        free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+        it = iter(PretrainLoader(files, cfg, CREATED_BATCH, use_processes=True, **kw))
+        t0 = time.perf_counter()
+        check(_same_batch(want[0], next(it)), "created: batch 0 from the processes differs")
+        first_p = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        worker_bytes = ((free0 - torch.cuda.mem_get_info()[0])
+                        - (torch.cuda.memory_reserved() - reserved0)) / CREATED_WORKERS
+        rate_p, windows_p, _ = _loader_run(it, CREATED_LOADER_BATCHES, want=want[1:])
+        check(multiprocessing.active_children() == [], "created: loader workers still running")
+        del want, rest
+        res["loader"] = {"threads": {"first_batch_s": first_t, "batches_per_s": rate_t,
+                                     "batches_per_s_by_window": windows_t},
+                         "processes": {"first_batch_s": first_p, "batches_per_s": rate_p,
+                                       "batches_per_s_by_window": windows_p,
+                                       "device_bytes_per_worker": worker_bytes},
+                         "workers": CREATED_WORKERS,
+                         "batches_equal": CREATED_LOADER_BATCHES + 1}
+        print(f"[created] {card}: the loader alone, {CREATED_WORKERS} workers, batch "
+              f"{CREATED_BATCH}, {CREATED_LOADER_BATCHES} batches after the first: threads "
+              f"{rate_t:.2f} batches/s ({_spread(windows_t)} over each {CREATED_LOADER_WINDOW}; "
+              f"first batch {first_t:.2f} s), spawned processes {rate_p:.2f} batches/s "
+              f"({_spread(windows_p)}; first batch, with the spawn, {first_p:.2f} s); "
+              f"{CREATED_LOADER_BATCHES + 1} batches equal; device memory per worker "
+              f"{worker_bytes / 2**20:.1f} MiB", flush=True)
+
+        # training fed by the processes
+        expected = _expected_init_losses(cfg, CREATED_BATCH)
+        per_step = cfg.model.joint_num_layers + cfg.model.span_num_layers
+        narrow = {"images": torch.bfloat16, "audio_clips": torch.bfloat16}
+        source = iter(PretrainLoader(files, cfg, CREATED_BATCH, use_processes=True, **kw))
+        feed = DeviceFeed(source, device, narrow=narrow)
+        last, logged, stamps = {}, [], []
+
+        def keep(batches):
+            for b in batches:
+                last["batch"] = b
+                yield b
+
+        def log_fn(step, metrics):
+            stamps.append(time.perf_counter())
+            logged.append(metrics)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = run_pretraining(cfg, keep(iter(feed)), num_steps=CREATED_STEPS, log_fn=log_fn,
+                                log_every=0, device=device, seed=0)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        source.close()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+        check(len(logged) == CREATED_STEPS, f"created: {len(logged)} steps")
+        check(all(math.isfinite(v) for m_ in logged for v in m_.values()),
+              "created: non-finite loss")
+        for head, ln_n in expected.items():
+            check(abs(logged[0][head] - ln_n) < DATA_INIT_LOSS_TOL,
+                  f"created: step-0 {head} loss {logged[0][head]} is not near ln N = {ln_n}")
+        for k in ("flash_fwd", *BWD_LAUNCHES):
+            check(launches.get(k, 0) == per_step * CREATED_STEPS,
+                  f"created: {k} launches {launches.get(k, 0)} != {per_step} x {CREATED_STEPS}")
+        check(launches.get("adam_update", 0) == CREATED_STEPS,
+              f"created: adam_update launches {launches.get('adam_update', 0)}")
+        for k in (*BWD_LAUNCHES_F32, "ring_fwd"):
+            check(launches.get(k, 0) == 0, f"created: launched {k}")
+        batch = last["batch"]
+        device_ms = cuda_time_ms(lambda: train_step(state, batch), iters=2, warmup=1)
+        host_med = float(np.median(step_ms[1:]))
+        res["train"] = {"launches": launches, "losses": logged, "step_ms_host": step_ms,
+                        "step_ms_host_median": host_med,
+                        "step_ms_host_spread": [min(step_ms[1:]), max(step_ms[1:])],
+                        "step_ms_device": device_ms,
+                        "examples_per_s": CREATED_BATCH / host_med * 1e3,
+                        "max_memory_allocated_bytes": peak, "h2d_ms": feed.copy_ms(),
+                        "seconds": time.perf_counter() - t0}
+        print(f"[created] {card}: run_pretraining on the created records, batch "
+              f"{CREATED_BATCH}, fed by {CREATED_WORKERS} spawned workers: "
+              f"{host_med:.1f} ms per step on the host clock (median of steps 2-"
+              f"{CREATED_STEPS}, {_spread(step_ms[1:])}; all {[round(t, 1) for t in step_ms]}), "
+              f"{device_ms:.1f} ms on "
+              f"the device clock; {res['train']['examples_per_s']:.2f} examples/s; launches "
+              f"per step { {k: v / CREATED_STEPS for k, v in launches.items()} }; peak "
+              f"{peak / 2**30:.2f} GiB; step-0 losses "
+              f"{ {k: round(logged[0][k], 4) for k in expected} }", flush=True)
+        del state, batch, feed
+        torch.cuda.empty_cache()
+        res["prep"] = _prep_records(tmp, rng, device)
+    res["launches"] = res["train"]["launches"]
+    return res
+
+
 def main():
     import torch
 
@@ -3269,6 +3713,7 @@ def main():
                                 str(CKPT_DIR / "fixres" / f"ckpt_{FIXRES_SCRIPT_STEPS}"))
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    created = phase_created(dev["nvidia_smi"])
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -3294,7 +3739,8 @@ def main():
                                **{f"finetune_{t}_records": r["launches"].get(name, 0)
                                   for t, r in down["finetune"].items()},
                                **{f"zero_shot_{t}": r["launches"].get(name, 0)
-                                  for t, r in down["zero_shot"].items()}}
+                                  for t, r in down["zero_shot"].items()},
+                               "train_created_records": created["launches"].get(name, 0)}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
@@ -3409,7 +3855,7 @@ def main():
               "adam": adam, "train_checkpointed": ckpt, "finetune": ft,
               "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
               "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
-              "fixres_bwd_kernels": fixres_bwd, "downstream": down,
+              "fixres_bwd_kernels": fixres_bwd, "downstream": down, "created": created,
               "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

@@ -681,3 +681,88 @@ extern "C" void mn_resize_patchify_k(const uint8_t* rgb, int h, int w,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Pillow's 8-bit resize (Image.resize on an "L" or "RGB" image): the same
+// coefficient windows, each weight rounded to a fixed-point integer of
+// MN_PREC bits, integer sums rounded and clipped to uint8 after each pass
+// (horizontal first, over the rows the vertical pass reads). Gives Pillow's
+// pixels bit for bit; the dataset tools store frames resized this way.
+// ---------------------------------------------------------------------------
+
+static constexpr int MN_PREC = 32 - 8 - 2;  // Pillow's PRECISION_BITS
+
+static void mn_fixed_coeffs(const MnCoeffs& c, int n, std::vector<int32_t>* kk) {
+  kk->assign(c.w.size(), 0);
+  for (size_t i = 0; i < (size_t)n * c.max_len; ++i) {
+    const double v = c.w[i] * (double)(1 << MN_PREC);
+    (*kk)[i] = (int32_t)(v < 0 ? -0.5 + v : 0.5 + v);
+  }
+}
+
+static inline uint8_t mn_clip8(int64_t v) {
+  if (v >= ((int64_t)1 << MN_PREC << 8)) return 255;
+  if (v <= 0) return 0;
+  return (uint8_t)(v >> MN_PREC);
+}
+
+// [h, w, channels] uint8 -> [out_h, out_w, channels] uint8: Pillow's 8-bit
+// bilinear resize.
+extern "C" int mn_resize_u8(const uint8_t* src, int h, int w, int channels, int out_h,
+                            int out_w, uint8_t* out) {
+  if (h <= 0 || w <= 0 || out_h <= 0 || out_w <= 0 || channels <= 0) {
+    mn_error = "resize: bad sizes";
+    return 1;
+  }
+  const int kernel = 1;  // bilinear
+  MnCoeffs cx, cy;
+  mn_precompute(kernel, w, out_w, 0, out_w, &cx);
+  mn_precompute(kernel, h, out_h, 0, out_h, &cy);
+  std::vector<int32_t> kx, ky;
+  mn_fixed_coeffs(cx, out_w, &kx);
+  mn_fixed_coeffs(cy, out_h, &ky);
+  const int y_lo = cy.xmin[0];
+  const int y_hi = cy.xmin[out_h - 1] + cy.xlen[out_h - 1];
+  const bool horizontal = out_w != w, vertical = out_h != h;
+  // pass 1: horizontal, rows [y_lo, y_hi) (all rows when there is no
+  // vertical pass)
+  const int r0 = vertical ? y_lo : 0, rows = vertical ? y_hi - y_lo : h;
+  std::vector<uint8_t> tmp;
+  const uint8_t* mid = src + (size_t)r0 * w * channels;
+  int mid_w = w;
+  if (horizontal) {
+    tmp.resize((size_t)rows * out_w * channels);
+    for (int r = 0; r < rows; ++r) {
+      const uint8_t* in = src + (size_t)(r0 + r) * w * channels;
+      uint8_t* o = &tmp[(size_t)r * out_w * channels];
+      for (int x = 0; x < out_w; ++x) {
+        const int32_t* k = &kx[(size_t)x * cx.max_len];
+        const uint8_t* p = in + (size_t)cx.xmin[x] * channels;
+        for (int ch = 0; ch < channels; ++ch) {
+          int64_t ss = (int64_t)1 << (MN_PREC - 1);
+          for (int t = 0; t < cx.xlen[x]; ++t) ss += (int64_t)p[t * channels + ch] * k[t];
+          o[x * channels + ch] = mn_clip8(ss);
+        }
+      }
+    }
+    mid = tmp.data();
+    mid_w = out_w;
+  }
+  const size_t row_bytes = (size_t)mid_w * channels;
+  if (!vertical) {
+    std::memcpy(out, mid, (size_t)h * row_bytes);
+    return 0;
+  }
+  // pass 2: vertical
+  for (int y = 0; y < out_h; ++y) {
+    const int32_t* k = &ky[(size_t)y * cy.max_len];
+    const uint8_t* base = mid + (size_t)(cy.xmin[y] - r0) * row_bytes;
+    uint8_t* o = out + (size_t)y * row_bytes;
+    for (size_t i = 0; i < row_bytes; ++i) {
+      int64_t ss = (int64_t)1 << (MN_PREC - 1);
+      for (int t = 0; t < cy.xlen[y]; ++t) ss += (int64_t)base[t * row_bytes + i] * k[t];
+      o[i] = mn_clip8(ss);
+    }
+  }
+  return 0;
+}

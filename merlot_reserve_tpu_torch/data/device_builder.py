@@ -152,7 +152,8 @@ class DeviceExampleBuilder:
         # and widening (<= 2) boundary moves
         self.max_row = max(self.TM + 4, cfg.model.audio_token_length, self.span_len)
         # host_prepare's truncate-and-count contract; it runs on the loader's
-        # worker threads, hence the lock
+        # worker threads, hence the lock (worker processes count in their own
+        # copy, which take_stats and add_stats carry back)
         self.stats = {"truncated_segments": 0, "truncated_tokens": 0, "oversize_frames": 0}
         self._stats_lock = threading.Lock()
         self._mask_tbl_np = token_is_valid_table()
@@ -165,6 +166,18 @@ class DeviceExampleBuilder:
     # ------------------------------------------------------------------
     # host side: bytes -> fixed-shape arrays (no randomness, no masking)
     # ------------------------------------------------------------------
+
+    def take_stats(self) -> Dict[str, int]:
+        """The counts since the last call, which are zeroed: a worker
+        process's builder hands them to the loader's copy."""
+        with self._stats_lock:
+            out, self.stats = self.stats, dict.fromkeys(self.stats, 0)
+        return out
+
+    def add_stats(self, counts: Dict[str, int]):
+        with self._stats_lock:
+            for k, v in counts.items():
+                self.stats[k] += v
 
     def host_prepare(self, segments: List[Dict]) -> Dict[str, np.ndarray]:
         """Decode one record's segments to the builder's inputs (the decode

@@ -12,6 +12,13 @@ fixed-size batches, and per-file / per-record crash-only error handling
 keyed by (seed, epoch, file, record), are the JAX package's, so with the
 same files and seed both loaders yield the same examples.
 
+The workers are threads, or with ``use_processes=True`` spawned processes
+(the masking is Python that holds the GIL). A process gets the loader's
+host-only state once, through the pool's initializer (``_RecordWork``: the
+config and fresh builders, never a tensor on the card); a task carries a
+record's bytes and its RNG key and returns numpy arrays. Collation, and the
+device builder's ``build_batch``, stay in the parent.
+
 ``DevicePretrainLoader`` moves example assembly to the card
 (``data/device_builder.py``): its workers only decode bytes. With
 ``fused=True`` it yields the raw host arrays and the assembly runs inside
@@ -24,12 +31,14 @@ a side stream, in their narrow dtypes; integer indices are widened there.
 from __future__ import annotations
 
 import collections
+import multiprocessing
 import queue
 import random as pyrandom
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Optional
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +51,61 @@ from merlot_reserve_tpu_torch.data.pretrain_pipeline import (
     parse_segment_record,
 )
 from merlot_reserve_tpu_torch.utils.device import resolve_device
+
+
+class _RecordWork:
+    """A record's bytes and RNG key -> one example: the loader's host-only
+    state. Worker threads share the loader's instance. A process gets it
+    pickled once, as the config alone (``__reduce__``), and builds its own
+    builders from it, so no lock and no tensor on the card is pickled.
+
+    With ``device_builder`` (a ``DeviceExampleBuilder``, or True to build
+    one) the example is ``host_prepare``'s arrays and, unless
+    ``on_device_frames``, the decoded images; else the host builder's
+    example."""
+
+    def __init__(self, cfg: MerlotConfig, device_builder=None, on_device_frames: bool = False):
+        self.cfg = cfg
+        self.builder = PretrainExampleBuilder(cfg)
+        if device_builder is True:
+            from merlot_reserve_tpu_torch.data.device_builder import DeviceExampleBuilder
+
+            device_builder = DeviceExampleBuilder(cfg)
+        self.device_builder = device_builder or None
+        self.on_device_frames = on_device_frames
+
+    def __reduce__(self):
+        return _RecordWork, (self.cfg, self.device_builder is not None, self.on_device_frames)
+
+    def __call__(self, record: bytes, key: Tuple[int, ...]):
+        rng = np.random.default_rng(key)
+        segments = parse_segment_record(record, self.cfg.data.num_segments)
+        if self.device_builder is None:
+            return self.builder.build(segments, rng)
+        raw = self.device_builder.host_prepare(segments)
+        if self.on_device_frames:
+            raw.update(self.device_builder.host_prepare_frames(segments))
+            return raw, None
+        return raw, np.stack([self.builder.decode_image(s, rng) for s in segments])
+
+
+_PROCESS_WORK: Optional[_RecordWork] = None  # one per worker process
+
+
+def _init_process(work: _RecordWork):
+    global _PROCESS_WORK
+    _PROCESS_WORK = work
+
+
+def _run_record(work: Optional[_RecordWork], record: bytes, key: Tuple[int, ...]):
+    """One record -> (example, the device builder's counts to add to the
+    loader's, or None). ``work`` is the loader's own on a thread; None in a
+    worker process, which runs its initializer's copy and hands back what
+    that copy counted."""
+    if work is not None:
+        return work(record, key), None
+    dev = _PROCESS_WORK.device_builder
+    return _PROCESS_WORK(record, key), (dev.take_stats() if dev is not None else None)
 
 
 class PretrainLoader:
@@ -76,11 +140,10 @@ class PretrainLoader:
                                else dev.num_parallel_reads)
         self.shuffle_buffer = (shuffle_buffer if shuffle_buffer is not None
                                else dev.shuffle_buffer_size)
-        if use_processes:
-            raise NotImplementedError(
-                "the port's loader runs its workers as threads only: the native decode and "
-                "resize release the GIL; a process pool is not ported")
-        self._builder = PretrainExampleBuilder(cfg)
+        # processes sidestep the GIL for the masking; threads are enough
+        # when the JPEG decode (which releases it) dominates
+        self.use_processes = use_processes
+        self._work = _RecordWork(cfg)
         self._consumed = 0     # records consumed by yielded batches (incl. skips)
         self._skipped = 0      # corrupt records dropped (observability)
         self._iterating = False
@@ -114,7 +177,7 @@ class PretrainLoader:
         self._consumed = int(state["records_consumed"])
 
     def _record_stream(self, skip: int = 0):
-        """(record_bytes, per-example rng) pairs: epoch-shuffled file cycles
+        """(record_bytes, per-example RNG key) pairs: epoch-shuffled file cycles
         -> round-robin interleave -> shuffle buffer. ``skip`` fast-forwards
         that many POST-shuffle records (bytes are read and the shuffle RNG
         replays deterministically, but no decode/masking happens — resume
@@ -171,8 +234,7 @@ class PretrainLoader:
                 continue
             ri = r[3]
             r[3] += 1
-            yield record, np.random.default_rng(
-                (self.seed, epoch, base_fi + r[0], ri))
+            yield record, (self.seed, epoch, base_fi + r[0], ri)
             i += 1
 
     def _shuffled_records(self):
@@ -213,10 +275,12 @@ class PretrainLoader:
             if not self.repeat:
                 return
 
-    def _build_one(self, record_rng):
-        record, rng = record_rng
-        segments = parse_segment_record(record, self.cfg.data.num_segments)
-        return self._builder.build(segments, rng)
+    def _pool(self):
+        if self.use_processes:
+            return ProcessPoolExecutor(self.num_workers,
+                                       mp_context=multiprocessing.get_context("spawn"),
+                                       initializer=_init_process, initargs=(self._work,))
+        return ThreadPoolExecutor(self.num_workers)
 
     def _collate(self, examples):
         """Batch assembly hook (DevicePretrainLoader overrides this to run
@@ -257,48 +321,51 @@ class PretrainLoader:
                         continue
                 return False
 
+            pool = None
             try:
-                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    from collections import deque
-
-                    stream = self._record_stream(skip=self._consumed)
-                    window = max(2 * self.num_workers, self.batch_size)
-                    inflight = deque()
-                    batch_examples = []
-                    skipped_in_batch = 0
-                    while not stop.is_set():
-                        while len(inflight) < window:
-                            try:
-                                inflight.append(
-                                    pool.submit(self._build_one, next(stream)))
-                            except StopIteration:
-                                break
-                        if not inflight:
-                            break
-                        # Per-record resilience: one poisoned record must not
-                        # end the stream (the reference swallows ANY pipeline
-                        # error and resumes, dataloader.py:943-955 — we skip
-                        # and COUNT instead of swallowing silently).
+                pool = self._pool()
+                task_work = None if self.use_processes else self._work
+                stream = self._record_stream(skip=self._consumed)
+                window = max(2 * self.num_workers, self.batch_size)
+                inflight = collections.deque()
+                batch_examples = []
+                skipped_in_batch = 0
+                while not stop.is_set():
+                    while len(inflight) < window:
                         try:
-                            ex = inflight.popleft().result()
-                        except Exception as e:
-                            self._skipped += 1
-                            skipped_in_batch += 1
-                            print(f"loader: skipping corrupt record "
-                                  f"({type(e).__name__}: {e}); "
-                                  f"{self._skipped} skipped total", flush=True)
-                            continue
-                        batch_examples.append(ex)
-                        if len(batch_examples) == self.batch_size:
-                            batch = self._collate(batch_examples)
-                            # the batch "consumed" its skips too, so the
-                            # resume position stays a raw-record count
-                            if not put_or_stop(
-                                    (batch,
-                                     self.batch_size + skipped_in_batch)):
-                                break
-                            batch_examples = []
-                            skipped_in_batch = 0
+                            inflight.append(pool.submit(_run_record, task_work, *next(stream)))
+                        except StopIteration:
+                            break
+                    if not inflight:
+                        break
+                    # Per-record resilience: one poisoned record must not
+                    # end the stream (the reference swallows ANY pipeline
+                    # error and resumes, dataloader.py:943-955 — we skip
+                    # and COUNT instead of swallowing silently).
+                    try:
+                        ex, counts = inflight.popleft().result()
+                    except BrokenProcessPool:
+                        raise  # a dead worker is the producer's failure, not a record's
+                    except Exception as e:
+                        self._skipped += 1
+                        skipped_in_batch += 1
+                        print(f"loader: skipping corrupt record "
+                              f"({type(e).__name__}: {e}); "
+                              f"{self._skipped} skipped total", flush=True)
+                        continue
+                    if counts:
+                        self._work.device_builder.add_stats(counts)
+                    batch_examples.append(ex)
+                    if len(batch_examples) == self.batch_size:
+                        batch = self._collate(batch_examples)
+                        # the batch "consumed" its skips too, so the
+                        # resume position stays a raw-record count
+                        if not put_or_stop(
+                                (batch,
+                                 self.batch_size + skipped_in_batch)):
+                            break
+                        batch_examples = []
+                        skipped_in_batch = 0
             except Exception as e:
                 # a producer-level failure (collate/device error, not a
                 # per-record skip) must surface to the trainer — ending the
@@ -307,6 +374,8 @@ class PretrainLoader:
                 print(f"loader producer died: {type(e).__name__}: {e}", flush=True)
                 producer_error.append(e)
             finally:
+                if pool is not None:
+                    pool.shutdown(wait=True, cancel_futures=True)
                 put_or_stop(None)
 
         t = threading.Thread(target=producer, daemon=True)
@@ -326,12 +395,13 @@ class PretrainLoader:
         finally:
             self._iterating = False
             stop.set()
+            t.join()  # the workers have stopped when the iteration ends
 
 
 class DevicePretrainLoader(PretrainLoader):
     """PretrainLoader with example assembly moved onto the card.
 
-    Worker threads only decode bytes (JPEG spectrograms and, unless
+    The workers only decode bytes (JPEG spectrograms and, unless
     ``on_device_frames``, frames; protobuf fields to fixed-shape arrays
     through ``DeviceExampleBuilder.host_prepare``). With ``fused=False`` the
     masking, placement and collation run per batch on ``device`` in
@@ -355,15 +425,7 @@ class DevicePretrainLoader(PretrainLoader):
         self.on_device_frames = (self.cfg.data.on_device_frames if on_device_frames is None
                                  else on_device_frames)
         self.device = None if fused else resolve_device(device)
-
-    def _build_one(self, record_rng):
-        record, rng = record_rng
-        segments = parse_segment_record(record, self.cfg.data.num_segments)
-        raw = self._dev_builder.host_prepare(segments)
-        if self.on_device_frames:
-            raw.update(self._dev_builder.host_prepare_frames(segments))
-            return raw, None
-        return raw, np.stack([self._builder.decode_image(s, rng) for s in segments])
+        self._work = _RecordWork(self.cfg, self._dev_builder, self.on_device_frames)
 
     def _collate(self, examples):
         from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws, stack_raw_examples

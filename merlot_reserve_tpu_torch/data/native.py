@@ -1,6 +1,6 @@
 """ctypes bindings for the port's host data plane (``csrc/merlot_native.cc``):
-TFRecord reading, tf.train.Example parsing, JPEG decode and encode, and the
-fused resize, pad and patchify.
+TFRecord reading, tf.train.Example parsing, JPEG decode and encode, the
+fused resize, pad and patchify, and Pillow's 8-bit resize.
 
 The port of ``merlot_reserve_tpu/data/native.py``. The library is built with
 g++ at first use into ``_build/`` inside the package (gitignored), named by
@@ -118,6 +118,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mn_resize_patchify_k.argtypes = [
         _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
+    lib.mn_resize_u8.restype = ctypes.c_int
+    lib.mn_resize_u8.argtypes = [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _u8p]
     return lib
 
 
@@ -247,6 +250,21 @@ def resize_patchify_native(rgb: np.ndarray, grid, kernel: int, patch: int = 16,
     lib.mn_resize_patchify_k(rgb.ctypes.data_as(_u8p), rgb.shape[0], rgb.shape[1], gh, gw,
                              patch, float(scale_mult), int(off_y), int(off_x), int(kernel),
                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def resize_native(pixels: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """[h, w, 3] or [h, w] uint8 -> [out_h, out_w(, 3)] uint8: Pillow's
+    bilinear ``Image.resize`` of an 8-bit image, bit for bit."""
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.ndim not in (2, 3) or (pixels.ndim == 3 and pixels.shape[2] != 3):
+        raise ValueError(f"expected [h, w] or [h, w, 3] uint8, got {pixels.shape}")
+    lib = load()
+    channels = 1 if pixels.ndim == 2 else 3
+    out = np.empty((out_h, out_w, 3) if channels == 3 else (out_h, out_w), np.uint8)
+    if lib.mn_resize_u8(pixels.ctypes.data_as(_u8p), pixels.shape[0], pixels.shape[1], channels,
+                        int(out_h), int(out_w), out.ctypes.data_as(_u8p)):
+        raise _error("resize failed")
     return out
 
 

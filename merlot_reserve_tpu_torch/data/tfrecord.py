@@ -7,7 +7,8 @@ self-contained codec: TFRecord framing is length-prefixed records with
 masked-crc32c guards, and tf.Example is a protobuf with exactly three leaf
 field types (bytes_list, float_list, int64_list) — small enough to parse
 directly. The loader reads through the native library
-(``data/native.py``); this codec writes records and checks CRCs.
+(``data/native.py``); this codec writes records (``ShufflingRecordWriter``
+for the dataset tools' shards) and checks CRCs.
 
 Format references (public): TFRecord framing and the Example/Feature proto
 schema from the TensorFlow documentation.
@@ -15,6 +16,7 @@ schema from the TensorFlow documentation.
 
 from __future__ import annotations
 
+import random
 import struct
 from typing import Dict, Iterator, List, Sequence, Union
 
@@ -72,14 +74,62 @@ def read_records(path: str, check_crc: bool = False) -> Iterator[bytes]:
             yield data
 
 
+def _write_framed(f, rec: bytes):
+    header = struct.pack("<Q", len(rec))
+    f.write(header)
+    f.write(struct.pack("<I", _masked_crc(header)))
+    f.write(rec)
+    f.write(struct.pack("<I", _masked_crc(rec)))
+
+
 def write_records(path: str, records: Sequence[bytes]):
     with open(path, "wb") as f:
         for rec in records:
-            header = struct.pack("<Q", len(rec))
-            f.write(header)
-            f.write(struct.pack("<I", _masked_crc(header)))
-            f.write(rec)
-            f.write(struct.pack("<I", _masked_crc(rec)))
+            _write_framed(f, rec)
+
+
+class ShufflingRecordWriter:
+    """Record writer with an in-memory shuffle buffer (the reference's
+    GCSTFRecordWriter convention, data_utils.py:10-66): records accumulate
+    in a buffer that, when full, writes a random half of itself, so
+    neighbouring source videos spread within a shard. ``close`` writes the
+    rest in random order. Same seed, same records: the JAX package's file."""
+
+    def __init__(self, path: str, buffer_size: int = 1024, seed: int = 0):
+        self._buffer_size = buffer_size
+        self._rng = random.Random(seed)
+        self._buffer: List[bytes] = []
+        self._file = open(path, "wb")
+        self.num_written = 0
+
+    def write(self, record: bytes):
+        self._buffer.append(record)
+        if len(self._buffer) >= self._buffer_size:
+            self._rng.shuffle(self._buffer)
+            half = len(self._buffer) // 2
+            self._write_all(self._buffer[:half])
+            self._buffer = self._buffer[half:]
+
+    def _write_all(self, records: Sequence[bytes]):
+        for rec in records:
+            _write_framed(self._file, rec)
+        self.num_written += len(records)
+
+    def close(self):
+        if self._file.closed:
+            return
+        self._rng.shuffle(self._buffer)
+        try:
+            self._write_all(self._buffer)
+        finally:
+            self._buffer = []
+            self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,15 @@ machine with a CUDA card) writes a synthetic corpus at the base shapes and
 measures, apart from any training step:
   * the loaders alone: batches per second of the host-assembled
     ``PretrainLoader`` and of the raw ``DevicePretrainLoader(fused=True,
-    on_device_frames=True)``, with their worker threads, after a warm-up;
+    on_device_frames=True)``, with their worker threads, over ``--batches``
+    (20) after a warm-up, with the rate over each 5 of them as the spread;
+    the host loader also on spawned processes (``use_processes=True``) at
+    1, 2, 4 and 8 workers beside its threads at the same counts;
+  * what a process pool's workers do at once, each count of workers
+    against as many threads: the aggregate rate of the JPEG decodes alone
+    and of the host builder's ``build`` alone (decode, resize, masking),
+    each worker with its own records; and the parent's cost of one
+    example through pickle (what a pool's pipe carries back);
   * one worker's cost per example: the JPEG decodes, the host builder's
     ``build`` (decode, resize, masking), and ``host_prepare`` with
     ``host_prepare_frames`` (what the fused path's workers do);
@@ -24,6 +32,7 @@ import argparse
 import itertools
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -74,21 +83,77 @@ def first(loader):
         it.close()  # stops the loader's worker threads
 
 
-def loader_rate(loader, batches):
+def loader_rate(loader, batches, window=5):
+    """Batches/s over ``batches`` after the first, and the rate over each
+    ``window`` of them (the spread)."""
     it = iter(loader)
     next(it)  # warm-up: the workers' first batch
-    t0 = time.perf_counter()
+    stamps = [time.perf_counter()]
     for _ in range(batches):
         next(it)
-    rate = batches / (time.perf_counter() - t0)
+        stamps.append(time.perf_counter())
     it.close()
-    return rate
+    return {"batches_per_s": batches / (stamps[-1] - stamps[0]),
+            "by_window": [window / (stamps[i + window] - stamps[i])
+                          for i in range(0, batches - window + 1, window)]}
+
+
+def _decode_many(jpegs, repeats):
+    """A worker's share of the JPEG decodes: seconds for ``repeats`` passes."""
+    from merlot_reserve_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        for data, channels in jpegs:
+            native.decode_jpeg_native(data, channels)
+    return time.perf_counter() - t0
+
+
+def _build_many(records, cfg, repeats):
+    """A worker's share of the host builder's work: seconds for ``repeats``
+    passes of ``build`` over ``records``."""
+    import numpy as np
+
+    from merlot_reserve_tpu_torch.data.pretrain_pipeline import (PretrainExampleBuilder,
+                                                                 parse_segment_record)
+
+    builder = PretrainExampleBuilder(cfg)
+    t0 = time.perf_counter()
+    for r in range(repeats):
+        for i, record in enumerate(records):
+            builder.build(parse_segment_record(record, cfg.data.num_segments),
+                          np.random.default_rng((r, i)))
+    return time.perf_counter() - t0
+
+
+def pool_rates(fn, args, units, counts):
+    """{count: (units per s on that many threads, on that many spawned
+    processes)}: every worker runs ``fn(*args)`` once to warm up (imports,
+    the codec's per-process and per-thread state), then once more, all at
+    once; the rate is the units done over the wall time of that round."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    out = {}
+    for n in counts:
+        rates = []
+        for pool in (ThreadPoolExecutor(n),
+                     ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn"))):
+            with pool:
+                for f in [pool.submit(fn, *args) for _ in range(n)]:
+                    f.result()
+                t0 = time.perf_counter()
+                for f in [pool.submit(fn, *args) for _ in range(n)]:
+                    f.result()
+                rates.append(n * units / (time.perf_counter() - t0))
+        out[n] = rates
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--batches", type=int, default=6, help="batches timed per loader")
+    ap.add_argument("--batches", type=int, default=20, help="batches timed per loader")
     ap.add_argument("--workers", type=int, default=8)
     args = ap.parse_args(argv)
 
@@ -125,6 +190,33 @@ def main(argv=None):
             "host": loader_rate(PretrainLoader(files, cfg, B, **kw), args.batches),
             "fused_frames": loader_rate(DevicePretrainLoader(
                 files, cfg, B, fused=True, on_device_frames=True, **kw), args.batches)}
+        counts = [n for n in (1, 2, 4, 8) if n <= args.workers]
+        res["host_loader_batches_per_s_by_workers"] = {
+            n: {kind: loader_rate(PretrainLoader(files, cfg, B, use_processes=procs,
+                                                 **{**kw, "num_workers": n}), args.batches)
+                for kind, procs in (("threads", False), ("processes", True))}
+            for n in counts}
+
+        # a pool's workers at once: the decodes alone, the builder alone
+        pool_records = list(native.read_records_native(files[0]))[:2]
+        jpegs = [(bytes(x[k][0]), c)
+                 for x in parse_segment_record(pool_records[0], d.num_segments)
+                 for k, c in (("image/encoded", 3), ("spectrogram/encoded", 1))]
+        decode_rates = pool_rates(_decode_many, (jpegs, 4), 4 * len(jpegs), counts)
+        build_rates = pool_rates(_build_many, (pool_records, cfg, 2), 2 * len(pool_records),
+                                 counts)
+        example = PretrainExampleBuilder(cfg).build(
+            parse_segment_record(pool_records[0], d.num_segments), np.random.default_rng(0))
+        t0 = time.perf_counter()
+        blob = pickle.dumps(example, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle.loads(blob)
+        res["pool"] = {
+            "decodes_per_s": {n: {"threads": t, "processes": p}
+                              for n, (t, p) in decode_rates.items()},
+            "examples_per_s": {n: {"threads": t, "processes": p}
+                               for n, (t, p) in build_rates.items()},
+            "example_pickle_bytes": len(blob),
+            "example_pickle_round_trip_ms": (time.perf_counter() - t0) * 1e3}
 
         records = list(itertools.islice(native.read_records_native(files[0]), 4))
         segs = [parse_segment_record(r, d.num_segments) for r in records]

@@ -5,9 +5,10 @@ data/synthetic.py, data/loader.py) against the JAX package's, at tiny widths
 
 Tolerances: none. Everything here is bit for bit: the record and Example
 codecs both ways, the native reader, parser, JPEG decode (both libraries are
-built against this machine's libjpeg) and resize (the same C++ with the same
+built against the same libjpeg) and resize (the same C++ with the same
 flags), the host example builder under the same numpy seed, the collation,
-and the loader's record order, also after ``load_state_dict``.
+and the loader's record order, also after ``load_state_dict``, on threads
+and on a pool of spawned processes.
 """
 
 import os
@@ -234,8 +235,78 @@ def test_loader_gives_jax_record_order_and_resumes(corpus):
     for bj, bt in zip(want[2:], _batches(resumed, 2)):
         for k in bj:
             np.testing.assert_array_equal(bt[k], bj[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="threads"):
-        PretrainLoader(corpus, tcfg, batch_size=2, use_processes=True)
+
+
+def test_process_pool_gives_the_threads_and_jax_batches_and_resumes(corpus):
+    """use_processes=True (2 spawned workers): the JAX loader's batches, the
+    same as the threads', and the same continuation after state_dict /
+    load_state_dict across a new pool; the workers are gone when the
+    iteration ends."""
+    import multiprocessing
+
+    jcfg, tcfg = configs()
+    kw = dict(batch_size=2, seed=11, num_workers=2, repeat=True, files_per_cycle=2,
+              parallel_reads=2, shuffle_buffer=4)
+    want = _batches(JaxLoader(corpus, jcfg, **kw), 4)
+    threads = _batches(PretrainLoader(corpus, tcfg, **kw), 4)
+    first = PretrainLoader(corpus, tcfg, use_processes=True, **kw)
+    it = iter(first)
+    got = [next(it) for _ in range(2)]
+    it.close()
+    assert multiprocessing.active_children() == []
+    resumed = PretrainLoader(corpus, tcfg, use_processes=True, **kw)
+    resumed.load_state_dict(first.state_dict())
+    got += _batches(resumed, 2)
+    for bj, bth, bp in zip(want, threads, got):
+        assert bp.keys() == bj.keys()
+        for k in bj:
+            np.testing.assert_array_equal(bp[k], bj[k], err_msg=k)
+            np.testing.assert_array_equal(bp[k], bth[k], err_msg=k)
+
+
+def test_a_dead_worker_process_fails_the_loader_and_skips_no_record(corpus, capsys):
+    """A worker process that dies (here at start-up) ends the iteration with
+    the producer's error; it is not counted or logged as a corrupt record."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures.process import BrokenProcessPool
+
+    class DyingPool(PretrainLoader):
+        def _pool(self):
+            return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                                       initializer=os._exit, initargs=(1,))
+
+    _, tcfg = configs()
+    loader = DyingPool(corpus, tcfg, batch_size=2, seed=11, num_workers=1, repeat=False,
+                       files_per_cycle=2, parallel_reads=2, shuffle_buffer=4,
+                       use_processes=True)
+    with pytest.raises(RuntimeError, match="loader producer failed") as err:
+        next(iter(loader))
+    assert isinstance(err.value.__cause__, BrokenProcessPool)
+    assert loader._skipped == 0
+    assert "skipping corrupt record" not in capsys.readouterr().out
+    assert multiprocessing.active_children() == []
+
+
+@pytest.mark.parametrize("on_device_frames", [False, True])
+def test_fused_device_loader_process_pool_gives_the_threads_raw_batches(corpus,
+                                                                         on_device_frames):
+    """DevicePretrainLoader(fused=True) on 2 spawned workers yields the raw
+    batches its threads yield (host_prepare's arrays, and the decoded
+    images unless on_device_frames), and its device builder's stats count
+    the workers' records."""
+    from merlot_reserve_tpu_torch.data.loader import DevicePretrainLoader
+
+    _, tcfg = configs()
+    kw = dict(batch_size=2, seed=5, num_workers=2, files_per_cycle=2, parallel_reads=2,
+              shuffle_buffer=4, fused=True, on_device_frames=on_device_frames, device="cpu")
+    threads = DevicePretrainLoader(corpus, tcfg, **kw)
+    procs = DevicePretrainLoader(corpus, tcfg, use_processes=True, **kw)
+    for bt, bp in zip(_batches(threads, 3), _batches(procs, 3)):
+        assert bp.keys() == bt.keys() and ("images" in bp) != on_device_frames
+        for k in bt:
+            np.testing.assert_array_equal(np.asarray(bp[k]), np.asarray(bt[k]), err_msg=k)
+    assert procs._dev_builder.stats == threads._dev_builder.stats
 
 
 def test_port_corpus_reads_in_both_packages(tmp_path):

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py or a scripts/*_torch.py) loads no JAX,
+(and running chip_smoke.py or a scripts/*_torch.py, the prep scripts
+included) loads no JAX,
 flax, optax, merlot_reserve_tpu, HuggingFace tokenizers, msgpack, ml_dtypes
 or PIL module, and the entry
 points refuse to run on their default device, the CUDA card, where there is
@@ -38,9 +39,16 @@ from merlot_reserve_tpu_torch.utils.checkpoint import load_checkpoint
 from merlot_reserve_tpu_torch.data.device_builder import DeviceExampleBuilder
 from merlot_reserve_tpu_torch.data.loader import DeviceFeed, DevicePretrainLoader
 from merlot_reserve_tpu_torch.data.synthetic import write_synthetic_corpus
+from merlot_reserve_tpu_torch.dataset_creation.frame_embedder import (MobileNetV2Embedder,
+                                                                      preprocess_frames)
+from merlot_reserve_tpu_torch.dataset_creation.process import (build_chunk,
+                                                               process_video_arrays,
+                                                               window_log_mels)
 from scripts.finetune_tvqa_torch import main as finetune_tvqa_main
 from scripts.finetune_vcr_torch import main as finetune_vcr_main
 from scripts.pretrain_fixres_torch import main as fixres_main
+from scripts.prep_tvqa_torch import main as prep_tvqa_main
+from scripts.prep_tvqa_torch import tvqa_record
 from scripts.pretrain_torch import main as pretrain_main
 from scripts.validate_torch import main as validate_main
 from scripts.zero_shot_tvqa_torch import main as zero_shot_tvqa_main
@@ -82,7 +90,11 @@ def test_importing_every_port_module_loads_no_jax():
                    "utils.checkpoint", "utils.msgpack", "utils.experiment", "data.tfrecord",
                    "data.native", "data.masking", "data.debug", "data.synthetic",
                    "data.pretrain_pipeline", "data.loader", "data.device_builder",
-                   "ops.masking_device", "ops.vision_train", "finetune.data"):
+                   "ops.masking_device", "ops.vision_train", "finetune.data",
+                   "finetune.prep_data", "dataset_creation.spectrogram", "dataset_creation.text",
+                   "dataset_creation.text_corpus", "dataset_creation.offset_model",
+                   "dataset_creation.process", "dataset_creation.frame_embedder",
+                   "dataset_creation.filters", "dataset_creation.youtube"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -157,7 +169,29 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
     for head in (MerlotReserveVCRZeroShot, MerlotReserveTVQAZeroShot):
         with pytest.raises(RuntimeError, match="cuda"):
             head(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):  # the process pool changes nothing here
+        DevicePretrainLoader([str(corpus / "c.tfrecord")], cfg, 1, use_processes=True)
+    # dataset creation and the prep scripts: the log-mels, the embedder
+    words = [{"word": "a", "start": 1.0, "end": 1.2}]
+    window = {"start_time": 0.0, "end_time": 5.0, "playback_speed": 1, "words": words}
+    pcm = np.zeros(22050 * 6, np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        window_log_mels(pcm[None, :110250], 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_chunk(np.zeros((8, 8, 3), np.uint8), pcm, window)
+    with pytest.raises(RuntimeError, match="cuda"):
+        process_video_arrays(np.zeros((1, 8, 8, 3), np.uint8), pcm, words, 6.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MobileNetV2Embedder()
+    with pytest.raises(RuntimeError, match="cuda"):
+        preprocess_frames(np.zeros((1, 8, 8, 3), np.uint8))
+    ann = {"id": "x", "ts_start": 1.0, "ts_end": 2.0, "question": "q", "answers": ["a"] * 5,
+           "label": 0}
+    with pytest.raises(RuntimeError, match="cuda"):
+        tvqa_record(ann, np.zeros((7, 8, 8, 3), np.uint8), pcm, 6.0)
     missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="cuda"):
+        prep_tvqa_main(["-manifest", missing, "-out", missing])
     for main, argv in ((fixres_main, ["-train_fns", missing]),
                        (validate_main, ["-ckpt_dir", missing, "-val_fns", missing]),
                        (finetune_vcr_main, ["-train_fns", missing]),
