@@ -151,6 +151,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (``prep_vcr_torch.vcr_record``, ``prep_tvqa_torch.tvqa_record``) into
    records that ``finetune_batches`` reads at the synthetic records' shapes.
    Phase 15 also runs a fourth feed: the host loader on spawned processes.
+19. serving artifacts and checkpoint tools: phase 13's ``ckpt_4`` (or a
+   seeded init) into ``export.export_serving_artifact`` on the card at full
+   base width (batch 8, 64 options); ``load_serving_artifact`` in a fresh
+   process, which must import no ``models`` module, serves 8 and 3
+   requests and the label space: the exported programs against the live
+   ``VideoEmbedService`` and ``embed_text_spans_only`` on the same
+   parameters, ``flash_fwd`` launches per exported call (12 per batch, the
+   span tower's 4 per label space), ms per exported batch on both clocks
+   beside the live service's; ``scripts/convert_checkpoint_torch.py``
+   --to-layers then --to-scan, bit for bit; ``scripts/vcr_leaderboard_torch.py``
+   with phase 17's finetuned VCR state on phase 17's records and on 16
+   records of ``prep_vcr_torch.vcr_record`` with leaderboard ids (4 rows).
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -3108,6 +3120,7 @@ def phase_downstream(card, ckpt, device="cuda"):
                 os.path.join(tmp, f"{task}.tfrecord"), load_config("base"), task,
                 num_records=DOWNSTREAM_RECORDS, seed=20)
         res["corpus_s"] = time.perf_counter() - t0
+        shutil.copy(records["vcr"], CKPT_DIR / "vcr.tfrecord")  # phase 19's leaderboard input
 
         # finetuning through the scripts, each step timed on both clocks
         original = tt.finetune_train_step
@@ -3135,7 +3148,10 @@ def phase_downstream(card, ckpt, device="cuda"):
                 record = main(["base", "-ckpt", ckpt, "-train_fns", records[task], "-val_fns",
                                records[task], "-ne", "1", "-batch_size", str(B),
                                "-train_size", str(B * steps), "-log_every", "1",
-                               "--device", device])
+                               "--device", device,
+                               # the VCR state, kept for phase 19's leaderboard
+                               *(["-output_dir", str(CKPT_DIR / "vcr_finetuned")]
+                                 if task == "vcr" else [])])
             seconds = time.perf_counter() - t0
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
@@ -3672,6 +3688,277 @@ def phase_created(card, device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 19. serving artifacts, checkpoint tools and the VCR leaderboard
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCH, EXPORT_OPTIONS = 8, 64
+# the exported programs against the live model on the same (f16-rounded)
+# parameters: the same operations and kernels, so 0 is expected
+EXPORT_TOL = 1e-3
+# calls timed on each clock, on each side (about 2 s a side at full width)
+EXPORT_TIMED = 30
+LEADERBOARD_ANNOTS = 4
+
+# Run in a fresh process: load the artifact (no model code), serve 8 and 3
+# requests and the label space, count the launches of each call, time the
+# exported batch on both clocks; fail if a models module got imported.
+# argv: the checkout, the artifact, the directory with requests.npz, the
+# device (the card; "cpu" in a rehearsal, where the device clock is not read).
+_EXPORTED_SERVER = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import EXPORT_TIMED, cuda_time_ms, stack_requests
+from merlot_reserve_tpu_torch import kernels
+from merlot_reserve_tpu_torch.export import load_serving_artifact
+
+art, io, device = sys.argv[2:5]
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+data = np.load(io + "/requests.npz")
+fields = ("images", "audio_clips", "tokens", "subseg_idxs")
+req = {n: [{k: data[f"{n}_{k}"][i] for k in fields} for i in range(len(data[f"{n}_tokens"]))]
+       for n in ("full", "three")}
+t0 = time.perf_counter()
+svc = load_serving_artifact(art, device=device)
+sync()
+load_s = time.perf_counter() - t0
+outs, launches = {}, {}
+for name, call in (("full", lambda: svc.embed(req["full"])),
+                   ("three", lambda: svc.embed(req["three"])),
+                   ("label", lambda: svc.label_space(data["options"]))):
+    kernels.LAUNCHES.clear()
+    outs[name] = call()
+    sync()
+    launches[name] = dict(kernels.LAUNCHES)
+host_ms = []
+for _ in range(EXPORT_TIMED):
+    t = time.perf_counter()
+    svc.embed(req["full"])
+    host_ms.append((time.perf_counter() - t) * 1e3)
+device_ms = None
+if device == "cuda":
+    with torch.inference_mode():
+        inputs = stack_requests(req["full"], device)
+        device_ms = cuda_time_ms(lambda: svc.embed_program(*svc.params, *inputs),
+                                 iters=EXPORT_TIMED, warmup=1)
+np.savez(io + "/exported.npz", **outs)
+models = sorted(m for m in sys.modules if m.startswith("merlot_reserve_tpu_torch.models"))
+print(json.dumps({"load_s": load_s, "launches": launches, "host_ms": host_ms,
+                  "device_ms": device_ms, "models_modules": models}))
+if models:
+    sys.exit(f"the artifact's loader imported model code: {models}")
+"""
+
+
+def _leaderboard_records(path, rng):
+    """LEADERBOARD_ANNOTS annotations written by ``prep_vcr_torch.vcr_record``
+    at the leaderboard's 18x32 grid size, the rationale query conditioned on
+    each of the 4 answers (ids "test-<n>-cond_<answer>")."""
+    from merlot_reserve_tpu_torch.data.tfrecord import write_records
+    from scripts.prep_vcr_torch import vcr_record
+
+    say = lambda n: [str(w) for w in rng.choice(_WORDS, n)]
+    records = []
+    for n in range(LEADERBOARD_ANNOTS):
+        image = _smooth_pixels(288, 512)
+        for c in range(4):
+            ann = {"id": f"test-{n}-cond_{c}", "boxes": [[20, 30, 200, 260]],
+                   "names": ["person"], "qa_query": ["Why", "is", [0], "here", "?"],
+                   "qa_choices": [say(6) for _ in range(4)], "qa_label": 0,
+                   "qar_query": say(8) + ["?"], "qar_choices": [say(8) for _ in range(4)],
+                   "qar_label": 0}
+            records.append(vcr_record(ann, image))
+    write_records(path, records)
+    return path
+
+
+def phase_export(card, pretrained=None, vcr=None, device="cuda"):
+    """The serving artifact of a full-width base model (phase 13's
+    ``ckpt_4`` in ``pretrained``, or a seeded init): exported on the card,
+    loaded and served in a fresh process with no model code, against the
+    live ``VideoEmbedService`` and ``embed_text_spans_only``; the launches
+    of each exported call; ``convert_checkpoint_torch`` --to-layers then
+    --to-scan on the checkpoint, bit for bit; ``vcr_leaderboard_torch``
+    with phase 17's finetuned VCR state (``vcr``) on phase 17's records and
+    on records of the prep script with leaderboard ids."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.export import export_serving_artifact
+    from merlot_reserve_tpu_torch.models import MerlotReserve
+    from merlot_reserve_tpu_torch.serving import VideoEmbedService
+    from merlot_reserve_tpu_torch.tokenizer import encode_batch_padded
+    from merlot_reserve_tpu_torch.utils import checkpoint as ckpt_lib
+    from merlot_reserve_tpu_torch.utils.weights import (flax_tensors_from_state_dict,
+                                                        load_flax_params)
+    from scripts.convert_checkpoint_torch import main as convert_main
+    from scripts.vcr_leaderboard_torch import main as leaderboard_main
+
+    cfg = load_config("base")
+    m = cfg.model
+    res = {"batch": EXPORT_BATCH, "num_options": EXPORT_OPTIONS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        if pretrained is None:  # a seeded init, written as a checkpoint at step 4
+            seeded = MerlotReserve(cfg, device=device, seed=0)
+            tree = flax_tensors_from_state_dict(dict(seeded.named_parameters()))
+            pretrained = os.path.dirname(ckpt_lib.save_checkpoint(
+                {"step": torch.tensor(CKPT_STEPS, dtype=torch.int32), "params": tree},
+                os.path.join(tmp, "seeded")))
+            del seeded, tree
+        res["weights"] = pretrained
+        params = ckpt_lib.load_checkpoint(pretrained, step=CKPT_STEPS)["params"]
+        live = MerlotReserve(cfg, device=device)
+        load_flax_params(live, params)
+        full, three = make_requests(cfg, EXPORT_BATCH, 40), make_requests(cfg, 3, 41)
+        options = encode_batch_padded(ZERO_SHOT_OPTIONS, length=m.text_span_length)
+
+        # export on the card
+        art = os.path.join(tmp, "artifact")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = export_serving_artifact(MerlotReserve(cfg, device="meta"), params, full[0],
+                                           art, batch_size=EXPORT_BATCH,
+                                           num_options=EXPORT_OPTIONS, device=device)
+        res["export_s"] = time.perf_counter() - t0
+        res["artifact_bytes"] = {f: os.path.getsize(os.path.join(art, f))
+                                 for f in sorted(os.listdir(art))}
+        check(manifest["platforms"] == [torch.device(device).type],
+              f"platforms {manifest['platforms']}")
+
+        # served from a fresh process
+        np.savez(os.path.join(tmp, "requests.npz"), options=options,
+                 **{f"{n}_{k}": np.stack([v[k] for v in req]) for n, req in
+                    (("full", full), ("three", three)) for k in full[0]})
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _EXPORTED_SERVER, str(ROOT), art, tmp,
+                               str(torch.device(device).type)],
+                              capture_output=True, text=True, timeout=900)
+        res["server_process_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the exported server failed ({proc.returncode}):\n"
+                                    f"{proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(os.path.join(tmp, "exported.npz")) as f:
+            exported = dict(f)
+
+        # the live model on the same parameters, counted
+        service = VideoEmbedService(live, batch_size=EXPORT_BATCH, device=device)
+        live_out = {"full": service.embed(full), "three": service.embed(three)}
+        opts = np.zeros((EXPORT_OPTIONS, m.text_span_length), np.int64)
+        opts[:len(options)] = options
+        kernels.LAUNCHES.clear()
+        with torch.inference_mode():
+            live_out["label"] = live.embed_text_spans_only(torch.from_numpy(opts).to(device))[
+                :len(options)].float().cpu().numpy()
+        torch.cuda.synchronize()
+        live_label_launches = dict(kernels.LAUNCHES)
+        host_ms = []
+        for _ in range(EXPORT_TIMED):
+            t = time.perf_counter()
+            service.embed(full)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+        with torch.inference_mode():
+            inputs = stack_requests(full, device)
+            device_ms = cuda_time_ms(lambda: live.batch_embed_video(*inputs),
+                                     iters=EXPORT_TIMED, warmup=1)
+
+        diffs = {k: float(np.abs(exported[k] - live_out[k]).max()) for k in live_out}
+        launches = served["launches"]
+        print(f"[export] {card}: exported in {res['export_s']:.2f} s "
+              f"({sum(res['artifact_bytes'].values())} bytes: {res['artifact_bytes']}); served "
+              f"from a fresh process ({res['server_process_s']:.1f} s, loaded in "
+              f"{served['load_s']:.2f} s, models modules {served['models_modules']}); launches "
+              f"per exported call {launches}, the live label space {live_label_launches}; "
+              f"exported vs live max abs diff {diffs}", flush=True)
+        for name, n in (("full", EXPORT_BATCH), ("three", 3)):
+            check(exported[name].shape == (n, 160, m.hidden_size) and
+                  np.isfinite(exported[name]).all(), f"exported {name}: {exported[name].shape}")
+            check(launches[name] == {"flash_fwd": m.joint_num_layers},
+                  f"exported embed of {n}: launches {launches[name]} != "
+                  f"{m.joint_num_layers} flash_fwd")
+        check(launches["label"] == live_label_launches == {"flash_fwd": m.span_num_layers},
+              f"label space launches: exported {launches['label']}, live {live_label_launches}")
+        for k, d in diffs.items():
+            check(d <= EXPORT_TOL, f"exported {k} vs live: {d} > {EXPORT_TOL}")
+        norms = np.linalg.norm(exported["full"], axis=-1)
+        check(np.abs(norms - 1).max() < 1e-2, f"row norms off 1 by {np.abs(norms - 1).max()}")
+        res.update(launches_per_call=launches, live_label_launches=live_label_launches,
+                   max_abs_diff_vs_live=diffs, server_load_s=served["load_s"],
+                   exported_host_ms=served["host_ms"], exported_device_ms=served["device_ms"],
+                   live_host_ms=host_ms, live_device_ms=device_ms)
+        res["exported_host_ms_median"] = float(np.median(served["host_ms"]))
+        res["live_host_ms_median"] = float(np.median(host_ms))
+        spread = lambda ms: f"{np.median(ms):.2f} ms host ({min(ms):.2f}-{max(ms):.2f})"
+        print(f"[export] {card}: a batch of {EXPORT_BATCH}, median (min-max) of "
+              f"{EXPORT_TIMED} calls: exported {spread(served['host_ms'])}, "
+              f"{served['device_ms']} ms device; live service {spread(host_ms)}, "
+              f"{device_ms:.2f} ms device (each in its own process)", flush=True)
+        del live, service
+        torch.cuda.empty_cache()
+
+        # the converter: to the reference's layout and back, bit for bit
+        t0 = time.perf_counter()
+        layers = convert_main([pretrained, os.path.join(tmp, "layers"), "--step",
+                               str(CKPT_STEPS), "--to-layers", "--no-optimizer"])
+        back = convert_main([layers, os.path.join(tmp, "scan"), "--to-scan"])
+        res["convert_s"] = time.perf_counter() - t0
+        per_layer = ckpt_lib.load_checkpoint(layers)["params"]
+        check("layer_00" in per_layer["joint_transformer"] and
+              "layers" not in per_layer["joint_transformer"],
+              f"--to-layers: joint_transformer holds {sorted(per_layer['joint_transformer'])}")
+        restored = ckpt_lib.load_checkpoint(back)
+        check(restored["opt_state"] is None, "--no-optimizer kept the optimizer state")
+        got = dict(ckpt_lib.flat_leaves(restored["params"]))
+        want = dict(ckpt_lib.flat_leaves(params))
+        check(sorted(got) == sorted(want), "--to-layers then --to-scan: other leaves")
+        same = [_bits_equal(got[k], want[k]) for k in want]
+        check(all(same), f"--to-layers then --to-scan: {same.count(False)} leaves differ")
+        print(f"[export] convert_checkpoint_torch --to-layers --no-optimizer then --to-scan: "
+              f"{len(same)} leaves back bit for bit ({res['convert_s']:.1f} s)", flush=True)
+
+        # the leaderboard from phase 17's finetuned VCR state
+        res["leaderboard"] = {}
+        if vcr is None:
+            print("[export] no finetuned VCR state: leaderboard not run", flush=True)
+            return res
+        lb_records = _leaderboard_records(os.path.join(tmp, "test.tfrecord"),
+                                          np.random.default_rng(42))
+        for name, files, annots in (("phase17_records", str(CKPT_DIR / "vcr.tfrecord"), 1),
+                                    ("prep_records", lb_records, LEADERBOARD_ANNOTS)):
+            out_csv = os.path.join(tmp, f"{name}.csv")
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            merged = leaderboard_main(["base", "-ckpt", vcr, "-test_fns", files, "-out", out_csv,
+                                       "-batch_size", "8", "--device", device])
+            seconds = time.perf_counter() - t0
+            with open(out_csv) as f:
+                cols, *rows = list(csv.reader(f))
+            n_records = DOWNSTREAM_RECORDS if annots == 1 else 4 * annots
+            batches = -(-n_records // 8)
+            lb_launches = dict(kernels.LAUNCHES)
+            check(len(rows) == annots == len(merged) and
+                  len({r[0] for r in rows}) == len(rows), f"leaderboard {name}: rows {rows}")
+            check(len(cols) == 1 + 4 + 4 * (4 if annots > 1 else 1),
+                  f"leaderboard {name}: columns {cols}")
+            probs = np.asarray([r[1:] for r in rows], np.float64)
+            check(np.isfinite(probs).all() and (np.abs(probs[:, :4].sum(1) - 1) < 1e-2).all(),
+                  f"leaderboard {name}: answer probabilities {probs[:, :4]}")
+            check(lb_launches.get("flash_fwd", 0) == m.joint_num_layers * batches,
+                  f"leaderboard {name}: launches {lb_launches}")
+            res["leaderboard"][name] = {"rows": len(rows), "columns": len(cols),
+                                        "records": n_records, "seconds": seconds,
+                                        "launches": lb_launches}
+            print(f"[export] vcr_leaderboard_torch on {name} ({n_records} records): "
+                  f"{len(rows)} rows x {len(cols)} columns in {seconds:.1f} s (the model load "
+                  f"included); launches {lb_launches}", flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -3711,9 +3998,11 @@ def main():
                                                          str(CKPT_DIR / "pretrain"))
         down = phase_downstream(dev["nvidia_smi"],
                                 str(CKPT_DIR / "fixres" / f"ckpt_{FIXRES_SCRIPT_STEPS}"))
+        created = phase_created(dev["nvidia_smi"])
+        exported = phase_export(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"),
+                                str(CKPT_DIR / "vcr_finetuned"))
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    created = phase_created(dev["nvidia_smi"])
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -3740,7 +4029,11 @@ def main():
                                   for t, r in down["finetune"].items()},
                                **{f"zero_shot_{t}": r["launches"].get(name, 0)
                                   for t, r in down["zero_shot"].items()},
-                               "train_created_records": created["launches"].get(name, 0)}
+                               "train_created_records": created["launches"].get(name, 0),
+                               **{f"exported_{call}": n.get(name, 0) for call, n in
+                                  exported["launches_per_call"].items()},
+                               **{f"leaderboard_{k}": r["launches"].get(name, 0)
+                                  for k, r in exported["leaderboard"].items()}}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
@@ -3817,6 +4110,8 @@ def main():
              launches_by_path["flash_fwd"]["train_sp4_long"] / LONG_TRAIN_STEPS,
          "launches_per_fixres_mixed_step":
              launches_by_path["flash_fwd"]["train_fixres_mixed"] / FIXRES_STEPS,
+         "launches_per_exported_batch": launches_by_path["flash_fwd"]["exported_full"],
+         "launches_per_exported_label_space": launches_by_path["flash_fwd"]["exported_label"],
          "max_abs_err": main_case["max_abs_err_out"], "ms": main_case["graph_ms"],
          "event_ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
          "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -3856,7 +4151,7 @@ def main():
               "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
               "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
               "fixres_bwd_kernels": fixres_bwd, "downstream": down, "created": created,
-              "kernels_line": kernels_line}
+              "export": exported, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

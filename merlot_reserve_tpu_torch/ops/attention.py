@@ -29,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -398,26 +398,51 @@ def _records_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+# The flash forward as a PyTorch operator, so that ``torch.export`` keeps it
+# as one node of an exported program (the serving artifacts of ``export.py``)
+# instead of tracing into the ctypes launch, which it cannot see. Registered
+# once, when this module is imported: an artifact's loader imports it.
+@torch.library.custom_op("merlot_reserve_torch::flash_fwd", mutates_args=(), device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, is_valid: torch.Tensor,
+                 segment_ids: torch.Tensor, k_is_valid: Optional[torch.Tensor],
+                 k_segment_ids: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On a CPU tensor: the plain version, ``flash_attention_reference``, its
+    outputs contiguous as the kernel's are."""
+    out, lse = flash_attention_reference(q, k, v, is_valid, segment_ids, k_is_valid,
+                                         k_segment_ids)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids):
+    return _flash_forward_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids):
+    B, L, H, D = q.shape
+    return q.new_empty((B, L, H, D)), q.new_empty((B, H, L), dtype=torch.float32)
+
+
 def flash_forward(q, k, v, is_valid, segment_ids, k_is_valid=None, k_segment_ids=None):
     """Label-masked flash forward -> (out [B, L, heads, d], lse [B, heads, L]).
 
     ``k_is_valid`` / ``k_segment_ids`` give the keys labels of their own
     (both or neither; default the queries'), as a ring hop needs.
-    The grad-free launcher: a CUDA tensor launches the kernel (or raises); a
-    CPU tensor runs the plain version. Raises when it would have to record a
-    gradient: ``flash_attention`` is the differentiable entry.
+    The grad-free launcher, through the operator ``flash_fwd_op``
+    (``torch.ops.merlot_reserve_torch.flash_fwd``): a CUDA tensor launches
+    the kernel (or raises); a CPU tensor runs the plain version. Raises when
+    it would have to record a gradient: ``flash_attention`` is the
+    differentiable entry.
     """
     if _records_grad(q, k, v):
         raise RuntimeError("flash_forward is the grad-free launcher and records no "
                            "gradient: call flash_attention for a differentiable one")
     if (k_is_valid is None) != (k_segment_ids is None):
         raise ValueError("flash: give both k_is_valid and k_segment_ids, or neither")
-    if q.device.type == "cuda":
-        return _flash_forward_cuda(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, is_valid, segment_ids, k_is_valid,
-                                         k_segment_ids)
-    raise ValueError(f"flash: no path for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash: no path for device {q.device}")
+    return flash_fwd_op(q, k, v, is_valid, segment_ids, k_is_valid, k_segment_ids)
 
 
 def flash_backward(q, k, v, do, out, lse, is_valid, segment_ids, k_is_valid=None,

@@ -19,7 +19,25 @@ import torch
 from merlot_reserve_tpu_torch.tokenizer import MASK
 from merlot_reserve_tpu_torch.utils.device import resolve_device
 
-_FIELDS = ("images", "audio_clips", "tokens", "subseg_idxs")
+FIELDS = ("images", "audio_clips", "tokens", "subseg_idxs")
+# the dtypes ``batch_embed_video`` takes its batch in
+DTYPES = {"images": torch.float32, "audio_clips": torch.float32, "tokens": torch.int64,
+          "subseg_idxs": torch.int64}
+
+
+def stage_batch(video_pres: Sequence[Dict], batch_size: int, device) -> List[torch.Tensor]:
+    """1 to ``batch_size`` preprocessed videos -> the model's batch on
+    ``device``, one tensor per field of ``FIELDS``: padded with the first
+    request up to ``batch_size``, stacked, copied in its model dtype."""
+    pad = [video_pres[0]] * (batch_size - len(video_pres))
+    return [torch.from_numpy(np.stack([np.asarray(v[k]) for v in (*video_pres, *pad)]))
+            .to(device, DTYPES[k]) for k in FIELDS]
+
+
+def embed_in_batches(embed, video_pres: Sequence[Dict], batch_size: int) -> np.ndarray:
+    """``embed`` over ``video_pres`` in slices of ``batch_size`` -> [N, L, H]."""
+    return np.concatenate([embed(video_pres[i:i + batch_size])
+                           for i in range(0, len(video_pres), batch_size)], 0)
 
 
 class VideoEmbedService:
@@ -47,17 +65,10 @@ class VideoEmbedService:
                              "so an empty result has no shape")
         if n > self.batch_size:
             raise ValueError(f"{n} videos > batch size {self.batch_size}: use embed_stream")
-        pad = [video_pres[0]] * (self.batch_size - n)
-        stack = {k: np.stack([np.asarray(v[k]) for v in list(video_pres) + pad])
-                 for k in _FIELDS}
         t0 = time.perf_counter()
         with torch.inference_mode():
-            images = torch.from_numpy(stack["images"]).to(self.device, torch.float32)
-            audio = torch.from_numpy(stack["audio_clips"]).to(self.device, torch.float32)
-            tokens = torch.from_numpy(stack["tokens"]).to(self.device, torch.int64)
-            subseg = torch.from_numpy(stack["subseg_idxs"]).to(self.device, torch.int64)
-            out = self.model.batch_embed_video(images, audio, tokens, subseg)
-            out = out[:n].float().cpu().numpy()
+            batch = stage_batch(video_pres, self.batch_size, self.device)
+            out = self.model.batch_embed_video(*batch)[:n].float().cpu().numpy()
         self.stats["batches"] += 1
         self.stats["videos"] += n
         self.stats["seconds"] += time.perf_counter() - t0
@@ -67,8 +78,7 @@ class VideoEmbedService:
         """Embed any number (>= 1) of videos, batch by batch."""
         if not video_pres:
             raise ValueError("empty request (see embed)")
-        return np.concatenate([self.embed(video_pres[i:i + self.batch_size])
-                               for i in range(0, len(video_pres), self.batch_size)], 0)
+        return embed_in_batches(self.embed, video_pres, self.batch_size)
 
     def mask_features(self, video_pres: Sequence[Dict]) -> np.ndarray:
         """[N, H] embedding at each video's first MASK token."""

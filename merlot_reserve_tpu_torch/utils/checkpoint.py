@@ -362,3 +362,42 @@ def pretrained_params(path: str, scan_layers: bool = True):
     pretrained checkpoint."""
     params = load_checkpoint(path)["params"]
     return stack_layer_params(params) if scan_layers else params
+
+
+# ---------------------------------------------------------------------------
+# overview
+# ---------------------------------------------------------------------------
+
+
+def _numpy_dtype_name(leaf) -> str:
+    """numpy's name for a leaf's dtype ('float32', 'bfloat16'), '?' without one."""
+    dtype = getattr(leaf, "dtype", None)
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return "?" if dtype is None else str(dtype)
+
+
+def flat_leaves(tree, prefix=""):
+    """('/'-joined name, leaf) for every leaf of a nested dict, keys sorted."""
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(tree[k], dict):
+            yield from flat_leaves(tree[k], name)
+        else:
+            yield name, tree[k]
+
+
+def param_overview(params) -> str:
+    """Human-readable table of the param tree (name, shape, size, dtype):
+    the JAX package's text for the same tree (shapes as tuples, dtypes by
+    numpy's names)."""
+    lines = []
+    total = 0
+    for name, leaf in flat_leaves(params):
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+        size = leaf.numel() if isinstance(leaf, torch.Tensor) else int(getattr(leaf, "size", 0))
+        total += size
+        lines.append(f"{name:<80s} {str(shape):>20s} "
+                     f"{size:>12,d} {_numpy_dtype_name(leaf):>10s}")
+    lines.append(f"TOTAL: {total:,d} params")
+    return "\n".join(lines)

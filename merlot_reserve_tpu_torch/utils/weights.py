@@ -63,6 +63,32 @@ def _torch_leaf(modules: List[str], leaf: str, x: torch.Tensor) -> Tuple[str, to
     raise KeyError(f"unknown flax parameter {'/'.join(modules + [leaf])}")
 
 
+def flax_entries(params) -> Iterator[Tuple[str, str, torch.Tensor]]:
+    """(flax name, state_dict key, view) for every entry of the port module
+    that the flax tree ``params`` (either layer layout; tensor leaves) fills:
+    the '/'-joined name of its leaf in the ``layer_NN`` layout, its key, and
+    the leaf in the port's layout as a view (a slice, reshape or transpose;
+    nothing copied)."""
+    for path, x in _flatten(params):
+        *modules, leaf = path
+        if "layers" in modules:  # scan layout: leading [num_layers] axis
+            i = modules.index("layers")
+            for n in range(x.shape[0]):
+                name = "/".join(modules[:i] + [f"layer_{n:02d}"] + modules[i + 1:] + [leaf])
+                yield (name, *_entry(modules[:i + 1] + [str(n)] + modules[i + 1:], leaf, x[n]))
+        else:
+            mods: List[str] = []
+            for m in modules:
+                match = _LAYER_RE.match(m)
+                mods += ["layers", str(int(match.group(1)))] if match else [m]
+            yield ("/".join(path), *_entry(mods, leaf, x))
+
+
+def _entry(modules: List[str], leaf: str, x: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    name, value = _torch_leaf(modules, leaf, x)
+    return ".".join(modules + [name]), value
+
+
 def state_dict_from_flax(params, dtype: Optional[torch.dtype] = torch.float32
                          ) -> Dict[str, torch.Tensor]:
     """Flax tree (scan-stacked ``layers`` or ``layer_NN`` layout; numpy or
@@ -70,27 +96,11 @@ def state_dict_from_flax(params, dtype: Optional[torch.dtype] = torch.float32
     every entry a new contiguous tensor: in ``dtype`` (None: the leaf's own
     dtype), on the leaf's device (numpy leaves: the CPU)."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(modules, leaf, x):
-        name, value = _torch_leaf(modules, leaf, x)
-        key = ".".join(modules + [name])
+    for _, key, value in flax_entries(params):
         if key in sd:
             raise KeyError(f"parameter {key} given twice (mixed layer layouts?)")
         value = value if dtype is None else value.to(dtype)
         sd[key] = value.clone(memory_format=torch.contiguous_format)
-
-    for path, x in _flatten(params):
-        *modules, leaf = path
-        if "layers" in modules:  # scan layout: leading [num_layers] axis
-            i = modules.index("layers")
-            for n in range(x.shape[0]):
-                put(modules[:i + 1] + [str(n)] + modules[i + 1:], leaf, x[n])
-        else:
-            mods: List[str] = []
-            for m in modules:
-                match = _LAYER_RE.match(m)
-                mods += ["layers", str(int(match.group(1)))] if match else [m]
-            put(mods, leaf, x)
     return sd
 
 

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of merlot_reserve_tpu_torch
-(and running chip_smoke.py or a scripts/*_torch.py, the prep scripts
-included) loads no JAX,
+(and running chip_smoke.py, a scripts/*_torch.py, the prep scripts
+included, or a demo/*_torch.py) loads no JAX,
 flax, optax, merlot_reserve_tpu, HuggingFace tokenizers, msgpack, ml_dtypes
 or PIL module, and the entry
 points refuse to run on their default device, the CUDA card, where there is
@@ -102,6 +102,8 @@ def test_importing_every_port_module_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py", "bench_torch.py"]
                          + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+                             "*_torch.py"))
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "demo").glob(
                              "*_torch.py")))
 def test_no_source_imports_jax(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -201,6 +203,69 @@ def test_entry_points_refuse_a_missing_card(tmp_path):
         ckpt = [] if main is validate_main else ["-ckpt", missing]
         with pytest.raises(RuntimeError, match="cuda"):
             main(["base", *ckpt, *argv])
+
+
+SERVING_TOOLS = ("merlot_reserve_tpu_torch.export", "scripts.export_serving_torch",
+                 "scripts.convert_checkpoint_torch", "scripts.vcr_leaderboard_torch",
+                 "demo.demo_video_torch", "demo.zero_shot_qa_torch", "demo.zero_shot_ek100_torch",
+                 "demo.load_video_torch")
+
+
+def test_serving_tools_and_demos_load_no_jax():
+    """export.py, the export, converter and leaderboard scripts and the four
+    demos import (and their heavy imports, made inside the functions, with
+    them) with no JAX, flax, msgpack or merlot_reserve_tpu module loaded."""
+    code = ("import importlib, json, sys\n"
+            f"for m in {SERVING_TOOLS!r}: importlib.import_module(m)\n"
+            "import merlot_reserve_tpu_torch.models, merlot_reserve_tpu_torch.finetune.train\n"
+            "import merlot_reserve_tpu_torch.zero_shot, merlot_reserve_tpu_torch.preprocess\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(SERVING_TOOLS) <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_serving_tools_and_demos_refuse_a_missing_card(tmp_path):
+    """Each entry point of the serving tools and demos refuses the missing
+    card before it reads a file, unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from demo.demo_video_torch import main as demo_video_main
+    from demo.load_video_torch import load_video
+    from demo.load_video_torch import main as load_video_main
+    from demo.zero_shot_ek100_torch import main as ek100_main
+    from demo.zero_shot_qa_torch import main as qa_main
+    from merlot_reserve_tpu_torch.export import export_serving_artifact, load_serving_artifact
+    from scripts.export_serving_torch import main as export_main
+    from scripts.vcr_leaderboard_torch import main as leaderboard_main
+
+    missing = str(tmp_path / "missing")
+    cfg = load_config("base", **TINY)
+    with pytest.raises(RuntimeError, match="cuda"):
+        export_serving_artifact(MerlotReserve(cfg, device="meta"), {}, {}, missing)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_serving_artifact(missing)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_video(missing, missing)
+    for main, argv in (
+            (export_main, ["base", "-ckpt", missing, "-out", missing]),
+            (leaderboard_main, ["base", "-ckpt", missing, "-test_fns", missing]),
+            (demo_video_main, [missing, "-ckpt", missing, "--options", "a,b"]),
+            (qa_main, ["infer", "--videos", missing, "--qa", missing, "--vocab", missing,
+                       "-ckpt", missing]),
+            (ek100_main, ["extract", "--videos", missing, "--annotations", missing, "--out",
+                          missing, "-ckpt", missing]),
+            (ek100_main, ["eval", "--feats", missing, "--annotations", missing,
+                          "--verb_classes", missing, "--noun_classes", missing,
+                          "-ckpt", missing]),
+            (load_video_main, [missing, "-vtt", missing])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):

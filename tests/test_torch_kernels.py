@@ -413,6 +413,45 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_exported_artifact_on_card_launches_the_kernel(cuda_device, tmp_path):
+    """A tiny model's serving artifact exported on the card: the programs
+    keep the flash_fwd operator (one launch per joint layer per batch) and
+    give the live model's output on the same f16-rounded weights, within
+    1e-6 in f32."""
+    from merlot_reserve_tpu_torch.export import export_serving_artifact, load_serving_artifact
+    from merlot_reserve_tpu_torch.serving import VideoEmbedService
+    from merlot_reserve_tpu_torch.utils.weights import flax_tensors_from_state_dict
+
+    cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
+                      audio_num_layers=2, span_num_layers=2, output_grid=(4, 4),
+                      use_bfloat16=False, joint_attention_impl="flash")
+    live = MerlotReserve(cfg, device=cuda_device)
+    with torch.no_grad():
+        for p in live.parameters():
+            p.copy_(p.half().float())
+    tree = flax_tensors_from_state_dict({k: p.detach() for k, p in live.named_parameters()})
+    rng = np.random.RandomState(0)
+    tokens = np.zeros(20, np.int32)
+    tokens[:12] = 5
+    subseg = np.zeros(20, np.int32)
+    subseg[:12] = np.arange(12) // 6
+    videos = [{"images": rng.randn(2, 16, 768).astype(np.float32),
+               "audio_clips": rng.randn(6, 60, 65).astype(np.float32),
+               "tokens": tokens, "subseg_idxs": subseg} for _ in range(3)]
+    manifest = export_serving_artifact(MerlotReserve(cfg, device="meta"), tree, videos[0],
+                                       str(tmp_path), batch_size=2, num_options=4)
+    assert manifest["platforms"] == ["cuda"]
+    svc = load_serving_artifact(str(tmp_path))
+    before = kernels.LAUNCHES["flash_fwd"]
+    out = svc.embed(videos[:2])
+    assert kernels.LAUNCHES["flash_fwd"] == before + cfg.model.joint_num_layers
+    want = VideoEmbedService(live, batch_size=2, device=cuda_device).embed(videos[:2])
+    # f32: the two runs' matrix products may differ in the last bits (1.5e-7
+    # read on an H100 80GB HBM3); bf16 (chip_smoke phase 19) agreed exactly
+    np.testing.assert_allclose(out, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
 def test_tiny_pretrainer_step_on_card_matches_cpu(cuda_device):
     """One f32 train_step from the same weights, batch and draws: the kernel
     path on the card (joint and span attention through flash_fwd and the f32
