@@ -163,6 +163,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    --to-layers then --to-scan, bit for bit; ``scripts/vcr_leaderboard_torch.py``
    with phase 17's finetuned VCR state on phase 17's records and on 16
    records of ``prep_vcr_torch.vcr_record`` with leaderboard ids (4 rows).
+20. distributed: the base pretraining step (batch 8, ``flash``, 3 steps)
+   through ``run_pretraining`` as a job of one process over NCCL
+   (``parallel.distributed``; ZeRO-1 on, every collective issued) against
+   the one-process path run twice: steps 1-2's losses bit for bit, step 3's
+   and the f32 params, mu and nu after it within the one-process runs'
+   own distance (``DIST_LOSS_TOL``, ``DIST_STATE_FACTOR``), launches per
+   step, the comm audit per step, both clocks; two
+   processes on the one card (``--rank-worker``): which backend takes
+   them, and where gloo takes a layout's collectives, dp 2 and tp 2 held
+   against world 1's losses; the memory planner against the measured peaks.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -3959,6 +3969,503 @@ def phase_export(card, pretrained=None, vcr=None, device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training across processes
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+# World 1 against the one-process path. The first two steps see the seed's
+# weights (the first update has lr scale 0) and the forward has no atomics:
+# their losses are held bit for bit. After the second update the
+# one-process path does not repeat itself on the card (dq's f32 atomics in
+# the flash backward), so the third step's losses and the state after three
+# steps are held against two one-process runs:
+#   * each loss term of step 3 within DIST_LOSS_TOL of both. Two runs make a
+#     poor spread (1.9e-6 apart once, where the step-3 totals of 12 runs over
+#     four calls on an H100 80GB HBM3 at 700 W spanned 6.1e-5); the
+#     tolerance is stated instead, and the run checks that it is below a
+#     quarter of the total's own step-2 to step-3 change (2.3e-3 there), so
+#     a world-1 run that skipped its update fails;
+#   * the f32 params, mu and nu (decoded from its cube-root bf16), each on
+#     its own: the L2 distance of world 1's from each one-process run's
+#     within DIST_STATE_FACTOR times the distance between the two
+#     one-process runs (the ratio was 0.99-1.01 for params and mu in two
+#     calls), and that limit below the distance the one-process run moved
+#     them from where they started (the seed's weights, zero moments; the
+#     runs' distance was 14% of it), so that a run that skipped or garbled
+#     its updates fails.
+DIST_LOSS_TOL = 2e-4
+DIST_STATE_FACTOR = 2.0
+# two ranks sharing the one card (a probe's verdict decides whether they
+# run): losses of the bf16 step against world 1's, each term within this
+# (rows split otherwise over the ranks, bf16 compute, sums in bf16 over the
+# ranks; 6.1e-5 the most that four runs of each layout showed), which the
+# run checks to be below a quarter of world 1's step-2 to step-3 change of
+# the total, so that a layout that never updates fails. tp 2 runs with both
+# remat knobs (the same numbers: remat recomputes the same operations), so
+# that two processes that each hold the full activations fit on the one
+# card. A layout runs where the backend took every collective it issues; pp
+# and the rings also send
+TWO_RANK_LOSS_TOL = 5e-4
+TWO_RANK_LAYOUTS = {
+    "dp2": (dict(dp=2), {}),
+    "tp2": (dict(dp=1, tp=2), dict(gradient_checkpoint=True, tower_gradient_checkpoint=True))}
+TWO_RANK_NEEDS = ("all_reduce", "reduce_scatter", "all_gather")
+TWO_RANK_OPS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all", "broadcast",
+                "send_recv")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _job_env(rank, world, port, local_rank=None, local_world=None):
+    """torchrun's variables for one rank of a job on this machine."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank if local_rank is None else local_rank),
+            "LOCAL_WORLD_SIZE": str(world if local_world is None else local_world),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _state_tensors(state):
+    """(f32 params, mu, nu) of a train state by entry name: the model's and
+    optimizer's, or a sharded optimizer's masters (at world 1 every entry
+    whole, under its name)."""
+    opt = state.optimizer
+    inner = getattr(opt, "inner", None)
+    if inner is not None:
+        return inner.params, inner.mu, inner.nu
+    return dict(state.model.named_parameters()), opt.mu, opt.nu
+
+
+def _dist_cfg():
+    from merlot_reserve_tpu_torch import load_config
+
+    cfg = load_config("base", joint_attention_impl="flash")
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+
+
+def _dist_arm(cfg, batch, mesh):
+    """``run_pretraining`` for DIST_STEPS steps under ``mesh`` (None: the
+    one-process path): losses, launches, the comm audit per step, both
+    clocks, the peak; and the final f32 params, mu and nu on the host."""
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+    from merlot_reserve_tpu_torch.parallel import comm
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.training.trainer import train_step
+
+    logged, stamps, marks = [], [], []
+    with comm.recording() as records:
+        def log_fn(step, metrics):  # after every step (log_every 0)
+            stamps.append(time.perf_counter())
+            logged.append(metrics)
+            marks.append(len(records))
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state = run_pretraining(cfg, itertools.repeat(batch), num_steps=DIST_STEPS,
+                                log_fn=log_fn, log_every=0, device="cuda", seed=0, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    per_step = [comm.summarize_records(records[a:b])
+                for a, b in zip([0] + marks[:-1], marks)]
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    host_med = float(sorted(step_ms[1:])[len(step_ms[1:]) // 2])
+    dev_batch = batch_to_tensors(batch, "cuda")
+    with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        device_ms = cuda_time_ms(lambda: train_step(state, dev_batch), iters=3, warmup=1)
+    final = [{n: t.detach().cpu() for n, t in d.items()} for d in _state_tensors(state)]
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": logged, "launches": launches, "comm": per_step,
+            "step_ms_host": step_ms, "step_ms_host_median": host_med,
+            "step_ms_device": device_ms, "max_memory_allocated_bytes": peak}, final
+
+
+def _same_bits(a, b):
+    """Whether two name -> tensor dicts hold the same bits."""
+    import torch
+
+    def same(x, y):
+        view = torch.int32 if x.element_size() == 4 else torch.int16
+        return x.shape == y.shape and torch.equal(x.view(view), y.view(view))
+
+    return a.keys() == b.keys() and all(same(a[n], b[n]) for n in a)
+
+
+def _max_abs(a, b):
+    return max((a[n].float() - b[n].float()).abs().max().item() for n in a)
+
+
+def _l2(a, b=None):
+    """The L2 norm over every entry of ``a - b`` (of ``a`` without ``b``), in f64."""
+    total = 0.0
+    for n, x in a.items():
+        d = x.double() if b is None else x.double() - b[n].double()
+        total += float(d.square().sum())
+    return total ** 0.5
+
+
+def _run_ranks(mode, world, extra, timeout):
+    """``python chip_smoke.py --rank-worker`` as ``world`` ranks of a job on
+    this card (LOCAL_RANK 0 each); (exit codes, the last JSON line of each)."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, **_job_env(rank, world, port, local_rank=0, local_world=1))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", mode,
+             json.dumps(extra)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs, deadline = [], time.time() + timeout
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n[killed at the time limit]")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    lines = []
+    for out in outs:
+        found = [x for x in out.strip().splitlines() if x.startswith("{")]
+        line = json.loads(found[-1]) if found else {}
+        if not found or "terminate" in out or "killed" in out:
+            line["error"] = out[-800:]
+        lines.append(line)
+    return [p.returncode for p in procs], lines
+
+
+def rank_worker(mode, extra):
+    """One rank of phase 20's jobs on the one card (``--rank-worker``).
+
+    probe: start a group of ``extra['backend']`` on the card's tensors and
+    try each collective the port issues; prints {op: "ok" or the error}.
+    train: ``run_pretraining`` of the base config at ``extra['layout']``
+    over gloo on the card's tensors, the batch split over dp; rank 0 prints
+    the losses, the seconds and its peak. The port's ``initialize`` starts
+    NCCL on a card, which refuses two ranks on one device, so the worker
+    starts the gloo group and lays out the process mesh itself."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    rank = int(os.environ["RANK"])
+    if mode == "probe":
+        out = {}
+        try:
+            kw = {"device_id": torch.device("cuda", 0)} if extra["backend"] == "nccl" else {}
+            torch.cuda.set_device(0)
+            dist.init_process_group(
+                extra["backend"], init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                rank=rank, world_size=2, **kw)
+        except Exception as e:  # the verdict is the output
+            print(json.dumps({"init": f"{type(e).__name__}: {str(e)[:300]}"}), flush=True)
+            return 0
+        out["init"] = "ok"
+        x = torch.ones(8, dtype=torch.bfloat16, device="cuda") * (rank + 1)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        ops = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+               "reduce_scatter": lambda: scatter(torch.empty(4, dtype=x.dtype, device="cuda"),
+                                                 x.clone()),
+               "all_gather": lambda: gather(torch.empty(16, dtype=x.dtype, device="cuda"),
+                                            x.clone()),
+               "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x), x.clone()),
+               "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+               "send_recv": lambda: [w.wait() for w in dist.batch_isend_irecv([
+                   dist.P2POp(dist.isend, x.clone(), 1 - rank),
+                   dist.P2POp(dist.irecv, torch.empty_like(x), 1 - rank)])]}
+        # a line after every op: an op that kills the process (gloo's send of
+        # a CUDA tensor can end in std::terminate) leaves the others' verdicts
+        print(json.dumps(out), flush=True)
+        for name in TWO_RANK_OPS:
+            try:
+                ops[name]()
+                torch.cuda.synchronize()
+                out[name] = "ok"
+            except Exception as e:
+                out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+            print(json.dumps(out), flush=True)
+        dist.destroy_process_group()
+        return 0
+    import numpy as np
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.parallel import comm
+    from merlot_reserve_tpu_torch.parallel.mesh import Mesh
+    from merlot_reserve_tpu_torch.parallel.sharding import local_rows
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            rank=rank, world_size=2)
+    try:
+        axes, model = TWO_RANK_LAYOUTS[extra["layout"]]
+        cfg = _dist_cfg()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model))
+        shape = (1, axes.get("dp", 1), 1, 1, axes.get("tp", 1))  # (dcn, dp, sp, pp, tp)
+        devices = np.empty(shape, dtype=object)
+        devices.fill(torch.device("cuda", 0))
+        mesh = Mesh(devices, ("dcn", "dp", "sp", "pp", "tp"), ranks=np.arange(2).reshape(shape))
+        batch = local_rows(mesh, make_dummy_batch(cfg, TRAIN_BATCH, seed=0))
+        logged = []
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with comm.recording() as records:
+            run_pretraining(cfg, itertools.repeat(batch), num_steps=DIST_STEPS,
+                            log_fn=lambda s, m: logged.append(m), log_every=0,
+                            device="cuda", seed=0, mesh=mesh)
+        seconds = time.perf_counter() - t0
+        if rank == 0:
+            print(json.dumps({"losses": logged, "seconds": seconds,
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "launches": dict(kernels.LAUNCHES),
+                              "comm": comm.summarize_records(records)}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_world1(card, cfg, batch, train):
+    """Phase 20 (a): world 1 over NCCL against two one-process runs and
+    phase 5; (the phase's record, world 1's arm)."""
+    import torch
+
+    from merlot_reserve_tpu_torch.models.pretrainer import MerlotReservePretrainer
+    from merlot_reserve_tpu_torch.parallel import distributed, memory
+    from merlot_reserve_tpu_torch.parallel.mesh import make_mesh
+    from merlot_reserve_tpu_torch.training.optimization import unsigned_bfloat16_decode
+
+    saved_env = {k: os.environ.get(k) for k in _job_env(0, 1, 0)}
+    os.environ.update(_job_env(0, 1, _free_port()))
+    try:
+        dev = distributed.initialize("cuda")
+        check(distributed.backend() == "nccl" and dev == torch.device("cuda", 0),
+              f"world 1: backend {distributed.backend()} on {dev}")
+        mesh = make_mesh()
+        check(mesh.is_process_mesh and mesh.size(mesh.axis_names) == 1,
+              f"make_mesh() after initialize: {mesh}")
+        arms, finals = {}, {}
+        for name, m in (("one_process", None), ("world1_nccl", mesh),
+                        ("one_process_again", None)):
+            arms[name], finals[name] = _dist_arm(cfg, batch, m)
+            print(f"[dist] {card}: {name}: totals "
+                  f"{[m_['total'] for m_ in arms[name]['losses']]}, host ms "
+                  f"{[round(t, 1) for t in arms[name]['step_ms_host']]}, device "
+                  f"{arms[name]['step_ms_device']:.1f} ms, peak "
+                  f"{arms[name]['max_memory_allocated_bytes'] / 2**30:.2f} GiB", flush=True)
+    finally:
+        distributed.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref, again, dist_arm = arms["one_process"], arms["one_process_again"], arms["world1_nccl"]
+    phase5 = [m_["total"] for m_ in train["losses"][:DIST_STEPS]]
+    for i in range(DIST_STEPS - 1):  # the seed's weights: bit for bit, phase 5's too
+        check(dist_arm["losses"][i] == ref["losses"][i] and
+              dist_arm["losses"][i]["total"] == phase5[i],
+              f"world 1 step {i} losses {dist_arm['losses'][i]} != the one-process "
+              f"{ref['losses'][i]} (phase 5 total {phase5[i]})")
+    last = DIST_STEPS - 1
+    terms = [k for k in ref["losses"][last] if not k.startswith("_")]
+    loss_gap = {k: max(abs(dist_arm["losses"][last][k] - r["losses"][last][k])
+                       for r in (ref, again)) for k in terms}
+    loss_spread = {k: abs(ref["losses"][last][k] - again["losses"][last][k]) for k in terms}
+    step_change = abs(dist_arm["losses"][last - 1]["total"] - dist_arm["losses"][last]["total"])
+    check(DIST_LOSS_TOL < step_change / 4,
+          f"world 1: the tolerance {DIST_LOSS_TOL} does not tell an update from none (the "
+          f"total moved {step_change} from step {last - 1} to {last})")
+    for k in terms:
+        check(loss_gap[k] <= DIST_LOSS_TOL,
+              f"world 1 step {last} {k}: {loss_gap[k]} from the one-process runs beyond "
+              f"{DIST_LOSS_TOL} (the two runs {loss_spread[k]} apart)")
+    # the state after DIST_STEPS steps, each of params, mu and nu on its own
+    start = {n: p.detach().float().cpu() for n, p in
+             MerlotReservePretrainer(cfg, device="cuda", seed=0).named_parameters()}
+    torch.cuda.empty_cache()
+    state = {}
+    for i, kind in enumerate(("params", "mu", "nu")):
+        one, other, w1 = (finals[a][i] for a in ("one_process", "one_process_again",
+                                                 "world1_nccl"))
+        if kind == "nu":
+            one, other, w1 = ({n: unsigned_bfloat16_decode(t) for n, t in d.items()}
+                              for d in (one, other, w1))
+        st = {"spread": _l2(one, other), "gap": max(_l2(w1, one), _l2(w1, other)),
+              "moved": _l2(one, start) if kind == "params" else _l2(one),
+              "max_abs_gap": _max_abs(w1, one), "max_abs_spread": _max_abs(other, one),
+              "bit_for_bit": _same_bits(w1, one)}
+        limit = DIST_STATE_FACTOR * st["spread"]
+        check(limit < st["moved"],
+              f"world 1 {kind}: {DIST_STATE_FACTOR} x the one-process runs' distance "
+              f"{st['spread']:.4g} is not below the distance they moved {st['moved']:.4g}")
+        check(st["gap"] <= limit,
+              f"world 1 {kind}: L2 distance {st['gap']:.4g} from the one-process runs beyond "
+              f"{DIST_STATE_FACTOR} x their own {st['spread']:.4g}")
+        state[kind] = st
+        print(f"[dist] {card}: world 1 vs one process, {kind} after {DIST_STEPS} steps: L2 "
+              f"{st['gap']:.4g} (limit {limit:.4g}; the two one-process runs {st['spread']:.4g} "
+              f"apart; moved {st['moved']:.4g} from the start), max |diff| "
+              f"{st['max_abs_gap']:.3g} (one-process runs {st['max_abs_spread']:.3g}), bit for "
+              f"bit {st['bit_for_bit']}", flush=True)
+    per_step = cfg.model.joint_num_layers + cfg.model.span_num_layers
+    for name in ("flash_fwd", *BWD_LAUNCHES):
+        check(dist_arm["launches"].get(name, 0) == per_step * DIST_STEPS,
+              f"world 1: {name} launches {dist_arm['launches'].get(name, 0)} != "
+              f"{per_step} x {DIST_STEPS}")
+    check(dist_arm["launches"].get("adam_update", 0) == DIST_STEPS,
+          f"world 1: adam_update launches {dist_arm['launches'].get('adam_update', 0)} != "
+          f"{DIST_STEPS}")
+    audit = dist_arm["comm"][0]
+    check(audit.get("all-reduce", {}).get("what", {}).get("grads") == 1 and
+          audit["all-reduce"]["what_bytes"]["grads"] == 2 * memory.param_count(cfg),
+          f"world 1: the gradients' all-reduce {audit.get('all-reduce')}")
+    for i, summary in enumerate(dist_arm["comm"]):
+        ops = {op: (v["count"], v["bytes"], v["what"]) for op, v in summary.items()
+               if isinstance(v, dict)}
+        print(f"[dist] {card}: world 1 step {i} comm audit (op: count, bytes, what): {ops}",
+              flush=True)
+    print(f"[dist] {card}: world 1 over NCCL vs the one-process path: steps 1-{DIST_STEPS - 1} "
+          f"losses bit for bit; step {DIST_STEPS} loss terms within {loss_gap} (the one-process "
+          f"runs {loss_spread} apart; the update moved the total {step_change:.3g}); step ms "
+          f"host {dist_arm['step_ms_host_median']:.1f} (one process "
+          f"{ref['step_ms_host_median']:.1f}, phase 5 {train['step_ms_host_median']:.1f}), "
+          f"device {dist_arm['step_ms_device']:.1f} (one process {ref['step_ms_device']:.1f}, "
+          f"phase 5 {train['step_ms_device']:.1f})", flush=True)
+    return {"arms": arms, "phase5_totals": phase5, "last_step_loss_gap": loss_gap,
+            "last_step_loss_spread": loss_spread, "loss_step_change": step_change,
+            "state": state}, dist_arm
+
+
+def _dist_two_ranks(card, cfg, dist_arm):
+    """Phase 20 (b): two ranks on the one card, NCCL and gloo probed; the
+    base step at dp 2 and tp 2 where a backend takes them."""
+    import torch
+
+    per_step = cfg.model.joint_num_layers + cfg.model.span_num_layers
+    probe = {}
+    for backend in ("nccl", "gloo"):
+        codes, lines = _run_ranks("probe", 2, {"backend": backend}, timeout=120)
+        probe[backend] = {"exit_codes": codes, "ranks": lines}
+        print(f"[dist] {card}: two ranks on one card over {backend}: {lines}", flush=True)
+    usable = [b for b in ("nccl", "gloo")
+              if all(r.get("init") == "ok" and all(r.get(op) == "ok" for op in TWO_RANK_NEEDS)
+                     for r in probe[b]["ranks"])]
+    res = {"probe": probe, "backends_for_dp_and_tp": usable, "layouts": {}}
+    print(f"[dist] {card}: backends that take dp 2 and tp 2 on one card: {usable}", flush=True)
+    if "gloo" not in usable:
+        return res
+    world1 = dist_arm["losses"]
+    step_change = abs(world1[-2]["total"] - world1[-1]["total"])
+    check(TWO_RANK_LOSS_TOL < step_change / 4,
+          f"two ranks: the tolerance {TWO_RANK_LOSS_TOL} does not tell an update from none "
+          f"(world 1's total moved {step_change} in its last step)")
+    torch.cuda.empty_cache()
+    for layout in TWO_RANK_LAYOUTS:
+        codes, lines = _run_ranks("train", 2, {"layout": layout}, timeout=300)
+        check(codes == [0, 0] and "losses" in lines[0],
+              f"{layout} on one card over gloo: {codes} {lines}")
+        diffs = [max(abs(a[k] - b[k]) for k in b if not k.startswith("_"))
+                 for a, b in zip(lines[0]["losses"], world1)]
+        check(max(diffs) <= TWO_RANK_LOSS_TOL,
+              f"{layout}: losses {diffs} from world 1's beyond {TWO_RANK_LOSS_TOL}")
+        # each rank's update is one launch (under ZeRO-1 on its shard);
+        # under remat every layer's forward runs again in the backward;
+        # the parameters come back as bf16 all-gathers at dp 2
+        launches = lines[0]["launches"]
+        forwards = 2 if TWO_RANK_LAYOUTS[layout][1] else 1
+        check(launches.get("adam_update") == DIST_STEPS and
+              launches.get("flash_fwd") == forwards * per_step * DIST_STEPS and
+              all(launches.get(n) == per_step * DIST_STEPS for n in BWD_LAUNCHES),
+              f"{layout} rank 0 launches {launches}")
+        gathers = lines[0]["comm"].get("all-gather", {})
+        if TWO_RANK_LAYOUTS[layout][0]["dp"] > 1:
+            check(gathers.get("what", {}).get("params", 0) >= DIST_STEPS and
+                  lines[0]["comm"]["reduce-scatter"]["dtypes"].get("bfloat16", 0) >=
+                  DIST_STEPS, f"{layout}: the ZeRO-1 collectives {lines[0]['comm']}")
+        res["layouts"][layout] = dict(lines[0], loss_diffs=diffs)
+        print(f"[dist] {card}: {layout}, two ranks on one card over gloo: totals "
+              f"{[m_['total'] for m_ in lines[0]['losses']]}, max loss diff to world 1 "
+              f"{max(diffs):.3g} (limit {TWO_RANK_LOSS_TOL}; world 1's last step moved the "
+              f"total {step_change:.3g}), {lines[0]['seconds']:.1f} s", flush=True)
+    return res
+
+
+def phase_distributed(card, train, long, fixres):
+    """Phase 20: training across processes. (a) world 1 over NCCL: the base
+    step, batch 8, through ``run_pretraining`` on a process mesh of one
+    rank (ZeRO-1 on, every collective issued), against the one-process path
+    of phase 5 run here twice more: the losses of each step, the f32 params
+    and the moments after the last (see DIST_LOSS_TOL); launches per step;
+    the comm audit per step; both clocks. (b) two ranks on the one card:
+    which backend takes them (a probe of every collective the port issues,
+    NCCL and gloo), and where one does, the base step at dp 2 and tp 2
+    against world 1's losses. (c) the memory planner against the peaks of
+    phases 5, 10, 16 and (a)."""
+    import torch
+
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.parallel import memory
+
+    cfg = _dist_cfg()
+    batch = make_dummy_batch(cfg, TRAIN_BATCH, seed=0)
+    res = {}
+    res["world1"], dist_arm = _dist_world1(card, cfg, batch, train)
+    torch.cuda.empty_cache()
+    res["two_ranks"] = _dist_two_ranks(card, cfg, dist_arm)
+
+    # (c) the planner against the card
+    from scripts.pretrain_fixres_torch import POSSIBLE_RES, fixres_config
+
+    long_cfg = _long_train_config(True)
+    fx = [fixres_config("base", g, num_steps=1000, warmup=1, lr_scale=0.02) for g in POSSIBLE_RES]
+    mixed = memory.estimate_train_hbm(fx[0], FIXRES_BATCH // 2)
+    rows = {
+        "base_b8 (phase 5)": (memory.estimate_train_hbm(cfg, TRAIN_BATCH)["total"],
+                              train["max_memory_allocated_bytes"]),
+        "base_b8 world 1 (phase 20)": (memory.estimate_train_hbm(cfg, TRAIN_BATCH)["total"],
+                                       dist_arm["max_memory_allocated_bytes"]),
+        "fixres_b8 (phase 16)": (mixed["total"] + memory.estimate_train_hbm(
+            fx[1], FIXRES_BATCH // 2)["activation_bytes"], fixres["max_memory_allocated_bytes"]),
+        "longvideo_b4 ring:flash (phase 10)": (
+            memory.estimate_train_hbm(long_cfg, LONG_TRAIN_BATCH)["total"],
+            long["arms"]["ring_flash_sp4"]["max_memory_allocated_bytes"]),
+        "longvideo_b4 flash (phase 10)": (
+            memory.estimate_train_hbm(_long_train_config(False), LONG_TRAIN_BATCH)["total"],
+            long["arms"]["flash"]["max_memory_allocated_bytes"]),
+    }
+    for layout, run in res["two_ranks"]["layouts"].items():  # rank 0 of each
+        axes, model = TWO_RANK_LAYOUTS[layout]
+        remat = bool(model)
+        rows[f"base_b8 {layout} rank 0 (phase 20)"] = (memory.estimate_train_hbm(
+            cfg, TRAIN_BATCH // axes["dp"], zero1_dp=axes["dp"], tp=axes.get("tp", 1),
+            remat=remat, tower_remat=remat)["total"], run["peak_bytes"])
+    res["planner"] = {k: {"predicted_gib": p / 2**30, "measured_gib": m / 2**30,
+                          "error": (p - m) / m} for k, (p, m) in rows.items()}
+    for k, v in res["planner"].items():
+        print(f"[dist] {card}: planner {k}: predicted {v['predicted_gib']:.2f} GiB, "
+              f"max_memory_allocated {v['measured_gib']:.2f} GiB ({100 * v['error']:+.1f}%)",
+              flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -3973,6 +4480,8 @@ def main():
         print(f"chip_smoke: cannot import the port ({e}); run it from a checkout",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase 20's jobs
+        return rank_worker(sys.argv[2], json.loads(sys.argv[3]))
 
     dev = phase_device()
     build = phase_build()
@@ -4003,6 +4512,7 @@ def main():
                                 str(CKPT_DIR / "vcr_finetuned"))
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    distributed = phase_distributed(dev["nvidia_smi"], train, long, fixres)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -4033,7 +4543,9 @@ def main():
                                **{f"exported_{call}": n.get(name, 0) for call, n in
                                   exported["launches_per_call"].items()},
                                **{f"leaderboard_{k}": r["launches"].get(name, 0)
-                                  for k, r in exported["leaderboard"].items()}}
+                                  for k, r in exported["leaderboard"].items()},
+                               "train_world1_nccl": distributed["world1"]["arms"]
+                               ["world1_nccl"]["launches"].get(name, 0)}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
@@ -4151,7 +4663,7 @@ def main():
               "finetune_fwd_kernels": ft_fwd, "finetune_bwd_kernels": ft_bwd,
               "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
               "fixres_bwd_kernels": fixres_bwd, "downstream": down, "created": created,
-              "export": exported, "kernels_line": kernels_line}
+              "export": exported, "distributed": distributed, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

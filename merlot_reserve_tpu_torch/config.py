@@ -27,8 +27,9 @@ class ModelConfig:
     """Model tower dims; defaults follow the reference's base.yaml.
 
     Every field of the JAX package's ModelConfig is kept, so one YAML file
-    means the same model in both packages. The port does not implement
-    ``pipeline_axis`` yet: ``MerlotReserve`` raises when it is set.
+    means the same model in both packages. ``pipeline_axis`` and
+    ``pipeline_microbatches`` run the joint layers as a GPipe pipeline over
+    that mesh axis (``parallel/pipeline.py``).
     ``gradient_checkpoint`` and ``tower_gradient_checkpoint`` recompute the
     joint and the modality towers' layers in the backward with the
     ``gradient_checkpoint_policy`` of ``models.layers.resolve_remat_policy``;

@@ -108,6 +108,22 @@ class BuilderDraws:
         return torch.minimum((u * high).long(), high.long() - 1)
 
 
+class RowShardDraws(BuilderDraws):
+    """``BuilderDraws`` for rank ``index`` of ``count`` data-parallel ranks:
+    every site draws for the global batch (``count`` times the rows of the
+    shape asked for, dim 0 being the batch) and hands back this rank's
+    contiguous rows, so a batch's draws do not depend on the layout."""
+
+    def __init__(self, seed: int, step: int, device, index: int, count: int):
+        super().__init__(seed, step, device)
+        self.index, self.count = index, count
+
+    def uniform(self, site: str, shape, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+        shape = tuple(shape)
+        full = super().uniform(site, (shape[0] * self.count,) + shape[1:], low, high)
+        return full[self.index * shape[0]:(self.index + 1) * shape[0]]
+
+
 def _compact(triples, valid, out_len: int):
     """Stable-compact valid [B, L, 3] rows to the front, pad or cut to
     out_len (the device analogue of pad_tokens_to_fixed_size after a

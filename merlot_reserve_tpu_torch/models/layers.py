@@ -9,6 +9,17 @@ LayerNorm statistics in f32. Attention masks travel as per-position labels
 (is_valid, segment_ids) down to ``ops.attention``. ``TransformerEncoder``
 recomputes its layers in the backward under ``remat`` (the JAX package's
 ``nn.remat``), with ``torch.utils.checkpoint``.
+
+Under a process mesh (``parallel.mesh``) the layers run Megatron tensor
+parallelism once ``parallel.sharding.ShardPlan.shard_model_`` has cut
+them (``shard_tp_``): qkv and the MLP's intermediate are column parallel
+(the rank's heads, its share of the hidden units), attn_proj and the
+MLP's out row parallel, one all-reduce per pair in the forward and one in
+the backward (``parallel.comm``); the attention runs on the rank's heads.
+A ``TransformerEncoder`` whose attention is sequence parallel across
+processes splits its sequence over the axis for its layers, and one with
+``pipeline_axis`` runs its layers as a GPipe pipeline
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from merlot_reserve_tpu_torch.ops import attention as attn_ops
 from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
-from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, current_mesh
+from merlot_reserve_tpu_torch.parallel import comm
+from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, current_mesh, process_mesh
 
 
 def kernel_stddev(flax_shape: Sequence[int]) -> float:
@@ -64,6 +76,29 @@ def layer_norm(x, layer: nn.LayerNorm, dtype):
                         layer.bias.float(), layer.eps).to(dtype)
 
 
+def _tp_mesh(module: nn.Module):
+    """The process mesh a tensor-parallel module runs on (None when the
+    module was not cut for tp)."""
+    if not getattr(module, "tp", False):
+        return None
+    mesh = process_mesh()
+    if mesh is None:
+        raise RuntimeError(f"{type(module).__name__} holds a tensor-parallel share: run it "
+                           "under its process mesh (parallel.mesh.activate_mesh)")
+    return mesh
+
+
+def _tp_bias(bias, mesh, blocks: int):
+    """The rank's share of a column-parallel layer's whole bias (held
+    replicated, as the JAX package's rules hold it): ``blocks`` equal
+    blocks (q, k, v: 3), each cut over tp. The bias's gradient is summed
+    over tp in the backward, so every rank holds all of it."""
+    n, i = mesh.shape["tp"], mesh.axis_index("tp")
+    b = comm.copy_to_parallel(bias, mesh, "tp").reshape(blocks, -1)
+    k = b.shape[1] // n
+    return b[:, i * k:(i + 1) * k].reshape(-1)
+
+
 def my_gelu(x):
     """Sigmoid-approximated GELU with the reference's 1.702 constant."""
     return x * torch.sigmoid(1.702 * x)
@@ -97,11 +132,26 @@ class AttentionLayer(nn.Module):
                                      (self.num_heads, size_per_head, hidden_size),
                                      generator, bias=False)
 
+    def shard_tp_(self, mesh) -> None:
+        """Run on the rank's heads: qkv and attn_proj hold their tp shares."""
+        n = mesh.shape["tp"]
+        if self.num_heads % n:
+            raise ValueError(f"{self.num_heads} heads do not split over tp={n}")
+        self.num_heads //= n
+        self.tp = True
+
     def forward(self, x, *, impl: str = "auto", sinusoids=None, is_valid=None,
                 segment_ids=None, attention_bias=None):
         *batch_dims, seq_len, _ = x.shape
         heads, d = self.num_heads, self.size_per_head
-        qkv = linear(x, self.qkv, self.dtype).reshape(*batch_dims, seq_len, 3 * heads, d)
+        mesh = _tp_mesh(self)
+        if mesh is None:
+            qkv = linear(x, self.qkv, self.dtype)
+        else:
+            qkv = F.linear(comm.copy_to_parallel(x, mesh, "tp").to(self.dtype),
+                           self.qkv.weight.to(self.dtype),
+                           _tp_bias(self.qkv.bias, mesh, 3).to(self.dtype))
+        qkv = qkv.reshape(*batch_dims, seq_len, 3 * heads, d)
         query_key, value = qkv[..., :2 * heads, :], qkv[..., 2 * heads:, :]
         if sinusoids is not None:
             query_key = rotary_ops.apply_rotary(query_key, sinusoids,
@@ -124,7 +174,8 @@ class AttentionLayer(nn.Module):
                                    segment_ids=segment_ids, bias=attention_bias,
                                    impl=impl)
         x_att = x_att.reshape(*batch_dims, seq_len, heads * d)
-        return linear(x_att, self.attn_proj, self.dtype)
+        out = linear(x_att, self.attn_proj, self.dtype)
+        return out if mesh is None else comm.reduce_from_parallel(out, mesh, "tp")
 
 
 class MLPBlock(nn.Module):
@@ -137,8 +188,18 @@ class MLPBlock(nn.Module):
         self.out = init_linear(inner, hidden_size, (inner, hidden_size), generator,
                                bias=False)
 
+    def shard_tp_(self, mesh) -> None:
+        """Run on the rank's share of the hidden units."""
+        self.tp = True
+
     def forward(self, x):
-        return linear(my_gelu(linear(x, self.intermediate, self.dtype)), self.out, self.dtype)
+        mesh = _tp_mesh(self)
+        if mesh is None:
+            return linear(my_gelu(linear(x, self.intermediate, self.dtype)), self.out, self.dtype)
+        h = F.linear(comm.copy_to_parallel(x, mesh, "tp").to(self.dtype),
+                     self.intermediate.weight.to(self.dtype),
+                     _tp_bias(self.intermediate.bias, mesh, 1).to(self.dtype))
+        return comm.reduce_from_parallel(linear(my_gelu(h), self.out, self.dtype), mesh, "tp")
 
 
 class TransformerLayer(nn.Module):
@@ -223,6 +284,43 @@ def checkpointed_call(module: nn.Module, param_names, saved_ops, *args, **kwargs
                                        context_fn=context_fn, preserve_rng_state=False)
 
 
+def run_layers(layers, x, layer_kwargs, remat_saves, param_names):
+    """``layers`` in order on ``x``, each recomputed in the backward when
+    ``remat_saves`` is not None (``checkpointed_call``)."""
+    for layer in layers:
+        if remat_saves is not None:
+            x = checkpointed_call(layer, param_names, remat_saves, x, **layer_kwargs)
+        else:
+            x = layer(x, **layer_kwargs)
+    return x
+
+
+def _split_sequence(x, layer_kwargs, mesh, axis):
+    """This rank's slice of the sequence of ``x`` [*batch, L, H] and of the
+    layers' per-position inputs (sinusoids [*, 2, L, r], labels [*, L]);
+    every rank computed them alike. The backward gathers x's gradient."""
+    n, i = mesh.size(axis), mesh.axis_index(axis)
+    seq_len = x.shape[-2]
+    if seq_len % n:
+        raise ValueError(f"sequence of {seq_len} does not split over {axis}={n}")
+    k = seq_len // n
+    kwargs = dict(layer_kwargs)
+    if kwargs.get("attention_bias") is not None:
+        raise ValueError("sequence-parallel attention takes labels, not a dense bias")
+    batch = x.shape[:-2]
+    if kwargs.get("is_valid") is None:
+        kwargs["is_valid"] = torch.ones(batch + (seq_len,), dtype=torch.int32, device=x.device)
+    if kwargs.get("segment_ids") is None:
+        kwargs["segment_ids"] = torch.zeros(batch + (seq_len,), dtype=torch.int32,
+                                            device=x.device)
+    for key in ("is_valid", "segment_ids"):
+        kwargs[key] = kwargs[key].narrow(-1, i * k, k).contiguous()
+    if kwargs.get("sinusoids") is not None:
+        sin = kwargs["sinusoids"]
+        kwargs["sinusoids"] = sin.narrow(sin.dim() - 2, i * k, k)
+    return comm.split_replicated(x, mesh, axis, x.dim() - 2, "sp"), kwargs
+
+
 class TransformerEncoder(nn.Module):
     """1-D pre-LN encoder with an optional CLS token, rotary or learned
     positions, and label-vector attention masking.
@@ -245,6 +343,14 @@ class TransformerEncoder(nn.Module):
     and keeps only what ``remat_policy`` saves (``resolve_remat_policy``),
     as the JAX package's per-layer ``nn.remat``. Without grad it runs the
     layers plainly.
+
+    With ``pipeline_axis`` and an active mesh whose axis is larger than 1,
+    the layers run as a GPipe pipeline of ``pipeline_microbatches``
+    microbatches (``parallel.pipeline.pipeline_transformer``; under a
+    process mesh this process holds its stage's layers only). When the
+    attention is sequence parallel across processes (a 'ring...' or
+    'ulysses...' impl under a process mesh), the layers run on this rank's
+    slice of the sequence and the output is gathered after them.
     """
 
     def __init__(self, hidden_size: int, num_layers: int, *, generator: torch.Generator,
@@ -253,8 +359,11 @@ class TransformerEncoder(nn.Module):
                  rotary_hsize: int = 32, attention_impl: str = "auto",
                  rotary_sign_quirk: bool = True, pe_len: Optional[int] = None,
                  seq_shard_axis: Optional[str] = None, remat: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, pipeline_axis: Optional[str] = None,
+                 pipeline_microbatches: int = 2):
         super().__init__()
+        self.pipeline_axis = pipeline_axis
+        self.pipeline_microbatches = pipeline_microbatches
         if rotary_hsize > size_per_head:
             raise ValueError("rotary_hsize exceeds size_per_head")
         # the ops whose outputs a recomputed layer saves; None: no recompute
@@ -287,6 +396,18 @@ class TransformerEncoder(nn.Module):
         self._layer_param_names = [n for n, _ in self.layers[0].named_parameters()] \
             if num_layers else []
         self.final_ln = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def sequence_split_axis(self, mesh) -> Optional[str]:
+        """The axis this encoder's layers split the sequence over under
+        ``mesh``: that of a sequence-parallel attention impl, when ``mesh``
+        is a process mesh and the axis is larger than 1; else None."""
+        if (mesh is None or not mesh.is_process_mesh
+                or not self.attention_impl.startswith(("ring", "ulysses"))):
+            return None
+        from merlot_reserve_tpu_torch.ops.ring_attention import parse_sequence_parallel_impl
+
+        _, axis = parse_sequence_parallel_impl(self.attention_impl)
+        return axis if mesh.shape.get(axis, 1) > 1 else None
 
     def forward(self, x, *, rotary_coords=None, attention_mask=None, is_valid=None,
                 segment_ids=None):
@@ -350,12 +471,23 @@ class TransformerEncoder(nn.Module):
         layer_kwargs = dict(impl=resolved, sinusoids=sinusoids, is_valid=is_valid,
                             segment_ids=segment_ids, attention_bias=attention_bias)
         remat = self.remat_saves is not None and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                x = checkpointed_call(layer, self._layer_param_names, self.remat_saves, x,
-                                      **layer_kwargs)
-            else:
-                x = layer(x, **layer_kwargs)
+        split = self.sequence_split_axis(mesh)
+        if split is not None:
+            x, layer_kwargs = _split_sequence(x, layer_kwargs, mesh, split)
+        if (self.pipeline_axis and mesh is not None
+                and mesh.shape.get(self.pipeline_axis, 1) > 1):
+            from merlot_reserve_tpu_torch.parallel.pipeline import pipeline_transformer
+
+            x = pipeline_transformer(
+                self.layers, x, layer_kwargs, mesh=mesh, axis=self.pipeline_axis,
+                num_microbatches=self.pipeline_microbatches,
+                remat_saves=self.remat_saves if remat else None,
+                param_names=self._layer_param_names)
+        else:
+            x = run_layers(self.layers, x, layer_kwargs,
+                           self.remat_saves if remat else None, self._layer_param_names)
+        if split is not None:
+            x = comm.gather_replicated(x, mesh, split, x.dim() - 2, "sp")
         x_ln = layer_norm(x, self.final_ln, self.dtype)
 
         if self.add_cls_token:

@@ -33,9 +33,6 @@ from merlot_reserve_tpu_torch.tokenizer import AUDIOSPAN, PADDING, encode_batch_
 from merlot_reserve_tpu_torch.utils.device import resolve_device
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
-# config knobs of the JAX package that the port does not implement yet
-_UNPORTED = ("pipeline_axis",)
-
 # the towers a MerlotReserve may leave out (the token embedder, the joint
 # transformer and the temperatures are always built), in build order
 OPTIONAL_TOWERS = ("vision_encoder", "audio_encoder", "span_encoder", "head")
@@ -63,9 +60,6 @@ class MerlotReserve(nn.Module):
                  towers: Sequence[str] = OPTIONAL_TOWERS):
         super().__init__()
         cfg = config.model
-        for knob in _UNPORTED:
-            if getattr(cfg, knob):
-                raise NotImplementedError(f"ModelConfig.{knob} is not ported yet")
         unknown = set(towers) - set(OPTIONAL_TOWERS)
         if unknown:
             raise ValueError(f"unknown towers {sorted(unknown)}; choose from {OPTIONAL_TOWERS}")
@@ -90,7 +84,8 @@ class MerlotReserve(nn.Module):
                 attention_impl=joint_impl, rotary_sign_quirk=cfg.rotary_sign_quirk,
                 pe_len=None if cfg.do_rotary else config.joint_seq_len,
                 seq_shard_axis=cfg.seq_shard_axis, remat=cfg.gradient_checkpoint,
-                remat_policy=cfg.gradient_checkpoint_policy)
+                remat_policy=cfg.gradient_checkpoint_policy, pipeline_axis=cfg.pipeline_axis,
+                pipeline_microbatches=cfg.pipeline_microbatches)
             if "head" in towers:
                 # named "head" like the flax param; the JAX module calls it joint_proj
                 self.head = init_linear(cfg.hidden_size, cfg.hidden_size,

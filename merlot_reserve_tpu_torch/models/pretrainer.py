@@ -18,6 +18,17 @@ from the batch's content, as the JAX package keys its draws on the content
 (``content_generator``), so a batch draws the same numbers every time. The
 port cannot reproduce ``jax.random`` bits: a test injects both draws
 (``split_at``, ``gumbel``) so that the two packages see the same numbers.
+
+Under a process mesh (``parallel.mesh``) each data-parallel rank holds its
+rows of the batch, and the step still computes the one-process step's
+numbers on the global batch: the content seed is the global sum, every
+draw is the global batch's (injected draws are global too) of which each
+rank takes its rows, the span targets are the global top-k with each rank
+encoding an equal, contiguous share of the drawn rows (moved between ranks
+by a differentiable gather), and ``loss_fn_given_preds`` gathers the
+targets over the batch axes for its denominators and divides each rank's
+part by the global count, so that the ranks' parts and their gradients
+sum to the one-process ones.
 """
 
 from __future__ import annotations
@@ -31,7 +42,14 @@ import torch
 from merlot_reserve_tpu_torch.models.layers import linear
 from merlot_reserve_tpu_torch.models.model import MerlotReserve
 from merlot_reserve_tpu_torch.ops.pooling import one_hot_pool, unit_normalize
-from merlot_reserve_tpu_torch.parallel.mesh import dp_anchor, rows_anchor
+from merlot_reserve_tpu_torch.parallel import comm
+from merlot_reserve_tpu_torch.parallel.mesh import (
+    batch_axes,
+    dp_anchor,
+    process_mesh,
+    rows_anchor,
+)
+from merlot_reserve_tpu_torch.parallel.sharding import data_shard, local_rows
 from merlot_reserve_tpu_torch.tokenizer import LTOVPOOL, MASK, MASKAUDIO, PADDING
 
 # multimodal spans are preferred 4:1 over text-only spans when drawing
@@ -135,12 +153,16 @@ class MerlotReservePretrainer(MerlotReserve):
         short-clip attention patterns appear during training.
 
         :param split_at: [rows] ints in [1, L]; drawn from ``generator`` if None
+            (under a process mesh: the global batch's rows, of which this
+            rank takes its own)
         """
         B, L = video_src_idx.shape
         if L == 1:
             return video_src_idx
+        mesh = process_mesh()
         if split_at is None:
-            split_at = self.draw_split_at(B, L, generator)
+            split_at = self.draw_split_at(B * data_shard(mesh)[1], L, generator)
+        split_at = local_rows(mesh, split_at)
         is_tail = split_at.to(video_src_idx.device)[:, None] <= torch.arange(
             L, device=video_src_idx.device)[None]
         return torch.where(is_tail, video_src_idx + _SPLIT_ID_STRIDE * L, video_src_idx)
@@ -284,7 +306,7 @@ class MerlotReservePretrainer(MerlotReserve):
         target side. Also returns each drawn span's source stream.
 
         :param gumbel: [B, spans per example] f32 Gumbel noise; drawn from
-            ``generator`` if None
+            ``generator`` if None (under a process mesh: the global batch's)
         """
         data = self.data
         flat = towers["flat"]
@@ -315,8 +337,13 @@ class MerlotReservePretrainer(MerlotReserve):
         # Gumbel top-k without replacement over the whole batch
         selection_logits = span_usable * 1e6 + _MULTIMODAL_PREFERENCE * (
             pools["text2audio"]["count"] + pools["audio2text"]["count"]).float()
+        mesh = process_mesh()
+        index, count = data_shard(mesh)
+        if mesh is not None:
+            selection_logits = comm.all_gather(selection_logits.contiguous(), mesh,
+                                               batch_axes(mesh), what="draws")
         if gumbel is None:
-            u = torch.rand((B, spans_per_example), generator=generator,
+            u = torch.rand((B * count, spans_per_example), generator=generator,
                            device=generator.device)
             gumbel = -torch.log(-torch.log(u))
         num_drawn = data.num_text_spans_to_include
@@ -326,12 +353,26 @@ class MerlotReservePretrainer(MerlotReserve):
         # top k with ties in index order, as lax.top_k: at 1e6 an f32 step is
         # 0.0625, so two usable spans' noisy logits can round to one value
         drawn = torch.sort((selection_logits + gumbel.to(selection_logits.device)).reshape(-1),
-                           descending=True, stable=True).indices[:num_drawn * B]
+                           descending=True, stable=True).indices[:num_drawn * B * count]
 
-        drawn_states = summed_states.reshape(B * spans_per_example, hidden)[drawn]
-        drawn_sources = source_id.reshape(B * spans_per_example)[drawn]
-        span_x = towers["token_embs"]["text_spans"][drawn]
-        span_valid = flat["text_spans"][drawn] != PADDING
+        states = summed_states.reshape(B * spans_per_example, hidden)
+        sources = source_id.reshape(B * spans_per_example)
+        span_tokens = towers["token_embs"]["text_spans"]
+        span_ids = flat["text_spans"]
+        if mesh is not None:
+            # the global top-k's rows, this rank's equal contiguous share of
+            # them encoded here: the states and token embeddings move by a
+            # differentiable gather (its backward sums into the owner's rows)
+            bax = batch_axes(mesh)
+            drawn = drawn[index * num_drawn * B:(index + 1) * num_drawn * B]
+            states = comm.gather_rows(states, mesh, bax, what="loss")
+            span_tokens = comm.gather_rows(span_tokens, mesh, bax, what="loss")
+            sources = comm.all_gather(sources.contiguous(), mesh, bax, what="loss")
+            span_ids = comm.all_gather(span_ids.contiguous(), mesh, bax, what="loss")
+        drawn_states = states[drawn]
+        drawn_sources = sources[drawn]
+        span_x = span_tokens[drawn]
+        span_valid = span_ids[drawn] != PADDING
         # the drawn spans are as independent as segments (rows_anchor above)
         drawn_states, span_x, span_valid = rows_anchor(
             drawn_states, span_x, span_valid, extra_axis=self.config.segment_shard_axis)
@@ -361,7 +402,12 @@ class MerlotReservePretrainer(MerlotReserve):
         """A generator seeded from the batch's content (the sum of the
         audio2text text pointers, the JAX package's content key), so that
         one batch always draws the same augmentation and span targets."""
-        seed = int(towers["flat"]["audio2text/text_ptr"].sum())
+        total = towers["flat"]["audio2text/text_ptr"].sum()
+        mesh = process_mesh()
+        if mesh is not None:  # the global batch's content
+            total = comm.all_reduce(total.reshape(1).clone(), mesh, batch_axes(mesh),
+                                    what="draws")[0]
+        seed = int(total)
         device = towers["flat"]["audio2text/text_ptr"].device
         return torch.Generator(device=device).manual_seed(seed)
 
@@ -389,8 +435,20 @@ def loss_fn_given_preds(preds: Dict) -> tuple:
     prefixed '_' are diagnostics excluded from the total. The logits are
     products in the heads' dtype; the log-sum-exp runs in f32.
 
+    Under a process mesh each rank holds its rows of every head: the
+    targets are gathered over the batch axes for the denominators, and the
+    rank's terms divide by the global counts, so that the ranks' losses sum
+    to the global batch's (each rank returns its part).
+
     :return: (total loss, {head: loss, '_<head>_from_<source>': loss})
     """
+    mesh = process_mesh()
+    bax = batch_axes(mesh) if mesh is not None else None
+    share = 1.0 / data_shard(mesh)[1]
+
+    def gathered(t):
+        return t if mesh is None else comm.gather_rows(t, mesh, bax, what="loss")
+
     loss_info = {}
     for c_type, c_dict in preds.items():
         numer_logits = (c_dict["x"] * c_dict["y"]).sum(-1).float()
@@ -401,16 +459,23 @@ def loss_fn_given_preds(preds: Dict) -> tuple:
 
         for k1, k2 in ("xy", "yx"):
             x = c_dict[k1]
-            y = c_dict[k2]
+            y = gathered(c_dict[k2])
             if f"{k2}_extra" in c_dict:
-                y = torch.cat([y, c_dict[f"{k2}_extra"]])
+                y = torch.cat([y, gathered(c_dict[f"{k2}_extra"])])
             denom_lse = torch.logsumexp((x @ y.T).float(), dim=-1)
-            loss_info[c_type] = loss_info[c_type] + (denom_lse - numer_logits).mean() / 2.0
+            mean = (denom_lse - numer_logits).mean()
+            if mesh is not None:  # every rank holds as many rows
+                mean = mean * share
+            loss_info[c_type] = loss_info[c_type] + mean / 2.0
             if "_sources" in c_dict:
                 for i, type_i in enumerate(_SPAN_SOURCES):
                     does_match = (c_dict["_sources"] == i).float()
+                    matches = does_match.sum()
+                    if mesh is not None:
+                        matches = comm.all_reduce(matches.reshape(1).clone(), mesh, bax,
+                                                  what="loss")[0]
                     loss_match = ((denom_lse - numer_logits) * does_match).sum() / (
-                        does_match.sum() + 1e-5)
+                        matches + 1e-5)
                     loss_info[f"_{c_type}_from_{type_i}"] = \
                         loss_info[f"_{c_type}_from_{type_i}"] + loss_match / 2.0
 

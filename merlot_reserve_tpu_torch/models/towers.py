@@ -12,8 +12,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from merlot_reserve_tpu_torch.models.layers import TransformerEncoder, init_linear, linear
+from merlot_reserve_tpu_torch.models.layers import (
+    TransformerEncoder,
+    _tp_mesh,
+    init_linear,
+    linear,
+)
 from merlot_reserve_tpu_torch.ops import rotary as rotary_ops
+from merlot_reserve_tpu_torch.parallel import comm
 
 _LECUN_TRUNC_SCALE = 0.87962566103423978  # stddev of a unit normal truncated to [-2, 2]
 
@@ -188,9 +194,30 @@ class TokenEmbedder(nn.Module):
             else:
                 nn.init.xavier_uniform_(self.Embed_0.weight, generator=generator)
 
+    def shard_tp_(self, mesh) -> None:
+        """Look up in the rank's share of the vocabulary (tensor parallel:
+        ``Embed_0`` holds rows [i V / tp, (i + 1) V / tp))."""
+        rows = self.Embed_0.weight.shape[0]
+        self.vocab_start = mesh.axis_index("tp") * rows
+        self.tp = True
+
     def forward(self, token_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         # the table is cast to the compute dtype before the lookup, as flax's
         # Embed does: under bf16 parameters and f32 compute the gradient then
         # sums a token's uses in f32 and rounds once, not use by use
         table = self.Embed_0.weight.to(self.dtype)
-        return {k: F.embedding(token_dict[k], table) for k in sorted(token_dict)}
+        mesh = _tp_mesh(self)
+        if mesh is None:
+            return {k: F.embedding(token_dict[k], table) for k in sorted(token_dict)}
+        # the rank's rows only; the one rank holding a token's row gives it,
+        # the others zeros, and one all-reduce sums them
+        out = {}
+        for k in sorted(token_dict):
+            ids = token_dict[k] - self.vocab_start
+            mine = (ids >= 0) & (ids < table.shape[0])
+            emb = F.embedding(torch.where(mine, ids, 0), table)
+            out[k] = comm.reduce_from_parallel(
+                torch.where(mine[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                                device=emb.device)),
+                mesh, "tp")
+        return out

@@ -2,13 +2,19 @@
 
 The JAX package shards the sequence of global [B, L, H, D] inputs over a
 mesh axis ('sp') under shard_map and exchanges K/V between the ranks with
-collectives. The port runs the n ranks of the axis in one process, on the
-tensors' device: a rank's shard is its slice of L rows, and a collective is
-an operation on the list of shards (``ppermute`` to the right neighbour is
-a rotation of the list, Ulysses' ``all_to_all`` a split by heads). Every
-device of the mesh must be the tensors' device, so the ranks are virtual
-ranks on one card (or on the CPU); meshes over several cards wait for a
-launch across them.
+collectives. The port runs the n ranks of the axis either in one process,
+on the tensors' device (virtual ranks: a rank's shard is its slice of L
+rows, and a collective is an operation on the list of shards, ``ppermute``
+to the right neighbour a rotation of the list, Ulysses' ``all_to_all`` a
+split by heads), or as n processes of a process mesh, one per card: there
+each process holds its own [B, L/n, H, D] shard (the encoder split the
+sequence, ``models.layers.TransformerEncoder``) and the ranks exchange
+K/V with ``torch.distributed`` (``parallel.comm``): the ring's hops are a
+send to rank r + 1 and a receive from r - 1 (the backward's dk/dv travel
+with their shard and come home), Ulysses' two trades are
+``all_to_all_single``. A mesh over several devices of one process raises.
+The ring kernel ``ring:rdma`` runs only on virtual ranks: its launch across
+cards is not ported (its protocol spins on flags in the peers' memory).
 
 ``sequence_parallel_attention`` picks the strategy (``impl``):
   * 'lax': ``ring_attention``, the online softmax over the rotating shards
@@ -35,6 +41,7 @@ import math
 import torch
 
 from merlot_reserve_tpu_torch.ops import attention as attn_ops
+from merlot_reserve_tpu_torch.parallel import comm
 from merlot_reserve_tpu_torch.parallel.mesh import Mesh
 
 NEG_INF = attn_ops.NEG_INF
@@ -46,6 +53,10 @@ RING_KEY_TILE = 128  # keys per tile of the bf16 ring kernel (csrc/ring_fwd.cu k
 # where training under sequence parallelism goes instead of ring:rdma
 _TRAINING_ITEM = ("training under sequence parallelism takes 'ring:flash', whose backward "
                   "ring runs the flash backward hop by hop")
+_RDMA_ACROSS = ("ring:rdma across processes: the launch of csrc/ring_fwd.cu across cards is "
+                "not ported (its ring spins on flags in the peers' memory, and two processes' "
+                "kernels on one card do not run at once without MPS); use 'ring:flash', whose "
+                "hops go through torch.distributed")
 
 
 def parse_sequence_parallel_impl(impl: str):
@@ -95,47 +106,94 @@ def _partial_attention(q, k, v, q_valid, q_seg, k_valid, k_seg, scale):
     return torch.einsum("bhlm,bmhd->bhld", p, v.float()), m, p.sum(dim=-1)
 
 
-def ring_attention(qs, ks, vs, valids, segs):
-    """The JAX package's lax ring over n local shards.
+class _VirtualRing:
+    """The n ranks of a ring held in this process, rank r's tensors at
+    index r of each list: a hop rotates the lists (the JAX package's
+    ``ppermute`` i -> i + 1). ``labels(j)``: shard j's int32 [B, Lloc]
+    (is_valid, segment_ids)."""
 
-    :param qs, ks, vs: lists of n [B, Lloc, H, D] shards, rank r's at index r
-    :param valids, segs: lists of n [B, Lloc] labels
-    :return: list of n [B, Lloc, H, D] outputs in q's dtype
+    def __init__(self, valids, segs):
+        self.n = len(valids)
+        self.ranks = list(range(self.n))
+        self._labels = list(zip(valids, segs))
 
-    At step s rank r merges the shard that started at rank (r - s) mod n into
-    its online softmax (m, l, acc in f32), then every shard moves one rank
-    to the right; n - 1 rotations and a merge-only last step.
-    """
-    n = len(qs)
+    def labels(self, j):
+        return self._labels[j]
+
+    def split(self, x):
+        return _shards(x, self.n)
+
+    def shift(self, xs):
+        return xs[-1:] + xs[:-1]
+
+
+class _ProcessRing:
+    """Rank r of an n-rank ring along ``axis`` of a process mesh, the one
+    rank of this process: a hop sends its tensors, stacked into one buffer,
+    to rank r + 1 and takes rank r - 1's (differentiable: the gradient goes
+    the other way). The labels of every shard are here, gathered once
+    ([B, L] each)."""
+
+    def __init__(self, mesh, axis, valid_all, seg_all, lloc):
+        self.mesh, self.axis, self.lloc = mesh, axis, lloc
+        self.n = mesh.size(axis)
+        self.ranks = [mesh.axis_index(axis)]
+        self.valid_all, self.seg_all = valid_all, seg_all
+
+    def labels(self, j):
+        return (_label_shard(self.valid_all, j, self.lloc),
+                _label_shard(self.seg_all, j, self.lloc))
+
+    def split(self, x):
+        return [x]
+
+    def shift(self, xs):
+        (x,) = xs
+        return [tuple(_RingShift.apply(torch.stack(x), self.mesh, self.axis).unbind(0))]
+
+
+def _lax_ring(qs, ks, vs, ring):
+    """The JAX package's lax ring for the ranks ``ring.ranks`` (one
+    [B, Lloc, H, D] shard each in ``qs``, ``ks``, ``vs``): at step t rank r
+    merges the visiting shard, the one that started at rank (r - t) mod n,
+    into its online softmax (m, l, acc in f32); n - 1 hops. Returns one
+    output per rank in q's dtype."""
+    n = ring.n
     B, Lq, H, D = qs[0].shape
     scale = 1.0 / math.sqrt(D)
-    q_valid = [x.to(torch.int32) for x in valids]
-    q_seg = [x.to(torch.int32) for x in segs]
     dev = qs[0].device
     state = [(torch.zeros((B, H, Lq, D), dtype=torch.float32, device=dev),
               torch.full((B, H, Lq), NEG_INF, dtype=torch.float32, device=dev),
-              torch.zeros((B, H, Lq), dtype=torch.float32, device=dev)) for _ in range(n)]
-    resident = list(zip(ks, vs, q_valid, q_seg))
-
-    def merge(r):
-        acc, m_run, l_run = state[r]
-        acc_b, m_b, l_b = _partial_attention(qs[r], *resident[r][:2], q_valid[r], q_seg[r],
-                                             *resident[r][2:], scale)
-        m_new = torch.maximum(m_run, m_b)
-        c_run, c_b = torch.exp(m_run - m_new), torch.exp(m_b - m_new)
-        state[r] = (acc * c_run[..., None] + acc_b * c_b[..., None], m_new,
-                    l_run * c_run + l_b * c_b)
-
-    for step in range(n):
-        for r in range(n):
-            merge(r)
-        if step < n - 1:
-            resident = resident[-1:] + resident[:-1]  # ppermute i -> i + 1
+              torch.zeros((B, H, Lq), dtype=torch.float32, device=dev)) for _ in ring.ranks]
+    kv = list(zip(ks, vs))
+    for t in range(n):
+        for i, r in enumerate(ring.ranks):
+            acc, m_run, l_run = state[i]
+            acc_b, m_b, l_b = _partial_attention(qs[i], *kv[i], *ring.labels(r),
+                                                 *ring.labels((r - t) % n), scale)
+            m_new = torch.maximum(m_run, m_b)
+            c_run, c_b = torch.exp(m_run - m_new), torch.exp(m_b - m_new)
+            state[i] = (acc * c_run[..., None] + acc_b * c_b[..., None], m_new,
+                        l_run * c_run + l_b * c_b)
+        if t < n - 1:
+            kv = ring.shift(kv)
     outs = []
     for q, (acc, _, l) in zip(qs, state):
         l_safe = torch.where(l == 0.0, 1.0, l)
         outs.append((acc / l_safe[..., None]).transpose(1, 2).to(q.dtype))
     return outs
+
+
+def ring_attention(qs, ks, vs, valids, segs):
+    """The JAX package's lax ring over n local shards (``_lax_ring`` on
+    virtual ranks).
+
+    :param qs, ks, vs: lists of n [B, Lloc, H, D] shards, rank r's at index r
+    :param valids, segs: lists of n [B, Lloc] labels
+    :return: list of n [B, Lloc, H, D] outputs in q's dtype
+    """
+    return _lax_ring(qs, ks, vs, _VirtualRing([x.to(torch.int32) for x in valids],
+                                              [x.to(torch.int32) for x in segs]))
 
 
 def _shards(x, n):
@@ -157,101 +215,118 @@ def _ring_shards(q, k, v, is_valid, segment_ids, n):
             + [[x.contiguous() for x in _shards(y, n)] for y in (is_valid, segment_ids)])
 
 
-def _ring_flash_forward(qs, ks, vs, q_valid, q_seg):
+def _ring_flash_forward(qs, ks, vs, ring):
     """The per-hop flash ring, forward (``_ring_flash_forward`` of the JAX
     package): at each hop rank r runs ``flash_forward`` of its queries
     against the visiting shard (with that shard's labels) and merges the
     hop's (out, lse) into its running pair by log-sum-exp.
 
-    :param qs, ks, vs: lists of n [B, Lloc, H, D] shards, rank r's at index r
-    :param q_valid, q_seg: lists of n int32 [B, Lloc] labels
+    :param qs, ks, vs: one [B, Lloc, H, D] shard per rank of ``ring.ranks``
+    :param ring: ``_VirtualRing`` or ``_ProcessRing``: the hops and labels
     :return: (outs [B, Lloc, H, D] in q's dtype, merged lses [B, Lloc, H, 1]
         f32), one per rank
     """
-    n = len(qs)
+    n = ring.n
     B, Lq, H, D = qs[0].shape
     dev = qs[0].device
-    out_run = [torch.zeros((B, Lq, H, D), dtype=torch.float32, device=dev) for _ in range(n)]
+    out_run = [torch.zeros((B, Lq, H, D), dtype=torch.float32, device=dev) for _ in qs]
     # finite "-inf": exp(lse_run - lse_new) stays defined at the first merge
-    lse_run = [torch.full((B, Lq, H, 1), -1e30, dtype=torch.float32, device=dev)
-               for _ in range(n)]
-    resident = list(zip(ks, vs, q_valid, q_seg))
-    for step in range(n):
-        for r in range(n):
-            k, v, k_valid, k_seg = resident[r]
-            out_t, lse_t = attn_ops.flash_forward(qs[r], k, v, q_valid[r], q_seg[r],
+    lse_run = [torch.full((B, Lq, H, 1), -1e30, dtype=torch.float32, device=dev) for _ in qs]
+    kv = list(zip(ks, vs))
+    for t in range(n):
+        for i, r in enumerate(ring.ranks):
+            k_valid, k_seg = ring.labels((r - t) % n)
+            out_t, lse_t = attn_ops.flash_forward(qs[i], *kv[i], *ring.labels(r),
                                                   k_is_valid=k_valid, k_segment_ids=k_seg)
-            lse_t = lse_t.transpose(1, 2)[..., None]  # [B, H, Lq] -> [B, Lq, H, 1]
-            lse_new = torch.logaddexp(lse_run[r], lse_t)
-            # out_t is promoted to f32 inside each product (no f32 copy of it)
-            out_run[r] = (out_run[r] * torch.exp(lse_run[r] - lse_new)
-                          + out_t * torch.exp(lse_t - lse_new))
-            lse_run[r] = lse_new
-        if step < n - 1:
-            resident = resident[-1:] + resident[:-1]  # ppermute i -> i + 1
+            out_run[i], lse_run[i] = _merge_flash(out_run[i], lse_run[i], out_t, lse_t)
+        if t < n - 1:
+            kv = ring.shift(kv)
     return [o.to(q.dtype) for o, q in zip(out_run, qs)], lse_run
 
 
-def _ring_flash_backward(qs, ks, vs, q_valid, q_seg, outs, lses, douts):
-    """The backward ring (``_ring_flash_bwd`` of the JAX package): the K/V
-    shards, their labels and their f32 dk/dv accumulators rotate past each
-    rank's fixed (q, dO, out, lse), and at each hop rank r adds
-    ``flash_backward`` of its queries against the visiting shard. The
-    out/lse are the merged ones, so p = exp(s - lse) is the probability
-    over the whole sequence and the hops' dq, dk, dv add up exactly. The
-    accumulators rotate with their shard after every hop; the rotation
-    after the last hop (the JAX package's final ppermute) brings them home.
+def _merge_flash(out_run, lse_run, out_t, lse_t):
+    """A hop's (out, lse [B, H, Lq]) merged into the running pair by
+    log-sum-exp; out_t is promoted to f32 inside each product (no f32 copy
+    of it)."""
+    lse_t = lse_t.transpose(1, 2)[..., None]  # [B, H, Lq] -> [B, Lq, H, 1]
+    lse_new = torch.logaddexp(lse_run, lse_t)
+    return out_run * torch.exp(lse_run - lse_new) + out_t * torch.exp(lse_t - lse_new), lse_new
 
-    :param outs, douts: lists of n contiguous [B, Lloc, H, D], q's dtype
-    :param lses: list of n f32 [B, Lloc, H, 1]
-    :return: (dqs, dks, dvs) lists of n [B, Lloc, H, D] in q's dtype
+
+def _ring_flash_backward(qs, ks, vs, outs, lses, douts, ring):
+    """The backward ring (``_ring_flash_bwd`` of the JAX package): the K/V
+    shards and their f32 dk/dv accumulators travel past each rank's fixed
+    (q, dO, out, lse), and at each hop rank r adds ``flash_backward`` of its
+    queries against the visiting shard. The out/lse are the merged ones, so
+    p = exp(s - lse) is the probability over the whole sequence and the
+    hops' dq, dk, dv add up exactly. The accumulators move with their shard
+    after every hop; the move after the last hop (the JAX package's final
+    ppermute) brings them home.
+
+    :param outs, douts: one contiguous [B, Lloc, H, D] per rank, q's dtype
+    :param lses: one f32 [B, Lloc, H, 1] per rank
+    :return: (dqs, dks, dvs), one [B, Lloc, H, D] per rank in q's dtype
     """
-    n = len(qs)
+    n = ring.n
     lse_rows = [lse[..., 0].transpose(1, 2).contiguous() for lse in lses]  # [B, H, Lloc]
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
-    resident = [(k, v, val, seg, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
-                 torch.zeros(v.shape, dtype=torch.float32, device=v.device))
-                for k, v, val, seg in zip(ks, vs, q_valid, q_seg)]
-    for _ in range(n):
-        for r in range(n):
-            k, v, k_valid, k_seg, dk_acc, dv_acc = resident[r]
+    kv = list(zip(ks, vs))
+    dkv = [(torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+            torch.zeros(v.shape, dtype=torch.float32, device=v.device)) for k, v in kv]
+    for t in range(n):
+        for i, r in enumerate(ring.ranks):
+            k_valid, k_seg = ring.labels((r - t) % n)
             dq_t, dk_t, dv_t = attn_ops.flash_backward(
-                qs[r], k, v, douts[r], outs[r], lse_rows[r], q_valid[r], q_seg[r],
+                qs[i], *kv[i], douts[i], outs[i], lse_rows[i], *ring.labels(r),
                 k_is_valid=k_valid, k_segment_ids=k_seg)
             # f32 += q's dtype: promoted inside the add, no f32 copy
-            dqs[r] += dq_t
-            dk_acc += dk_t
-            dv_acc += dv_t
-        resident = resident[-1:] + resident[:-1]  # ppermute i -> i + 1
+            dqs[i] += dq_t
+            dkv[i][0].add_(dk_t)
+            dkv[i][1].add_(dv_t)
+        dkv = ring.shift(dkv)
+        if t < n - 1:
+            kv = ring.shift(kv)
     dtype = qs[0].dtype
-    return ([dq.to(dtype) for dq in dqs], [res[4].to(dtype) for res in resident],
-            [res[5].to(dtype) for res in resident])
+    return ([dq.to(dtype) for dq in dqs], [dk.to(dtype) for dk, _ in dkv],
+            [dv.to(dtype) for _, dv in dkv])
+
+
+def _ring_inputs(q, k, v, is_valid, segment_ids, n, mesh, axis):
+    """(qs, ks, vs, ring) for the ranks this caller computes: the n shards of
+    global inputs on virtual ranks (``mesh`` None), or this process's shard
+    on its process ring (the labels of the whole sequence)."""
+    if mesh is None:
+        qs, ks, vs, valids, segs = _ring_shards(q, k, v, is_valid, segment_ids, n)
+        return qs, ks, vs, _VirtualRing(valids, segs)
+    return [q], [k], [v], _ProcessRing(mesh, axis, is_valid, segment_ids, q.shape[1])
 
 
 class RingFlashAttention(torch.autograd.Function):
-    """The ``ring_flash_attention`` custom_vjp of the JAX package over the n
-    ranks of one process: the forward saves (q, k, v, labels, out, merged
-    lse); the backward walks the ring again (``_ring_flash_backward``)."""
+    """The ``ring_flash_attention`` custom_vjp of the JAX package: the
+    forward saves (q, k, v, labels, out, merged lse); the backward walks
+    the ring again (``_ring_flash_backward``). Over the n virtual ranks of
+    one process (``mesh`` None: global [B, L, H, D] inputs and labels), or
+    as this process's rank along ``axis`` of a process mesh (its
+    [B, L/n, H, D] shard, the [B, L] labels of the whole sequence)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_valid, segment_ids, n):
-        outs, lses = _ring_flash_forward(*_ring_shards(q, k, v, is_valid, segment_ids, n))
+    def forward(ctx, q, k, v, is_valid, segment_ids, n, mesh, axis):
+        qs, ks, vs, ring = _ring_inputs(q, k, v, is_valid, segment_ids, n, mesh, axis)
+        outs, lses = _ring_flash_forward(qs, ks, vs, ring)
         out, lse = torch.cat(outs, dim=1), torch.cat(lses, dim=1)
-        ctx.n = n
+        ctx.ring = (n, mesh, axis)
         ctx.save_for_backward(q, k, v, is_valid, segment_ids, out, lse)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        n = ctx.n
         q, k, v, is_valid, segment_ids, out, lse = ctx.saved_tensors
-        qs, ks, vs, q_valid, q_seg = _ring_shards(q, k, v, is_valid, segment_ids, n)
-        outs, douts = ([x.contiguous() for x in _shards(t.to(q.dtype), n)] for t in (out, dout))
-        lses = _shards(lse, n)
-        dqs, dks, dvs = _ring_flash_backward(qs, ks, vs, q_valid, q_seg, outs, lses, douts)
+        qs, ks, vs, ring = _ring_inputs(q, k, v, is_valid, segment_ids, *ctx.ring)
+        outs, douts = ([x.contiguous() for x in ring.split(t.to(q.dtype))] for t in (out, dout))
+        dqs, dks, dvs = _ring_flash_backward(qs, ks, vs, outs, ring.split(lse), douts, ring)
         return (torch.cat(dqs, dim=1), torch.cat(dks, dim=1), torch.cat(dvs, dim=1),
-                None, None, None)
+                None, None, None, None, None)
 
 
 def ring_flash_attention(q, k, v, is_valid, segment_ids, n: int):
@@ -260,9 +335,9 @@ def ring_flash_attention(q, k, v, is_valid, segment_ids, n: int):
     Differentiable through ``RingFlashAttention`` when an input requires
     grad; otherwise the forward ring alone, nothing saved."""
     if attn_ops._records_grad(q, k, v):
-        return RingFlashAttention.apply(q, k, v, is_valid, segment_ids, n)
-    return torch.cat(_ring_flash_forward(*_ring_shards(q, k, v, is_valid, segment_ids, n))[0],
-                     dim=1)
+        return RingFlashAttention.apply(q, k, v, is_valid, segment_ids, n, None, None)
+    qs, ks, vs, ring = _ring_inputs(q, k, v, is_valid, segment_ids, n, None, None)
+    return torch.cat(_ring_flash_forward(qs, ks, vs, ring)[0], dim=1)
 
 
 def ulysses_attention(qs, ks, vs, valids, segs, inner: str = "xla"):
@@ -294,7 +369,9 @@ def sequence_parallel_attention(mesh: Mesh, q, k, v, is_valid=None, segment_ids=
                                 axis_name: str = "sp", impl: str = "lax",
                                 tp_heads=None):
     """Exact attention over global [B, L, H, D] inputs with the sequence
-    split over ``axis_name``'s n ranks of ``mesh`` -> [B, L, H, D].
+    split over ``axis_name``'s n ranks of ``mesh`` -> [B, L, H, D]. Under a
+    process mesh the inputs and the result are this rank's [B, L/n, H, D]
+    shard and its [B, L/n] labels (``_process_attention``).
 
     impl: 'lax', 'flash', 'rdma', 'ulysses' or 'ulysses-flash' (module doc).
     As in the JAX package, L must divide by n, the batch splits over dp when
@@ -307,14 +384,16 @@ def sequence_parallel_attention(mesh: Mesh, q, k, v, is_valid=None, segment_ids=
     if axis_name not in mesh.shape:
         raise ValueError(f"axis {axis_name!r} not in mesh axes {tuple(mesh.shape)}")
     n = mesh.shape[axis_name]
+    if mesh.is_process_mesh:
+        return _process_attention(mesh, q, k, v, is_valid, segment_ids, axis_name, impl)
     if L % n:
         raise ValueError(f"L={L} not divisible by {axis_name}={n}")
     others = [d for d in mesh.distinct_devices() if d != q.device]
     if others:
         raise NotImplementedError(
             f"mesh devices {[str(d) for d in mesh.distinct_devices()]} for tensors on "
-            f"{q.device}: every rank runs on the tensors' device here; a ring across "
-            "several cards is not ported yet")
+            f"{q.device}: virtual ranks run on the tensors' device; a ring across "
+            "several cards runs one process per card (a process mesh)")
     if is_valid is None:
         is_valid = torch.ones((B, L), dtype=torch.int32, device=q.device)
     if segment_ids is None:
@@ -345,6 +424,98 @@ def sequence_parallel_attention(mesh: Mesh, q, k, v, is_valid=None, segment_ids=
         raise ValueError(f"unknown sequence-parallel impl {impl!r}")
     shards = [_shards(x, n) for x in (q, k, v, is_valid, segment_ids)]
     return torch.cat(body(*shards), dim=1)
+
+
+# ---------------------------------------------------------------------------
+# across processes: one rank's shard per process
+# ---------------------------------------------------------------------------
+
+
+def _label_shard(labels_all, j, lloc):
+    return labels_all[:, j * lloc:(j + 1) * lloc].contiguous()
+
+
+def _hop(x, mesh, axis, back: bool = False):
+    """One ring hop of ``x``: to rank r + 1 from r - 1 (``back``: the other
+    way)."""
+    n, r = mesh.size(axis), mesh.axis_index(axis)
+    dst, src = ((r - 1) % n, (r + 1) % n) if back else ((r + 1) % n, (r - 1) % n)
+    return comm.exchange(x, torch.empty_like(x), mesh, axis, dst, src, what="sp")
+
+
+class _RingShift(torch.autograd.Function):
+    """A differentiable hop: forward to rank r + 1, gradients back to r - 1."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _hop(x.contiguous(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _hop(g.contiguous(), ctx.mesh, ctx.axis, back=True), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``comm.all_to_all`` (block j of dim 0 to rank j); its own backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return comm.all_to_all(x, mesh, axis, what="sp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_to_all(g, ctx.mesh, ctx.axis, what="sp"), None, None
+
+
+def _seq_to_heads(x, mesh, axis):
+    """[B, L/n, H, D] sequence shard -> [B, L, H/n, D] head group r."""
+    n = mesh.size(axis)
+    B, lloc, H, D = x.shape
+    blocks = x.reshape(B, lloc, n, H // n, D).permute(2, 0, 1, 3, 4)
+    y = _AllToAll.apply(blocks, mesh, axis)  # block i: sequence shard i of my heads
+    return y.permute(1, 0, 2, 3, 4).reshape(B, n * lloc, H // n, D)
+
+
+def _heads_to_seq(x, mesh, axis):
+    """[B, L, H/n, D] head group r -> [B, L/n, H, D] sequence shard r."""
+    n = mesh.size(axis)
+    B, L, hn, D = x.shape
+    blocks = x.reshape(B, n, L // n, hn, D).permute(1, 0, 2, 3, 4)
+    y = _AllToAll.apply(blocks, mesh, axis)  # block j: head group j of my shard
+    return y.permute(1, 2, 0, 3, 4).reshape(B, L // n, n * hn, D)
+
+
+def _process_attention(mesh, q, k, v, is_valid, segment_ids, axis, impl):
+    """Sequence-parallel attention with one rank per process: q, k, v are
+    this rank's [B, L/n, H, D] shard, the labels its [B, L/n] ones."""
+    if impl == "rdma":
+        raise NotImplementedError(_RDMA_ACROSS)
+    n = mesh.size(axis)
+    B, lloc, H, D = q.shape
+    if is_valid is None:
+        is_valid = torch.ones((B, lloc), dtype=torch.int32, device=q.device)
+    if segment_ids is None:
+        segment_ids = torch.zeros((B, lloc), dtype=torch.int32, device=q.device)
+    valid_all = comm.all_gather(is_valid.to(torch.int32).contiguous(), mesh, axis, 1, "sp")
+    seg_all = comm.all_gather(segment_ids.to(torch.int32).contiguous(), mesh, axis, 1, "sp")
+    if impl == "flash":
+        return RingFlashAttention.apply(q, k, v, valid_all, seg_all, n, mesh, axis)
+    if impl == "lax":
+        return _lax_ring([q], [k], [v], _ProcessRing(mesh, axis, valid_all, seg_all, lloc))[0]
+    if impl in ("ulysses", "ulysses-flash"):
+        if H % n:
+            raise ValueError(f"ulysses attention shards heads over {axis!r}: {H} local heads "
+                             f"not divisible by {axis}={n}; use impl='lax' (ring)")
+        qh, kh, vh = (_seq_to_heads(t, mesh, axis) for t in (q, k, v))
+        if impl == "ulysses-flash":
+            out = attn_ops.flash_attention(qh, kh, vh, valid_all, seg_all)
+        else:
+            out = attn_ops.xla_attention(qh, kh, vh, attn_ops.make_attention_bias(
+                is_valid=valid_all, segment_ids=seg_all, dtype=torch.float32))
+        return _heads_to_seq(out.to(q.dtype), mesh, axis)
+    raise ValueError(f"unknown sequence-parallel impl {impl!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -10,19 +10,35 @@ The port keeps the same names and shapes. A device may appear more than
 once: ``make_mesh(sp=4)`` with the default devices puts four *virtual
 ranks* of the sp axis on one card, which is how the sequence-parallel
 attention runs on one H100 (each rank's K/V shard in its own slots of the
-card's memory). Meshes that span several cards are not run yet.
+card's memory).
+
+Across cards the port runs one process per card (``parallel.distributed``).
+After ``initialize``, ``make_mesh`` without ``devices`` lays the job's
+processes out as the JAX package lays out its devices, tp innermost: a
+*process mesh*, whose every rank is a process and whose axes each hold one
+process group (``Mesh.group``). Each process's own position is its card; a
+tensor's dim 0 there already is the rank's share. A mesh whose ranks sit on
+several devices of one process still raises: the way across cards is one
+process per card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from merlot_reserve_tpu_torch.parallel import distributed
 from merlot_reserve_tpu_torch.utils.device import resolve_device
+
+Axes = Union[str, Tuple[str, ...]]
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 class Mesh:
@@ -30,9 +46,12 @@ class Mesh:
 
     :param devices: array-like of devices, one dimension per axis name
     :param axis_names: the axes' names, outermost first
+    :param ranks: for a process mesh, the job's ranks in the same layout;
+        every process of the job builds the mesh (the groups are made
+        collectively), and one outside ``ranks`` holds no position in it
     """
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], ranks=None):
         arr = np.empty(np.shape(devices), dtype=object)
         for idx, d in np.ndenumerate(np.asarray(devices, dtype=object)):
             arr[idx] = torch.device(d)
@@ -44,6 +63,65 @@ class Mesh:
             raise ValueError(f"repeated axis name in {axis_names}")
         self.devices = arr
         self.axis_names: Tuple[str, ...] = axis_names
+        self.ranks = None if ranks is None else np.asarray(ranks, dtype=np.int64).reshape(arr.shape)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._members: Dict[Tuple[str, ...], List[int]] = {}
+        self.coords: Optional[Tuple[int, ...]] = None
+        if self.ranks is not None:
+            me = np.argwhere(self.ranks == distributed.process_index())
+            self.coords = tuple(int(c) for c in me[0]) if len(me) else None
+            batch = tuple(a for a in ("dcn", "dp") if a in axis_names)
+            for axes in [(a,) for a in axis_names] + ([batch] if len(batch) > 1 else []):
+                self._make_groups(axes)
+            self._make_groups(axis_names)
+
+    def _make_groups(self, axes: Tuple[str, ...]) -> None:
+        """One process group per line of ``axes`` through the mesh (every
+        process takes part in making each of them)."""
+        idx = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in idx]
+        lines = self.ranks.transpose(rest + idx).reshape(-1, int(np.prod(
+            [self.ranks.shape[i] for i in idx], dtype=np.int64)))
+        lines = [[int(r) for r in line] for line in lines]
+        import torch.distributed as dist
+
+        groups = [dist.new_group(line) for line in lines]
+        for line, group in zip(lines, groups):
+            if distributed.process_index() in line:
+                self._groups[axes] = group
+                self._members[axes] = line
+
+    @property
+    def is_process_mesh(self) -> bool:
+        """Whether the ranks are processes (else virtual ranks of this one)."""
+        return self.ranks is not None
+
+    def size(self, axes: Axes) -> int:
+        """The number of ranks along ``axes`` (a name or a tuple of names)."""
+        return int(np.prod([self.shape.get(a, 1) for a in _axes(axes)], dtype=np.int64))
+
+    def axis_index(self, axes: Axes) -> int:
+        """This process's index along ``axes`` (row-major over a tuple)."""
+        if self.coords is None:
+            raise RuntimeError("axis_index: this process holds no position in the mesh")
+        index = 0
+        for a in _axes(axes):
+            i = self.axis_names.index(a)
+            index = index * self.devices.shape[i] + self.coords[i]
+        return index
+
+    def group(self, axes: Axes):
+        """The process group of this process's line along ``axes``."""
+        key = _axes(axes)
+        if key not in self._groups:
+            raise KeyError(f"no process group for axes {key} (a process mesh makes one per "
+                           "axis, one for the batch axes and one for the whole mesh)")
+        return self._groups[key]
+
+    def group_ranks(self, axes: Axes) -> List[int]:
+        """The job ranks of ``group(axes)``, in order along the axes."""
+        self.group(axes)
+        return self._members[_axes(axes)]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -59,15 +137,31 @@ class Mesh:
 
 
 def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1,
-              devices: Optional[Sequence] = None, dcn_dp: Optional[int] = None) -> Mesh:
+              devices: Optional[Sequence] = None, dcn_dp: Optional[int] = None,
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
     """Build a (dcn, dp, sp, pp, tp) mesh, as the JAX package's ``make_mesh``.
 
     dp = -1 means all remaining devices; ``dp`` counts the total
     data-parallel ways, of which ``dcn_dp`` are slices (their own ``dcn``
-    axis, size 1 without it). ``devices`` defaults to the card, repeated
-    once per rank (dp = -1 then means 1): the mesh's ranks are virtual
-    ranks on one card, and raises when there is no card.
+    axis, size 1 without it).
+
+    Without ``devices``, after ``parallel.distributed.initialize``: a
+    process mesh over the job's ranks (``ranks``, default all), when the
+    axes multiply to their number. In a job of one process a mesh of more
+    ranks puts virtual ranks on its card, as without a job: ``devices``
+    then defaults to the card, repeated once per rank (dp = -1 means 1),
+    and raises when there is no card.
     """
+    if devices is None and distributed.is_initialized():
+        members = list(range(distributed.process_count())) if ranks is None else list(ranks)
+        rest = sp * pp * tp
+        n_dp = len(members) // rest if dp == -1 else dp
+        if n_dp * rest == len(members):
+            return _process_mesh(n_dp, tp, sp, pp, dcn_dp, members)
+        if distributed.process_count() > 1 or ranks is not None:
+            raise ValueError(f"dp({dp})*sp({sp})*pp({pp})*tp({tp}) does not lay out the "
+                             f"{len(members)} ranks {members}")
+        devices = [distributed.device()] * ((1 if dp == -1 else dp) * rest)
     if devices is None:
         n = (1 if dp == -1 else dp) * sp * pp * tp
         devices = [resolve_device("cuda")] * n
@@ -80,15 +174,34 @@ def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1,
         dp = n // rest
     if dp * rest != n:
         raise ValueError(f"dp({dp})*sp({sp})*pp({pp})*tp({tp}) != {n} devices")
-    dcn = 1
-    if dcn_dp is not None and dcn_dp > 1:
-        if dp % dcn_dp:
-            raise ValueError(f"dp={dp} not divisible by {dcn_dp} slices")
-        dcn = dcn_dp
+    dcn = _dcn(dp, dcn_dp)
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(dcn, dp // dcn, sp, pp, tp),
                 axis_names=("dcn", "dp", "sp", "pp", "tp"))
+
+
+def _dcn(dp: int, dcn_dp: Optional[int]) -> int:
+    if dcn_dp is not None and dcn_dp > 1:
+        if dp % dcn_dp:
+            raise ValueError(f"dp={dp} not divisible by {dcn_dp} slices")
+        return dcn_dp
+    return 1
+
+
+def _process_mesh(dp, tp, sp, pp, dcn_dp, members) -> Mesh:
+    """The (dcn, dp, sp, pp, tp) process mesh over the job ranks
+    ``members``, tp innermost; rank r's device is its card
+    ``cuda:r % LOCAL_WORLD_SIZE`` (torchrun's layout) or the CPU."""
+    dcn = _dcn(dp, dcn_dp)
+    own = distributed.device()
+    local = distributed.local_world_size()
+    devices = np.empty(len(members), dtype=object)
+    devices[:] = [torch.device("cuda", r % local) if own.type == "cuda" else own
+                  for r in members]
+    shape = (dcn, dp // dcn, sp, pp, tp)
+    return Mesh(devices.reshape(shape), axis_names=("dcn", "dp", "sp", "pp", "tp"),
+                ranks=np.asarray(members).reshape(shape))
 
 
 def dp_size(mesh: Mesh) -> int:
@@ -105,6 +218,12 @@ def batch_axes(mesh: Mesh):
 
 _ACTIVE_MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
     "merlot_torch_active_mesh", default=None)
+
+
+def process_mesh() -> Optional[Mesh]:
+    """The active mesh when it is a process mesh, else None."""
+    mesh = _ACTIVE_MESH.get()
+    return mesh if mesh is not None and mesh.is_process_mesh else None
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -141,10 +260,14 @@ def rows_anchor(*arrays, extra_axis: Optional[str] = None):
     spans), so that it may split over the batch axes and
     ``segment_shard_axis`` too (``row_shard_axes``, fallbacks included).
     In the JAX package it is a GSPMD constraint and changes no number.
-    Here every rank of the mesh runs in this process on the tensors'
-    device, so it returns its inputs; a split over ranks on other devices
-    raises, as a mesh across several cards is not ported yet."""
+    On virtual ranks every rank runs in this process on the tensors'
+    device, so it returns its inputs, and a split over ranks on other
+    devices of this process raises (across cards the port runs one process
+    per card). Under a process mesh dim 0 already is the rank's share: it
+    returns its inputs."""
     mesh = current_mesh()
+    if mesh is not None and mesh.is_process_mesh:
+        return arrays if len(arrays) > 1 else arrays[0]
     for a in arrays:
         axes = row_shard_axes(mesh, a.shape[0], extra_axis)
         if axes and any(mesh.shape[x] > 1 for x in axes) and any(
@@ -152,7 +275,7 @@ def rows_anchor(*arrays, extra_axis: Optional[str] = None):
             raise NotImplementedError(
                 f"rows_anchor: dim 0 splits over {axes} of a mesh on "
                 f"{[str(d) for d in mesh.distinct_devices()]} for a tensor on {a.device}; "
-                "a mesh across several cards is not ported yet")
+                "a mesh over several cards runs one process per card (a process mesh)")
     return arrays if len(arrays) > 1 else arrays[0]
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -373,3 +373,262 @@ class PretrainOptimizer:
             adam_update_reference(self.params, grads, self.mu, self.nu, self.decay, self.config,
                                   count_inc, step_size, self.anchor)
         self.count = count_inc
+
+
+# ---------------------------------------------------------------------------
+# across processes: ZeRO-1
+# ---------------------------------------------------------------------------
+
+
+_FLAT_ALIGN = 256  # elements: 512 bytes of bf16 copies, 1024 of f32 masters
+
+
+class ShardedOptimizer:
+    """``PretrainOptimizer`` on a process mesh: this rank's share of the f32
+    masters and Adam moments, the model holding the compute copies.
+
+    The port of the JAX package's ZeRO-1 train state (``state_shardings``
+    with ``zero1``, ``constrain_params_for_use``). Its ``plan``
+    (``parallel.sharding.ShardPlan``) says where each entry lives:
+
+      * a leaf whose spec names dp: the rank's slice of the leaf in its flax
+        layout, dp dim in front (contiguous), f32 master and moments here;
+        its gradient arrives by one reduce-scatter over dp of all such
+        leaves, and after the update one all-gather over dp of their
+        compute-dtype casts rebuilds the model's copies;
+      * any other entry (tp or pp shares, and everything without ZeRO-1):
+        the rank's tensor whole, its gradient summed by one all-reduce over
+        the batch axes of all such entries.
+
+    Entries whose gradient is a sum of parts over another axis as well
+    (``plan.partial``: an encoder's layers under a sequence split across
+    processes) are all-reduced over it first. Entries replicated over sp
+    or pp (everything outside a split encoder; the towers and heads, which
+    every pipeline stage holds) take the reduced gradient of the first rank
+    along that axis, one broadcast per axis, so that their replicas see the
+    same update and stay equal bit for bit (the card's backward sums in
+    another order on every rank: dq's atomics). Every update is one
+    ``adam_update`` launch over this rank's masters on the card (the plain
+    loop on the CPU). The model's parameters become the compute copies, in
+    ``compute_dtype`` (bf16 under the bf16-gradient policy): the step
+    differentiates at them, so their gradients move in that dtype. The
+    entries outside ZeRO-1 keep their masters, and their compute copies,
+    as views of one flat buffer each, so that their cast, ``nan_to_num`` and
+    refresh are one operation each, not one per tensor.
+
+    :param model: the model, already cut to this rank's share
+        (``plan.shard_model_``), its parameters the f32 values to start from
+    :param decay: the full model's weight-decay names (``weight_decay_names``)
+    """
+
+    def __init__(self, model: torch.nn.Module, plan, opt_config, decay: Iterable[str],
+                 chain: str = "pretrain", compute_dtype: torch.dtype = torch.bfloat16):
+        self.plan = plan
+        self.model = model
+        self.compute_dtype = compute_dtype
+        self.params = dict(model.named_parameters())
+        self.zero_paths = plan.zero_leaves()
+        zero_names = set(plan.zero_names())
+        self.others = [n for n in self.params if n not in zero_names]
+        decay = frozenset(decay)
+        self._sizes = [self.params[n].numel() for n in self.others]
+        # each entry starts on a 512-byte boundary, as the allocator's own
+        # tensors do: the card's libraries choose their kernels by alignment
+        self._offsets, end = [], 0
+        for size in self._sizes:
+            self._offsets.append(end)
+            end += -(-size // _FLAT_ALIGN) * _FLAT_ALIGN
+        device = next(iter(self.params.values())).device
+        self._flat_master = torch.zeros(end, dtype=torch.float32, device=device)
+        self._flat_compute = torch.zeros(end, dtype=compute_dtype, device=device)
+        masters = {}
+        with torch.no_grad():
+            for path in self.zero_paths:
+                whole = plan.leaf_tensor(path, self.params)
+                masters[path] = plan.zero_slice(path, whole).float().clone()
+            for n, master, compute in zip(self.others, self._split(self._flat_master),
+                                          self._split(self._flat_compute)):
+                p = self.params[n]
+                masters[n] = master.view(p.shape)
+                masters[n].copy_(p.detach())
+                p.data = compute.view(p.shape)
+        decay_keys = [k for k in masters
+                      if (plan.leaves[k].names[0] if k in plan.leaves else k) in decay]
+        self.inner = PretrainOptimizer(masters.items(), decay_keys, opt_config, chain)
+        self._replicated = self._replicated_masters()
+        self._write_compute_copies()
+
+    def _replicated_masters(self) -> List[Tuple[str, List[str]]]:
+        """(axis, the masters replicated over it), for sp and pp where they
+        have more than one rank: over pp every master outside a stage, over
+        sp every master whose gradient is not summed over sp."""
+        plan, shape = self.plan, self.plan.mesh.shape
+        out = []
+        for axis in ("sp", "pp"):
+            if shape.get(axis, 1) == 1:
+                continue
+            keys = []
+            for k in self.inner.params:
+                names = plan.leaves[k].names if k in plan.leaves else [k]
+                held = (any(n in plan.stage for n in names) if axis == "pp" else
+                        all(axis in plan.partial.get(n, ()) for n in names))
+                if not held:
+                    keys.append(k)
+            if keys:
+                out.append((axis, keys))
+        return out
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    def _batch(self):
+        from merlot_reserve_tpu_torch.parallel.mesh import batch_axes
+
+        return batch_axes(self.plan.mesh)
+
+    def _split(self, flat: torch.Tensor):
+        """The other entries' 1-D views of a flat buffer laid out as the
+        masters' (``_offsets``)."""
+        return [flat[o:o + n] for o, n in zip(self._offsets, self._sizes)]
+
+    @torch.no_grad()
+    def _write_compute_copies(self) -> None:
+        """The model's compute copies from the masters: one all-gather over dp
+        of the ZeRO leaves' casts, and a cast of every other entry."""
+        from merlot_reserve_tpu_torch.parallel import comm
+
+        plan, masters = self.plan, self.inner.params
+        if self.zero_paths:
+            shards = [masters[p].to(self.compute_dtype) for p in self.zero_paths]
+            flat = torch.cat([s.reshape(-1) for s in shards]).reshape(1, -1)
+            whole = comm.all_gather(flat, plan.mesh, "dp", what="params")
+            dp = whole.shape[0]
+            offset = 0
+            dst, src = [], []
+            for path, s in zip(self.zero_paths, shards):
+                cols = whole[:, offset:offset + s.numel()]
+                offset += s.numel()
+                full = cols.reshape((dp * s.shape[0],) + tuple(s.shape[1:]))
+                for n, t in plan.leaf_entries(path, full).items():
+                    p = self.params[n]
+                    if p.dtype != self.compute_dtype:
+                        p.data = torch.empty(p.shape, dtype=self.compute_dtype, device=p.device)
+                    dst.append(p.data)
+                    src.append(t)
+            torch._foreach_copy_(dst, src)
+        self._flat_compute.copy_(self._flat_master)
+
+    def _reduce(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's f32 gradient of each of its masters (through
+        ``nan_to_num``) from its model entries' gradients."""
+        from merlot_reserve_tpu_torch.parallel import comm
+
+        plan, mesh = self.plan, self.plan.mesh
+        grads = dict(grads)
+        partial: Dict[Tuple[str, ...], list] = {}
+        for n, axes in plan.partial.items():
+            if n in grads:
+                partial.setdefault(axes, []).append(n)
+        for axes, names in partial.items():
+            flat = comm.all_reduce(torch.cat([grads[n].reshape(-1) for n in names]), mesh, axes,
+                                   what="grads")
+            for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+                grads[n] = part.view(grads[n].shape)
+        reduced = []  # (a flat buffer in the compute dtype, its masters' keys and shapes)
+        if self.zero_paths:
+            moved = [plan.leaf_tensor(p, grads) for p in self.zero_paths]
+            dp = mesh.shape["dp"]
+            flat = torch.cat([m.reshape(dp, -1) for m in moved], 1)
+            shard = comm.reduce_scatter(flat, mesh, "dp", what="grads")
+            if mesh.shape.get("dcn", 1) > 1:
+                comm.all_reduce(shard, mesh, "dcn", what="grads")
+            reduced.append((shard[0], [(p, (m.shape[0] // dp,) + tuple(m.shape[1:]))
+                                       for p, m in zip(self.zero_paths, moved)]))
+        if self.others:
+            flat = comm.all_reduce(torch.cat([grads[n].reshape(-1) for n in self.others]),
+                                   mesh, self._batch(), what="grads")
+            reduced.append((flat, [(n, tuple(grads[n].shape)) for n in self.others]))
+        views = {k: part.view(shape) for buf, entries in reduced for (k, shape), part in
+                 zip(entries, buf.split([math.prod(s) for _, s in entries]))}
+        for axis, keys in self._replicated:
+            parts = [views[k] for k in keys]
+            flat = comm.broadcast(torch.cat([p.reshape(-1) for p in parts]), mesh, axis, 0,
+                                  what="grads")
+            torch._foreach_copy_(parts, [q.view(p.shape) for p, q in
+                                         zip(parts, flat.split([p.numel() for p in parts]))])
+        out = {}
+        for buf, entries in reduced:
+            buf = torch.nan_to_num(buf.float())
+            for (k, shape), part in zip(entries, buf.split([math.prod(s) for _, s in entries])):
+                out[k] = part.view(shape)
+        return out
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> None:
+        """One update from the gradients of this rank's model entries (in
+        the compute dtype, this rank's part): reduce, update the shard, and
+        rebuild the compute copies."""
+        self.inner.step(self._reduce(grads))
+        self._write_compute_copies()
+
+    # -- checkpoints: the whole state on every rank, and back --------------
+
+    @torch.no_grad()
+    def _whole(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Entry name -> whole tensor, from per-master tensors of this rank
+        (the masters or a moment): the ZeRO leaves gathered over dp, the tp
+        shares over tp, and the pp stages' entries broadcast from their
+        stage."""
+        from merlot_reserve_tpu_torch.parallel import comm
+
+        plan, mesh = self.plan, self.plan.mesh
+        out: Dict[str, torch.Tensor] = {}
+        for path in self.zero_paths:
+            out.update(plan.leaf_entries(path, comm.all_gather(tensors[path], mesh, "dp",
+                                                                what="checkpoint")))
+        tp = mesh.shape.get("tp", 1)
+        for n in self.others:
+            t = tensors[n]
+            if plan.tp_kind.get(n):
+                d = plan.tp_dim(n)
+                t = plan.tp_join(n, comm.all_gather(t, mesh, "tp", d, "checkpoint").chunk(tp, d))
+            out[n] = t
+        if plan.stage:
+            example = next(iter(tensors.values()))
+            for n in sorted(plan.stage, key=lambda k: (plan.stage[k], k)):
+                buf = (out[n].contiguous() if n in out else
+                       torch.empty(plan.full_shapes[n], dtype=example.dtype,
+                                   device=example.device))
+                out[n] = comm.broadcast(buf, mesh, "pp", plan.stage[n], what="checkpoint")
+        return {n: out[n].contiguous() for n in plan.full_shapes}
+
+    def full_state(self) -> Dict[str, object]:
+        """The whole optimizer state, by entry name, on every rank: f32
+        params, bf16 mu and nu (and the finetuning anchor), and the count."""
+        inner = self.inner
+        return {"params": self._whole(inner.params), "mu": self._whole(inner.mu),
+                "nu": self._whole(inner.nu),
+                "anchor": None if inner.anchor is None else self._whole(inner.anchor),
+                "count": inner.count}
+
+    @torch.no_grad()
+    def load_full_state(self, params: Dict[str, torch.Tensor], mu=None, nu=None, anchor=None,
+                        count: Optional[int] = None) -> None:
+        """Keep this rank's share of a whole state (``full_state``'s dicts,
+        on any device): masters, moments, anchor and count, then the
+        compute copies."""
+        plan, inner = self.plan, self.inner
+        for src, dst in ((params, inner.params), (mu, inner.mu), (nu, inner.nu),
+                         (anchor, inner.anchor)):
+            if src is None or dst is None:
+                continue
+            device = next(iter(dst.values())).device
+            for path in self.zero_paths:
+                local = {n: src[n].to(device) for n in plan.leaves[path].names}
+                dst[path].copy_(plan.zero_slice(path, plan.leaf_tensor(path, local)))
+            for n in self.others:
+                dst[n].copy_(plan.local(n, src[n].to(device)))
+        if count is not None:
+            inner.count = count
+        self._write_compute_copies()

@@ -21,6 +21,16 @@ buffers and a side stream on the card; images and audio in bf16 when the
 model computes in bf16). With a ``fused_builder`` the loader yields raw
 batches and each step assembles its own on the device
 (``trainer.make_fused_data_train_step``).
+
+Across processes (after ``parallel.distributed.initialize``, one process
+per card, started by torchrun: ``scripts/pretrain_torch.py -distributed``)
+the default mesh is a process mesh over the job's ranks, and the run trains
+the ZeRO-1 state of ``trainer.create_distributed_train_state``: each
+process's batches are its rows of the global batch (its loader reads its
+file shard, ``parallel.sharding.data_shard``), the logged loss terms are
+the global batch's (summed over the data-parallel ranks' parts), and only
+rank 0 writes a tracker, a checkpoint file or the loader's position; every
+process takes part in gathering a checkpoint and reads it at a resume.
 """
 
 from __future__ import annotations
@@ -43,10 +53,13 @@ from merlot_reserve_tpu_torch.models.pretrainer import (
     concat_preds,
     loss_fn_given_preds,
 )
+from merlot_reserve_tpu_torch.parallel import distributed
 from merlot_reserve_tpu_torch.parallel.mesh import Mesh, activate_mesh, make_mesh
+from merlot_reserve_tpu_torch.parallel.sharding import form_global_batch
 from merlot_reserve_tpu_torch.training.trainer import (
     MetricsQueue,
     TrainState,
+    create_distributed_train_state,
     create_train_state,
     make_fused_data_train_step,
     train_step,
@@ -57,9 +70,13 @@ from merlot_reserve_tpu_torch.utils.experiment import make_tracker
 
 
 def config_mesh(cfg: MerlotConfig, device) -> Mesh:
-    """The mesh of ``cfg.device`` (dp, tp, sp, pp, dcn_dp), every rank on
-    ``device`` (dp = -1 counts as 1 there)."""
+    """The mesh of ``cfg.device`` (dp, tp, sp, pp, dcn_dp): in a job of
+    several processes (``parallel.distributed``) a process mesh over its
+    ranks (dp = -1: the ranks left), else every rank on ``device`` (dp = -1
+    counts as 1 there)."""
     d = cfg.device
+    if distributed.process_count() > 1:
+        return make_mesh(dp=d.dp, tp=d.tp, sp=d.sp, pp=d.pp, dcn_dp=d.dcn_dp)
     n = (1 if d.dp == -1 else d.dp) * d.sp * d.pp * d.tp
     return make_mesh(dp=d.dp, tp=d.tp, sp=d.sp, pp=d.pp, dcn_dp=d.dcn_dp, devices=[device] * n)
 
@@ -125,8 +142,10 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
     output_dir = output_dir or cfg.device.output_dir or None
     device = resolve_device(device)
     mesh = mesh or config_mesh(cfg, device)
+    writer = distributed.process_index() == 0
     if tracker is None:
-        tracker = make_tracker(f"jsonl:{os.path.join(output_dir, 'run')}" if output_dir else None)
+        tracker = make_tracker(f"jsonl:{os.path.join(output_dir, 'run')}"
+                               if output_dir and writer else None)
     tracker.log_config(dataclasses.asdict(cfg))
 
     loader_state_path = os.path.join(output_dir, "loader_state.json") if output_dir else None
@@ -140,14 +159,15 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                 print(f"loader state ignored: {e}", flush=True)
 
     def save_loader_state():
-        if loader_state_path and hasattr(batch_iterator, "state_dict"):
+        if writer and loader_state_path and hasattr(batch_iterator, "state_dict"):
             tmp = loader_state_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(batch_iterator.state_dict(), f)
             os.replace(tmp, loader_state_path)
 
     model = MerlotReservePretrainer(cfg, device=device, seed=seed)
-    state = create_train_state(cfg, model)
+    state = (create_distributed_train_state(cfg, model, mesh) if mesh.is_process_mesh
+             else create_train_state(cfg, model))
     if output_dir:
         ckpt_lib.load_checkpoint(output_dir, state=state)
         if state.step:
@@ -177,15 +197,16 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                 print(f"input exhausted after {state.step} of {num_steps} steps", flush=True)
                 break
             with activate_mesh(mesh):
-                state, metrics = step_fn(state, batch)
+                state, metrics = step_fn(state, form_global_batch(mesh, batch))
             report(metrics_q.push(step, metrics))
             if output_dir and (step + 1) % save_every == 0:
                 async_ckpt.save(state, output_dir)
                 save_loader_state()
                 # contrastive temperature health print
                 scales = model.contrastive_scales.detach().float().cpu()
-                print(f"step {step + 1} contrastive temps: "
-                      f"{torch.exp(scales / 2.0).numpy().round(3).tolist()}", flush=True)
+                if writer:
+                    print(f"step {step + 1} contrastive temps: "
+                          f"{torch.exp(scales / 2.0).numpy().round(3).tolist()}", flush=True)
             if (step + 1) % 100 == 0:
                 dt = time.time() - t_block
                 print(f"steps {step - 98}..{step + 1}: {dt:.1f}s ({100 / dt:.2f} it/s)",

@@ -13,6 +13,15 @@ Each part of a step runs in a ``torch.profiler.record_function`` range named
 ``train_step/<part>``: cast, forward (the model and the loss), backward,
 grads (the f32 cast and ``nan_to_num``) and optimizer. A trace splits the
 step's host and device time by them (``scripts/profile_torch_training.py``).
+
+Across processes (``create_distributed_train_state`` on a process mesh,
+the port of ``make_jit_train_step(mesh, state, zero1=True)``) the model is
+cut to the rank's tp and pp share and holds compute copies; each dp rank
+runs the forward and backward on its rows, differentiating at the copies,
+and the optimizer (``ShardedOptimizer``) reduce-scatters the gradients in
+the compute dtype onto its ZeRO-1 shard, updates it in one ``adam_update``
+launch and all-gathers the compute-dtype casts for the next step. The loss
+terms are summed over the batch axes before they are returned.
 """
 
 from __future__ import annotations
@@ -25,14 +34,16 @@ import torch
 from torch.func import functional_call
 from torch.profiler import record_function
 
-from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws
+from merlot_reserve_tpu_torch.data.device_builder import BuilderDraws, RowShardDraws
 from merlot_reserve_tpu_torch.models.pretrainer import (
     MerlotReservePretrainer,
     concat_preds,
     loss_fn_given_preds,
 )
-from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
-from merlot_reserve_tpu_torch.training.optimization import PretrainOptimizer
+from merlot_reserve_tpu_torch.parallel import comm
+from merlot_reserve_tpu_torch.parallel.mesh import Mesh, activate_mesh, batch_axes, process_mesh
+from merlot_reserve_tpu_torch.parallel.sharding import data_shard
+from merlot_reserve_tpu_torch.training.optimization import PretrainOptimizer, ShardedOptimizer
 from merlot_reserve_tpu_torch.utils.weights import flax_leaf_shapes
 
 
@@ -68,11 +79,35 @@ def create_train_state(cfg, model: MerlotReservePretrainer) -> TrainState:
     return TrainState(model=model, optimizer=optimizer)
 
 
-def _loss_and_grads(model: torch.nn.Module, forward_loss, use_bfloat16_grads: bool):
+def create_distributed_train_state(cfg, model: MerlotReservePretrainer, mesh: Mesh,
+                                   zero1: bool = True, use_bfloat16_grads: bool = True,
+                                   chain: str = "pretrain") -> TrainState:
+    """A ``TrainState`` on the process mesh ``mesh`` from the full ``model``
+    (every process builds it alike, e.g. from one seed or one checkpoint):
+    the model is cut to this rank's share (``ShardPlan.shard_model_``) and
+    its optimizer is a ``ShardedOptimizer`` (ZeRO-1 over dp with ``zero1``)
+    whose compute copies are bf16 under ``use_bfloat16_grads``."""
+    from merlot_reserve_tpu_torch.parallel.sharding import ShardPlan
+
+    if not mesh.is_process_mesh:
+        raise ValueError("create_distributed_train_state needs a process mesh "
+                         "(parallel.distributed.initialize, then make_mesh)")
+    plan = ShardPlan.build(mesh, model, zero1)
+    decay = weight_decay_names(model, 0 if chain == "pretrain" else 4096)
+    plan.shard_model_(model)
+    optimizer = ShardedOptimizer(model, plan, cfg.optimizer, decay, chain,
+                                 torch.bfloat16 if use_bfloat16_grads else torch.float32)
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def _loss_and_grads(model: torch.nn.Module, forward_loss, use_bfloat16_grads: bool,
+                    cast_grads: bool = True):
     """The core of every step: ``forward_loss(used)`` -> (loss, loss_info)
     with ``used`` the tensors to run the model on (the bf16 copies of its
     parameters under ``use_bfloat16_grads``, made once), then the f32
-    gradient of every parameter through ``nan_to_num``."""
+    gradient of every parameter through ``nan_to_num`` (without
+    ``cast_grads``: the gradients as they come, for a ``ShardedOptimizer``
+    to reduce first)."""
     params = {n: p.detach().requires_grad_() for n, p in model.named_parameters()}
     with record_function("train_step/cast"):
         used = ({n: p.to(torch.bfloat16) for n, p in params.items()} if use_bfloat16_grads
@@ -82,8 +117,12 @@ def _loss_and_grads(model: torch.nn.Module, forward_loss, use_bfloat16_grads: bo
     with record_function("train_step/backward"):
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     with record_function("train_step/grads"):
-        grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
-                 for (n, p), g in zip(params.items(), grads)}
+        if cast_grads:
+            grads = {n: torch.nan_to_num(torch.zeros_like(p) if g is None else g.float())
+                     for (n, p), g in zip(params.items(), grads)}
+        else:
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), grads)}
         info = {k: torch.as_tensor(v).detach().float() for k, v in loss_info.items()}
         info["total"] = loss.detach().float()
     return info, grads
@@ -92,7 +131,7 @@ def _loss_and_grads(model: torch.nn.Module, forward_loss, use_bfloat16_grads: bo
 def loss_and_grads(model: MerlotReservePretrainer, batch: Dict[str, torch.Tensor],
                    use_bfloat16_grads: bool = True,
                    split_at: Optional[Sequence[torch.Tensor]] = None,
-                   gumbel: Optional[torch.Tensor] = None
+                   gumbel: Optional[torch.Tensor] = None, cast_grads: bool = True
                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The loss terms and the f32 gradient of every parameter (through
     ``nan_to_num``). Leaves ``model``'s parameters and their ``.grad``
@@ -107,7 +146,7 @@ def loss_and_grads(model: MerlotReservePretrainer, batch: Dict[str, torch.Tensor
         preds = functional_call(model, used, (batch,), {"split_at": split_at, "gumbel": gumbel})
         return loss_fn_given_preds(preds)
 
-    return _loss_and_grads(model, forward_loss, use_bfloat16_grads)
+    return _loss_and_grads(model, forward_loss, use_bfloat16_grads, cast_grads)
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -115,12 +154,28 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One pretraining step; updates ``state`` in place and returns it with
     the loss terms (0-d f32 tensors on the model's device, not synchronised).
-    Arguments as for ``loss_and_grads``."""
-    info, grads = loss_and_grads(state.model, batch, use_bfloat16_grads, split_at, gumbel)
+    Arguments as for ``loss_and_grads``. With a ``ShardedOptimizer`` the
+    step runs under the active process mesh on this rank's rows of the
+    batch (``split_at`` and ``gumbel`` the global batch's), and the loss
+    terms returned are the global batch's."""
+    sharded = isinstance(state.optimizer, ShardedOptimizer)
+    info, grads = loss_and_grads(state.model, batch, use_bfloat16_grads, split_at, gumbel,
+                                 cast_grads=not sharded)
+    if sharded:
+        info = _sum_over_batch(info, state.optimizer.plan.mesh)
     with record_function("train_step/optimizer"):
         state.optimizer.step(grads)
     state.step += 1
     return state, info
+
+
+def _sum_over_batch(info: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """Each rank's loss terms (its parts) summed over the batch axes, in one
+    all-reduce."""
+    keys = sorted(info)
+    total = comm.all_reduce(torch.stack([info[k].reshape(()) for k in keys]), mesh,
+                            batch_axes(mesh), what="metrics")
+    return dict(zip(keys, total.unbind()))
 
 
 def mixed_loss_and_grads(model_a: MerlotReservePretrainer, model_b: MerlotReservePretrainer,
@@ -216,7 +271,9 @@ def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: 
     frames (``frames_u8``, ``frame_hw``) that the builder augments on the
     card. Returns ``step(state, raw, split_at=None, gumbel=None,
     draws=None)``; ``draws`` replaces the builder's sampler (a test's hook),
-    ``split_at`` and ``gumbel`` are ``train_step``'s.
+    ``split_at`` and ``gumbel`` are ``train_step``'s. Under a process mesh
+    each data-parallel rank takes its rows of the global batch's draws
+    (``RowShardDraws``).
     """
     def step(state: TrainState, raw: Dict[str, torch.Tensor], split_at=None, gumbel=None,
              draws=None):
@@ -224,7 +281,11 @@ def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: 
         images = raw.pop("images", None)
         with record_function("train_step/build"):
             if draws is None:
-                draws = BuilderDraws(data_seed, state.step, raw["tok_ids"].device)
+                mesh = process_mesh()
+                draws = (BuilderDraws(data_seed, state.step, raw["tok_ids"].device)
+                         if mesh is None else
+                         RowShardDraws(data_seed, state.step, raw["tok_ids"].device,
+                                       *data_shard(mesh)))
             batch = builder.build_batch(raw, draws)
             if images is not None:
                 batch["images"] = (images.to(torch.bfloat16) if builder.cfg.model.use_bfloat16

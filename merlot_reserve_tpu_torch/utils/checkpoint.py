@@ -13,9 +13,15 @@ chain's layout (see ``state_to_flax``).
 The JAX package's writer produces this format only with flax's
 ``flax_use_orbax_checkpointing`` set to False: under newer flax its
 default writes an orbax directory instead, which ``load_checkpoint``
-refuses with a message naming that flag. The orbax half of the JAX module
-(per-shard parallel writes of a train state sharded across processes)
-waits for the port's multi-card work.
+refuses with a message naming that flag.
+
+A train state sharded across processes (``training.optimization.
+ShardedOptimizer``) is saved in the same one-file format: every process
+takes part in gathering its shards (``state_to_flax``), and only rank 0
+writes the file. At a resume every process reads the file and keeps its
+share, so a checkpoint of any layout resumes in any other, the one-process
+one included. The orbax half of the JAX module (per-shard parallel writes)
+has no counterpart yet.
 
 The layer-layout converters: the reference checkpoints store one
 ``layer_NN`` subtree per transformer layer; the JAX package's
@@ -33,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from merlot_reserve_tpu_torch.parallel import distributed
 from merlot_reserve_tpu_torch.utils import msgpack
 from merlot_reserve_tpu_torch.utils.weights import (
     flax_tensors_from_state_dict,
@@ -105,16 +112,22 @@ def state_to_flax(state) -> Dict:
 
     mu, nu and the anchor take the parameters' name map and kernel
     reshapes. With ``scan_layers`` off the per-layer leaves are in the
-    ``layer_NN`` layout, as the JAX model's tree is."""
+    ``layer_NN`` layout, as the JAX model's tree is. A state sharded across
+    processes gives the whole state's tree on every process (each one must
+    call this: the shards are gathered)."""
     model, opt = state.model, state.optimizer
-    params = dict(model.named_parameters())
+    if hasattr(opt, "full_state"):
+        whole = opt.full_state()
+        params, mu, nu, anchor = whole["params"], whole["mu"], whole["nu"], whole["anchor"]
+    else:
+        params, mu, nu, anchor = dict(model.named_parameters()), opt.mu, opt.nu, opt.anchor
     count = torch.tensor(opt.count, dtype=torch.int32)
-    second = ({"inner_state": {}} if opt.anchor is None
-              else {"orig_params": _flax_tree(model, opt.anchor)})
+    second = ({"inner_state": {}} if anchor is None
+              else {"orig_params": _flax_tree(model, anchor)})
     return {"step": torch.tensor(state.step, dtype=torch.int32),
             "params": _flax_tree(model, params),
-            "opt_state": {"0": {"count": count, "mu": _flax_tree(model, opt.mu),
-                                "nu": _flax_tree(model, opt.nu)},
+            "opt_state": {"0": {"count": count, "mu": _flax_tree(model, mu),
+                                "nu": _flax_tree(model, nu)},
                           "1": second, "2": {"count": count.clone()}, "3": {}}}
 
 
@@ -135,8 +148,10 @@ def load_state_from_flax(state, tree: Dict):
     """Copy a ``state_to_flax``-shaped tree (f32 or f16 parameters, either
     layer layout) into ``state`` in place; returns it. Without an
     ``opt_state`` (a ``no_optimizer`` checkpoint) only the parameters and
-    the step are read."""
+    the step are read. A state sharded across processes keeps its share."""
     model, opt = state.model, state.optimizer
+    if hasattr(opt, "load_full_state"):
+        return _load_sharded(state, tree)
     _load_named(dict(model.named_parameters()), tree["params"], "params")
     state.step = int(tree["step"])
     opt_state = tree.get("opt_state")
@@ -151,6 +166,41 @@ def load_state_from_flax(state, tree: Dict):
                              f"{'finetuning' if has_anchor else 'pretraining'} in the file")
         if has_anchor:
             _load_named(opt.anchor, opt_state["1"]["orig_params"], "orig_params")
+    return state
+
+
+def _whole_named(shapes: Dict[str, torch.Size], tree, what: str) -> Dict[str, torch.Tensor]:
+    sd = state_dict_from_flax(tree, dtype=None)
+    missing = sorted(set(shapes) - set(sd))
+    unused = sorted(set(sd) - set(shapes))
+    wrong = sorted(k for k in set(sd) & set(shapes) if sd[k].shape != shapes[k])
+    if missing or unused or wrong:
+        raise ValueError(f"checkpoint {what} do not fit: missing {missing}, unused {unused}, "
+                         f"wrong shape {wrong}")
+    return sd
+
+
+def _load_sharded(state, tree: Dict):
+    """``load_state_from_flax`` for a ``ShardedOptimizer``'s state: every
+    process reads the whole tree and keeps its share."""
+    opt = state.optimizer
+    shapes = opt.plan.full_shapes
+    params = _whole_named(shapes, tree["params"], "params")
+    state.step = int(tree["step"])
+    kw = {}
+    opt_state = tree.get("opt_state")
+    if opt_state is not None:
+        adam = opt_state["0"]
+        kw = dict(mu=_whole_named(shapes, adam["mu"], "mu"),
+                  nu=_whole_named(shapes, adam["nu"], "nu"), count=int(adam["count"]))
+        has_anchor = "orig_params" in opt_state["1"]
+        if has_anchor != (opt.inner.anchor is not None):
+            raise ValueError("the checkpoint's optimizer chain is not the state's: "
+                             f"{'finetuning' if has_anchor else 'pretraining'} in the file")
+        if has_anchor:
+            kw["anchor"] = _whole_named(shapes, opt_state["1"]["orig_params"], "orig_params")
+    params = {k: v.float() for k, v in params.items()}
+    opt.load_full_state(params, **kw)
     return state
 
 
@@ -183,7 +233,11 @@ def save_checkpoint(state, path: str, keep: Optional[int] = None, overwrite: boo
 
 
 def _write(tree: Dict, path: str, keep: Optional[int], overwrite: bool) -> str:
+    """Write ``tree`` as ``path/ckpt_<step>``; in a job of several processes
+    only rank 0 writes (the others return the path it writes)."""
     step = int(tree.get("step", 0) or 0)
+    if distributed.process_index() != 0:
+        return os.path.join(path, f"{PREFIX}{step}")
     existing = _checkpoints(path)
     if not overwrite and existing and existing[-1][0] >= step:
         raise FileExistsError(f"{path} holds a checkpoint at step {existing[-1][0]} >= {step}")

@@ -193,6 +193,46 @@ def flax_leaf_shapes(sd: Dict[str, torch.Tensor], size_per_head: int = 64,
     return shapes
 
 
+def flax_leaf_paths(sd: Dict[str, torch.Tensor], size_per_head: int = 64,
+                    scan_layers: bool = True) -> Dict[str, Tuple[str, Optional[int]]]:
+    """For every state_dict entry, the '/'-joined path of the flax leaf it
+    maps to and, in the scan layout, its index along that leaf's stacked
+    [num_layers] axis (None for a leaf of its own). Without
+    ``scan_layers`` per-layer entries have ``layer_NN`` leaves of their
+    own, as the reference layout."""
+    out = {}
+    for key, tensor in sd.items():
+        *modules, name = key.split(".")
+        leaf, _ = _flax_leaf(modules, name, torch.empty(tensor.shape, device="meta"),
+                             size_per_head)
+        layer = None
+        if "layers" in modules:
+            i = modules.index("layers")
+            n = int(modules[i + 1])
+            if scan_layers:
+                modules, layer = modules[:i + 1] + modules[i + 2:], n
+            else:
+                modules = modules[:i] + [f"layer_{n:02d}"] + modules[i + 2:]
+        out[key] = ("/".join(modules + [leaf]), layer)
+    return out
+
+
+def to_flax_layout(key: str, x: torch.Tensor, size_per_head: int = 64) -> torch.Tensor:
+    """One state_dict entry in its flax leaf's layout (a view; without the
+    stacked layer axis)."""
+    *modules, name = key.split(".")
+    return _flax_leaf(modules, name, x, size_per_head)[1]
+
+
+def from_flax_layout(key: str, x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_flax_layout``: a flax-layout leaf (one layer's) in
+    the entry's torch layout (a view)."""
+    *modules, name = key.split(".")
+    leaf = {"weight": "scale" if modules and modules[-1].endswith("_ln") else (
+        "embedding" if modules and modules[-1] == "Embed_0" else "kernel")}.get(name, name)
+    return _torch_leaf(modules, leaf, x)[1]
+
+
 def load_flax_params(model: torch.nn.Module, params) -> None:
     """Copy a flax tree into ``model``. Raises on a missing, unused or
     mis-shaped parameter."""

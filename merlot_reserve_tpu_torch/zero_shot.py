@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
-from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
+from merlot_reserve_tpu_torch.parallel import comm
+from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, batch_axes
+from merlot_reserve_tpu_torch.parallel.sharding import data_shard
 from merlot_reserve_tpu_torch.tokenizer import MASK
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
@@ -88,6 +90,17 @@ def verb_noun_action_accuracy(logits: np.ndarray, labels: np.ndarray,
     return out
 
 
+def _local_batch_rows(mesh, n: int) -> np.ndarray:
+    """The positions, ascending, of this process's rows in a global batch of
+    ``n`` rows: its contiguous share over the batch axes of a process mesh
+    (the JAX package's ``_local_batch_rows``), or all of them."""
+    index, count = data_shard(mesh)
+    if n % count:
+        raise ValueError(f"a batch of {n} rows does not split over {count} data-parallel ranks")
+    k = n // count
+    return np.arange(index * k, (index + 1) * k)
+
+
 @torch.no_grad()
 def zero_shot_qa_eval(model, params, batches, task: str, temperature: float = 100.0,
                       mesh=None) -> Tuple[Dict[str, float], List[Dict]]:
@@ -106,16 +119,25 @@ def zero_shot_qa_eval(model, params, batches, task: str, temperature: float = 10
     :param task: 'tvqa' (audio and text streams; 'joint' ranks the sum of
         their softmaxes) or 'vcr' (the qa and qar tasks; 'joint' is right
         when both are)
-    :param mesh: run every batch under ``activate_mesh(mesh)``
+    :param mesh: run every batch under ``activate_mesh(mesh)``; under a
+        process mesh each data-parallel rank ranks its rows of every
+        (global) batch (``_local_batch_rows``), and the hits and counts are
+        summed over the ranks
     :return: (metrics {'acc_<name>': mean, 'n': rows}, one row per example:
-        {'id', 'pred_<name>'})
+        {'id', 'pred_<name>'}, every rank's in the batches' order)
     """
     if params is not None:
         load_flax_params(model, {k: v for k, v in params.items() if hasattr(model, k)})
     device = next(model.parameters()).device
     rows, hits = [], []
+    sharded = mesh is not None and mesh.is_process_mesh
+    order = []
     with activate_mesh(mesh) if mesh is not None else contextlib.nullcontext():
-        for ids, batch in batches:
+        for b, (ids, batch) in enumerate(batches):
+            mine = _local_batch_rows(mesh if sharded else None, len(ids))
+            if sharded:
+                ids = [ids[i] for i in mine]
+                batch = {k: np.asarray(v)[mine] for k, v in batch.items()}
             out = model(batch_to_tensors({k: v for k, v in batch.items() if k != "labels"},
                                          device))
             if task == "tvqa":
@@ -140,6 +162,12 @@ def zero_shot_qa_eval(model, params, batches, task: str, temperature: float = 10
                     hit["joint"] = hit["qa"] * hit["qar"]
                 rows.append(row)
                 hits.append(hit)
+                order.append((b, int(mine[i])))
+    if sharded:
+        parts = comm.all_gather_object((order, rows, hits), mesh, batch_axes(mesh),
+                                       what="metrics")
+        merged = sorted(((o, r, h) for p in parts for o, r, h in zip(*p)), key=lambda t: t[0])
+        rows, hits = [r for _, r, _ in merged], [h for _, _, h in merged]
     metrics = {f"acc_{k}": float(np.mean([h[k] for h in hits])) for k in hits[0]} if hits else {}
     metrics["n"] = len(hits)
     return metrics, rows

@@ -9,6 +9,15 @@ only decode bytes), ``--fused_data`` assembles them inside each training
 step, ``--on_device_frames`` moves the frame flip, resize, augmentation and
 patchify onto the card too (the workers only decode JPEGs); either of the
 last two implies the first.
+
+``-distributed`` joins a job of one process per card started by torchrun
+(``parallel.distributed.initialize``; ``utils/launch.py`` builds the
+commands): the mesh is the config's ``device`` section (dp, tp, sp, pp)
+over the job's ranks, each process's loader reads its data-parallel rank's
+file shard and its share of the global batch, and the state is ZeRO-1.
+
+    torchrun --nproc_per_node 8 scripts/pretrain_torch.py base -distributed \
+        -train_fns "shards/*.tfrecord" -output_dir out
 """
 
 import argparse
@@ -30,6 +39,9 @@ def main(argv=None):
                     help="override device.batch_size (global batch)")
     ap.add_argument("-seed", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("-distributed", action="store_true",
+                    help="join the torchrun job first (one process per card; NCCL, or gloo "
+                         "with --device cpu)")
     ap.add_argument("--on_device_data", action="store_true",
                     help="assemble examples on the card (data/device_builder.py)")
     ap.add_argument("--fused_data", action="store_true",
@@ -42,7 +54,11 @@ def main(argv=None):
 
     from merlot_reserve_tpu_torch import load_config
     from merlot_reserve_tpu_torch.data.loader import input_fn_builder
-    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+    from merlot_reserve_tpu_torch.parallel import distributed
+    from merlot_reserve_tpu_torch.parallel.sharding import data_shard
+    from merlot_reserve_tpu_torch.training.pretrain import config_mesh, run_pretraining
+
+    device = distributed.initialize(args.device) if args.distributed else args.device
 
     cfg = load_config(args.config)
     if args.on_device_frames:
@@ -61,8 +77,11 @@ def main(argv=None):
     on_device = args.on_device_data or args.fused_data or args.on_device_frames
     kw = {"fused": True} if args.fused_data else {}
     if on_device and not args.fused_data:
-        kw["device"] = args.device
-    loader = input_fn_builder(cfg, files, seed=args.seed, use_bfloat16=cfg.model.use_bfloat16,
+        kw["device"] = device
+    mesh = config_mesh(cfg, device) if args.distributed else None
+    host_index, num_hosts = data_shard(mesh)
+    loader = input_fn_builder(cfg, files, host_index=host_index, num_hosts=num_hosts,
+                              seed=args.seed, use_bfloat16=cfg.model.use_bfloat16,
                               on_device=on_device, **kw)
 
     def log_fn(step, metrics):
@@ -70,10 +89,14 @@ def main(argv=None):
                          if not k.startswith("_"))
         print(f"step {step}: {parts}", flush=True)
 
-    run_pretraining(cfg, loader, num_steps=args.num_steps, output_dir=args.output_dir,
-                    log_fn=log_fn, device=args.device, seed=args.seed or 0,
-                    fused_builder=loader._dev_builder if args.fused_data else None,
-                    data_seed=args.seed or 0)
+    try:
+        run_pretraining(cfg, loader, num_steps=args.num_steps, output_dir=args.output_dir,
+                        log_fn=log_fn if distributed.process_index() == 0 else None,
+                        device=device, seed=args.seed or 0, mesh=mesh,
+                        fused_builder=loader._dev_builder if args.fused_data else None,
+                        data_seed=args.seed or 0)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

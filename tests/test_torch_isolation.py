@@ -94,7 +94,9 @@ def test_importing_every_port_module_loads_no_jax():
                    "finetune.prep_data", "dataset_creation.spectrogram", "dataset_creation.text",
                    "dataset_creation.text_corpus", "dataset_creation.offset_model",
                    "dataset_creation.process", "dataset_creation.frame_embedder",
-                   "dataset_creation.filters", "dataset_creation.youtube"):
+                   "dataset_creation.filters", "dataset_creation.youtube",
+                   "parallel.distributed", "parallel.comm", "parallel.sharding",
+                   "parallel.pipeline", "parallel.memory", "utils.launch"):
         assert f"merlot_reserve_tpu_torch.{module}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -266,6 +268,26 @@ def test_serving_tools_and_demos_refuse_a_missing_card(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             main(argv)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_distributed_entry_points_refuse_a_missing_card(tmp_path, monkeypatch):
+    """Joining a job on the card (NCCL) refuses without one, and never
+    takes gloo or the CPU on its own; so does the pretraining script's
+    -distributed, before it reads a file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from merlot_reserve_tpu_torch.parallel import distributed
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT="29591").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="cuda"):
+        distributed.initialize()
+    assert not distributed.is_initialized()
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_main(["base", "-train_fns", missing, "-distributed"])
+    assert not distributed.is_initialized() and list(tmp_path.iterdir()) == []
 
 
 def test_make_mesh_puts_virtual_ranks_on_the_default_device(monkeypatch):

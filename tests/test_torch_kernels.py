@@ -1116,3 +1116,63 @@ def test_build_batch_on_card_matches_cpu(cuda_device, tmp_path):
             assert (g.float() - want[k].float()).abs().max().item() <= tol, k
         else:
             assert torch.equal(g, want[k]), k
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_step_is_the_one_process_step_on_card(cuda_device, monkeypatch):
+    """A job of one process over NCCL (``parallel.distributed.initialize``):
+    the tiny pretrainer's f32 step (the scalar f32 attention kernels, whose
+    sums run in a fixed order) on a process mesh of one rank, ZeRO-1 on,
+    against the one-process step from the same weights, batch and draws:
+    losses, f32 parameters and the bf16 moments bit for bit over two steps,
+    one ``adam_update`` launch per step, and the gradients' all-reduce
+    recorded in bf16."""
+    import socket
+
+    from merlot_reserve_tpu_torch.parallel import comm, distributed
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+    from merlot_reserve_tpu_torch.training.trainer import create_distributed_train_state
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    cfg = load_config("base", hidden_size=128, joint_num_layers=2, vit_num_layers=2,
+                      audio_num_layers=2, span_num_layers=2, output_grid=(4, 4),
+                      use_bfloat16=False, joint_attention_impl="flash")
+    cfg = cfg.replace_data(num_segments=4, seq_len=80, lang_seq_len=40,
+                           num_text_spans_to_include=8)
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                                 num_warmup_steps=0))
+    batch = batch_to_tensors(make_dummy_batch(cfg, 2, seed=0, num_text_spans=16), cuda_device)
+    g = torch.Generator().manual_seed(3)
+    split_at = [1 + torch.randint(0, 2, (4,), generator=g) for _ in range(2)]
+    gumbel = -torch.log(-torch.log(torch.rand((2, 16), generator=g)))
+    assert distributed.initialize() == cuda_device
+    try:
+        assert distributed.backend() == "nccl"
+        mesh = make_mesh()
+        one = create_train_state(cfg, MerlotReservePretrainer(cfg, device=cuda_device, seed=1))
+        job = create_distributed_train_state(
+            cfg, MerlotReservePretrainer(cfg, device=cuda_device, seed=1), mesh)
+        for _ in range(2):
+            one, one_info = train_step(one, batch, True, split_at, gumbel)
+            before = kernels.LAUNCHES.get("adam_update", 0)
+            with activate_mesh(mesh), comm.recording() as records:
+                job, job_info = train_step(job, batch, True, split_at, gumbel)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["adam_update"] == before + 1
+            assert {k: float(v) for k, v in job_info.items()} == \
+                {k: float(v) for k, v in one_info.items()}
+            grads = [r for r in records if r["what"] == "grads"]
+            assert [(r["op"], r["dtype"]) for r in grads] == [("all-reduce", "bfloat16")]
+        inner = job.optimizer.inner
+        for name, p in one.model.named_parameters():
+            assert torch.equal(inner.params[name].view(torch.int32), p.detach().view(torch.int32))
+            for moment in ("mu", "nu"):
+                assert torch.equal(getattr(inner, moment)[name].view(torch.int16),
+                                   getattr(one.optimizer, moment)[name].view(torch.int16))
+    finally:
+        distributed.shutdown()

@@ -188,10 +188,59 @@ def test_prepare_multimodal_inputs_packing_matches_jax(jax_params):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("knob,value", [("pipeline_axis", "pp")])
-def test_unported_config_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match=knob):
-        MerlotReserve(load_config("base", **dict(TINY, **{knob: value})), device="cpu")
+@pytest.mark.parametrize("microbatches,remat", [(2, False), (4, False), (2, True)])
+def test_pipeline_encoder_matches_jax(cpu_devices, microbatches, remat):
+    """``pipeline_axis`` builds (it raised before the pipeline was ported):
+    the port's encoder under a pp = 2 mesh of virtual ranks against the JAX
+    package's ``pipeline_transformer`` on two CPU devices, forward and the
+    gradients of mean(out^2) by every parameter and the input, f32 within
+    2e-5 (the JAX package's own pipeline tolerance)."""
+    import jax
+
+    from merlot_reserve_tpu.models.layers import TransformerEncoder as JaxEncoder
+    from merlot_reserve_tpu.parallel import activate_mesh as jax_activate_mesh
+    from merlot_reserve_tpu.parallel import make_mesh as jax_make_mesh
+    from merlot_reserve_tpu_torch.models.layers import TransformerEncoder
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+    from merlot_reserve_tpu_torch.utils.weights import state_dict_from_flax
+
+    B, L, H, NL = 4, 16, 32, 4
+    rng = np.random.RandomState(0)
+    x = rng.randn(B, L, H).astype(np.float32)
+    coords = rng.rand(B, L, 2).astype(np.float32)
+    valid = (rng.rand(B, L) > 0.1).astype(np.int32)
+    seg = (rng.rand(B, L) > 0.5).astype(np.int32)
+    kw = dict(hidden_size=H, num_layers=NL, size_per_head=16, rotary_hsize=8,
+              dtype=jnp.float32, scan_layers=True, remat=remat)
+    inputs = dict(rotary_coords=coords, is_valid=valid, segment_ids=seg)
+    params = JaxEncoder(**kw).init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                   **{k: jnp.asarray(v) for k, v in inputs.items()})["params"]
+    j_enc = JaxEncoder(pipeline_axis="pp", pipeline_microbatches=microbatches, **kw)
+
+    def j_loss(p, xx):
+        y = j_enc.apply({"params": p}, xx, **{k: jnp.asarray(v) for k, v in inputs.items()})
+        return (y["seq"] ** 2).mean(), y["seq"]
+
+    with jax_activate_mesh(jax_make_mesh(dp=1, pp=2, devices=cpu_devices[:2])):
+        (_, j_out), (j_gp, j_gx) = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1),
+                                                              has_aux=True))(params, x)
+
+    enc = TransformerEncoder(H, NL, generator=torch.Generator().manual_seed(0),
+                             size_per_head=16, rotary_hsize=8, remat=remat,
+                             pipeline_axis="pp", pipeline_microbatches=microbatches)
+    load_flax_params(enc, jax.tree.map(np.asarray, params))
+    tx = torch.from_numpy(x).requires_grad_()
+    with activate_mesh(make_mesh(pp=2, devices=["cpu"] * 2)):
+        out = enc(tx, **{k: torch.from_numpy(v) for k, v in inputs.items()})["seq"]
+        (out ** 2).mean().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(j_gx), atol=2e-5, rtol=0)
+    j_grads = state_dict_from_flax(jax.tree.map(np.asarray, j_gp))
+    for name, p in enc.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), j_grads[name].numpy(), atol=2e-5, rtol=0,
+                                   err_msg=name)
+    assert MerlotReserve(load_config("base", pipeline_axis="pp", **TINY),
+                         device="cpu").joint_transformer.pipeline_axis == "pp"
 
 
 @pytest.mark.parametrize("knob,value", [
