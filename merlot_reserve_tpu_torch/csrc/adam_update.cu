@@ -30,6 +30,10 @@
 // card; encode is the cube-root bf16 code with subnormal intermediates
 // flushed to zero (see unsigned_bfloat16_encode).
 //
+// f32 moments (use_bfloat16_adam off, optax's scale_by_adam): the same
+// arithmetic with f32(mu) and decode(nu) read as the stored f32 values and
+// mu <- next_m, nu <- next_v stored unrounded; one template instance each.
+//
 // Layout (multi-tensor apply): a device table of AdamTensor entries, one
 // per parameter tensor, fixed for the optimizer's life (the parameters and
 // moments are updated in place), a device array of this step's gradient
@@ -37,10 +41,11 @@
 // [block_start[b], block_start[b] + chunk) of tensor block_tensor[b].
 //
 // Bound on an H100: bytes. Per element g and p f32 read, p f32 written, mu
-// and nu bf16 read and written (20 bytes), plus the bf16 anchor on the
-// masked tensors of the finetuning chain; about 20 flops. The base model's
-// 3.1e8 parameters move 6.2 GB: 1.9 ms at 3.35 TB/s. This first version is
-// simple: scalar loads, coalesced within a warp; nothing is staged.
+// and nu bf16 read and written (20 bytes; 28 with f32 moments), plus the
+// bf16 anchor on the masked tensors of the finetuning chain; about 20
+// flops. The base model's 3.1e8 parameters move 6.2 GB (8.7 GB with f32
+// moments): 1.9 ms (2.6 ms) at 3.35 TB/s. This first version is simple:
+// scalar loads, coalesced within a warp; nothing is staged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +54,8 @@
 
 struct AdamTensor {
   float* p;
-  __nv_bfloat16* mu;
-  __nv_bfloat16* nu;
+  void* mu;                     // __nv_bfloat16, or float with f32_moments
+  void* nu;
   const __nv_bfloat16* anchor;  // finetuning chain only; else null
   int64_t numel;
   int32_t decay;                // 1: decays (pretraining) or is masked (finetuning)
@@ -63,6 +68,7 @@ struct AdamHyper {
   float wd, step_size, neg_lr, one_third;
   int32_t bias_correction;
   int32_t finetune;             // 1: decay toward the anchor
+  int32_t f32_moments;          // 1: mu and nu are f32 (optax's scale_by_adam)
 };
 
 struct AdamParams {
@@ -102,6 +108,7 @@ __device__ __forceinline__ __nv_bfloat16 encode_nu(float v) {
   return __ushort_as_bfloat16(__bfloat16_as_ushort(v_bf) ^ 0x8000u);
 }
 
+template <bool kF32Moments>
 __global__ void __launch_bounds__(kThreads) adam_update_kernel(AdamParams prm) {
   const int32_t t = prm.block_tensor[blockIdx.x];
   const int64_t start = prm.block_start[blockIdx.x];
@@ -110,15 +117,25 @@ __global__ void __launch_bounds__(kThreads) adam_update_kernel(AdamParams prm) {
   const AdamHyper h = prm.h;
   const int64_t end = min(start + static_cast<int64_t>(prm.chunk), e.numel);
   const bool decay = e.decay != 0;
+  __nv_bfloat16* mu16 = static_cast<__nv_bfloat16*>(e.mu);
+  __nv_bfloat16* nu16 = static_cast<__nv_bfloat16*>(e.nu);
+  float* mu32 = static_cast<float*>(e.mu);
+  float* nu32 = static_cast<float*>(e.nu);
   for (int64_t i = start + threadIdx.x; i < end; i += kThreads) {
     const float gi = g[i];
     const float p = e.p[i];
-    float next_m = __fadd_rn(__fmul_rn(h.one_minus_b1, gi),
-                             __fmul_rn(h.b1, __bfloat162float(e.mu[i])));
+    const float m_prev = kF32Moments ? mu32[i] : __bfloat162float(mu16[i]);
+    const float v_prev = kF32Moments ? nu32[i] : decode_nu(nu16[i], h.one_third);
+    float next_m = __fadd_rn(__fmul_rn(h.one_minus_b1, gi), __fmul_rn(h.b1, m_prev));
     float next_v = __fadd_rn(__fmul_rn(h.one_minus_b2, __fmul_rn(gi, gi)),
-                             __fmul_rn(h.b2, decode_nu(e.nu[i], h.one_third)));
-    e.mu[i] = __float2bfloat16_rn(next_m);
-    e.nu[i] = encode_nu(next_v);
+                             __fmul_rn(h.b2, v_prev));
+    if (kF32Moments) {
+      mu32[i] = next_m;
+      nu32[i] = next_v;
+    } else {
+      mu16[i] = __float2bfloat16_rn(next_m);
+      nu16[i] = encode_nu(next_v);
+    }
     if (h.bias_correction) {
       next_m = __fmul_rn(next_m, h.inv_bc1);
       next_v = __fmul_rn(next_v, h.inv_bc2);
@@ -149,7 +166,11 @@ size_t adam_update_tensor_size() { return sizeof(AdamTensor); }
 
 cudaError_t adam_update(const AdamParams* params, cudaStream_t stream) {
   if (params->num_blocks <= 0) return cudaSuccess;
-  adam_update_kernel<<<params->num_blocks, kThreads, 0, stream>>>(*params);
+  if (params->h.f32_moments) {
+    adam_update_kernel<true><<<params->num_blocks, kThreads, 0, stream>>>(*params);
+  } else {
+    adam_update_kernel<false><<<params->num_blocks, kThreads, 0, stream>>>(*params);
+  }
   return cudaGetLastError();
 }
 

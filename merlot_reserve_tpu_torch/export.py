@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Sequence
 
@@ -48,6 +49,7 @@ from merlot_reserve_tpu_torch.serving import FIELDS, embed_in_batches, stage_bat
 from merlot_reserve_tpu_torch.utils import msgpack
 from merlot_reserve_tpu_torch.utils.checkpoint import compress_state, decompress_state
 from merlot_reserve_tpu_torch.utils.device import resolve_device
+from merlot_reserve_tpu_torch.utils.profiling import log_compile
 from merlot_reserve_tpu_torch.utils.weights import flax_entries
 
 ARTIFACT_FORMAT_VERSION = 1
@@ -138,8 +140,10 @@ def export_serving_artifact(model, params: Dict, example_video: Dict, path: str,
         for method, inputs, file in (
                 ("batch_embed_video", tuple(batch.values()), "embed_video.pt2"),
                 ("embed_text_spans_only", (opts,), "label_space.pt2")):
+            t0 = time.perf_counter()
             program = torch.export.export(_FlatCall(model, method, keys),
                                           tuple(flat) + inputs, strict=False)
+            log_compile("export", f"{method} -> {file}", "traced", time.perf_counter() - t0)
             program.example_inputs = None  # they hold the parameters
             _erase_metadata_asserts(program)
             torch.export.save(program, os.path.join(path, file))

@@ -5,7 +5,8 @@ Each library is built at first use into ``_build/`` inside the package
 (listed in ``.gitignore``), named by a hash of its source, the shared
 headers ``csrc/*.cuh`` and the flags, so a changed source or header is
 rebuilt and an unchanged one is not. Nothing is built or loaded at import
-time.
+time. Under ``utils.profiling.log_compiles`` every build or load is logged
+(name, built or cached, seconds).
 """
 
 from __future__ import annotations
@@ -74,12 +75,23 @@ def build(names: Sequence[str]) -> Dict[str, Built]:
     """Compile each named source that is not built yet, one nvcc process per
     source, all started together. Raises with nvcc's output on a failure,
     after every nvcc has ended."""
+    from merlot_reserve_tpu_torch.utils.profiling import log_compile
+
     BUILD_DIR.mkdir(exist_ok=True)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(_compile, names)))
+        built = dict(zip(names, pool.map(_compile, names)))
+    for name, b in built.items():
+        log_compile("kernel build", name, "built" if b.seconds else "cached", b.seconds)
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if needed. Callers
     cache what they load."""
-    return ctypes.CDLL(str(build([name])[name].path))
+    from merlot_reserve_tpu_torch.utils.profiling import log_compile
+
+    path = build([name])[name].path
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    log_compile("kernel load", name, path.name, time.perf_counter() - t0)
+    return lib

@@ -248,6 +248,17 @@ def _tp_kind(path: str) -> str:
     raise ValueError(f"no tensor-parallel layout for {path}")
 
 
+def tp_join(kind: Optional[str], parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The whole tensor of an entry whose tp split is ``kind`` (``ShardPlan.
+    tp_kind``; None: not split) from the tp ranks' shares, in rank order."""
+    if kind is None:
+        return parts[0]
+    if kind == "qkv":
+        blocks = [p.reshape((3, p.shape[0] // 3) + tuple(p.shape[1:])) for p in parts]
+        return torch.cat(blocks, 1).reshape((-1,) + tuple(parts[0].shape[1:]))
+    return torch.cat(list(parts), 1 if kind == "row" else 0)
+
+
 @dataclass
 class ShardPlan:
     """Where every parameter of a port model lives on a process mesh, from
@@ -336,13 +347,7 @@ class ShardPlan:
 
     def tp_join(self, name: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The whole tensor from the tp ranks' shares, in rank order."""
-        kind = self.tp_kind.get(name)
-        if kind is None:
-            return parts[0]
-        if kind == "qkv":
-            blocks = [p.reshape((3, p.shape[0] // 3) + tuple(p.shape[1:])) for p in parts]
-            return torch.cat(blocks, 1).reshape((-1,) + tuple(parts[0].shape[1:]))
-        return torch.cat(list(parts), self.tp_dim(name))
+        return tp_join(self.tp_kind.get(name), parts)
 
     def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This process's share of the whole tensor of ``name`` (contiguous)."""

@@ -3,7 +3,9 @@
 The port of ``merlot_reserve_tpu/training/optimization.py``'s two chains.
 Both start with memory-lean Adam, the first moment stored in bf16 and the
 second in a cube-root bf16 encoding that spends the (always non-negative)
-sign bit as an extra mantissa bit, and end with a schedule and the step -lr:
+sign bit as an extra mantissa bit, and end with a schedule and the step -lr.
+With ``use_bfloat16_adam`` off the moments are f32 and the arithmetic is
+optax's ``scale_by_adam`` (bias correction always on), as in the JAX chains:
 
   * pretraining (``construct_train_state``): decoupled weight decay toward
     zero on the parameters whose flax leaf has more than one axis, then the
@@ -101,13 +103,26 @@ def lr_scale_linearwarmup_lineardecay(num_warmup_steps: int, num_train_steps: in
 CHAINS = ("pretrain", "finetune")
 
 
+def bias_correction(decay: float, count: int, f32_moments: bool) -> float:
+    """1 - decay^count as a Python float. optax's ``scale_by_adam`` (f32
+    moments) takes the power and the difference in f32, which moves 1 -
+    0.98^t off its exact value by up to a relative 1e-6; the bf16 chain keeps
+    the double it has always used."""
+    if f32_moments:
+        return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+    return 1 - decay ** count
+
+
 @torch.no_grad()
 def adam_update_reference(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                           mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
                           decay, opt_config, count_inc: int, step_size: float,
                           anchor: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Plain PyTorch version of the update kernel: one update of every
-    parameter, mu and nu in place, with eager ops tensor by tensor.
+    parameter, mu and nu in place, with eager ops tensor by tensor. f32
+    moments (``use_bfloat16_adam`` off) are read and stored as they are,
+    optax's ``scale_by_adam``; bf16 ones through the bf16 cast and the
+    cube-root code.
 
     :param decay: the names that take weight decay (pretraining) or are
         pulled toward ``anchor`` (finetuning)
@@ -119,13 +134,15 @@ def adam_update_reference(params: Dict[str, torch.Tensor], grads: Dict[str, torc
     b1, b2 = cfg.beta_1, cfg.beta_2
     for name, p in params.items():
         g = grads[name]
+        f32 = mu[name].dtype == torch.float32
         next_m = (1 - b1) * g + b1 * mu[name].float()
-        next_v = (1 - b2) * torch.square(g) + b2 * unsigned_bfloat16_decode(nu[name])
-        mu[name].copy_(next_m.to(torch.bfloat16))
-        nu[name].copy_(unsigned_bfloat16_encode(next_v))
+        next_v = (1 - b2) * torch.square(g) + b2 * (
+            nu[name] if f32 else unsigned_bfloat16_decode(nu[name]))
+        mu[name].copy_(next_m if f32 else next_m.to(torch.bfloat16))
+        nu[name].copy_(next_v if f32 else unsigned_bfloat16_encode(next_v))
         if cfg.do_bias_correction:
-            next_m = next_m / (1 - b1 ** count_inc)
-            next_v = next_v / (1 - b2 ** count_inc)
+            next_m = next_m / bias_correction(b1, count_inc, f32)
+            next_v = next_v / bias_correction(b2, count_inc, f32)
         update = next_m / (torch.sqrt(next_v) + cfg.eps)
         if name in decay:
             if anchor is None:
@@ -157,7 +174,8 @@ class _AdamHyper(ctypes.Structure):
     _fields_ = [(n, ctypes.c_float) for n in (
         "one_minus_b1", "b1", "one_minus_b2", "b2", "eps", "inv_bc1", "inv_bc2", "wd",
         "step_size", "neg_lr", "one_third")] + [("bias_correction", ctypes.c_int32),
-                                                 ("finetune", ctypes.c_int32)]
+                                                 ("finetune", ctypes.c_int32),
+                                                 ("f32_moments", ctypes.c_int32)]
 
 
 class _AdamParams(ctypes.Structure):
@@ -194,16 +212,20 @@ def adam_hyper(opt_config, count_inc: int, step_size: float, finetune: bool) -> 
     """The f32 scalars that the eager ops of ``adam_update_reference`` see on
     the card: each Python float rounded to f32, and a tensor divided by a
     Python scalar as a product with the scalar's f32 reciprocal (what
-    PyTorch's CUDA division by a scalar computes)."""
+    PyTorch's CUDA division by a scalar computes). The moments' mode is
+    ``opt_config.use_bfloat16_adam``'s."""
     cfg = opt_config
     b1, b2 = cfg.beta_1, cfg.beta_2
-    inv_bc = [float(np.float32(1.0) / np.float32(1 - b ** count_inc)) for b in (b1, b2)]
+    f32 = not cfg.use_bfloat16_adam
+    inv_bc = [float(np.float32(1.0) / np.float32(bias_correction(b, count_inc, f32)))
+              for b in (b1, b2)]
     return _AdamHyper(
         one_minus_b1=_f32(1 - b1), b1=_f32(b1), one_minus_b2=_f32(1 - b2), b2=_f32(b2),
         eps=_f32(cfg.eps), inv_bc1=inv_bc[0], inv_bc2=inv_bc[1],
         wd=_f32(cfg.weight_decay_rate), step_size=_f32(step_size),
         neg_lr=_f32(-cfg.learning_rate), one_third=_f32(1.0 / 3.0),
-        bias_correction=int(bool(cfg.do_bias_correction)), finetune=int(finetune))
+        bias_correction=int(bool(cfg.do_bias_correction)), finetune=int(finetune),
+        f32_moments=int(f32))
 
 
 class AdamTable:
@@ -211,7 +233,8 @@ class AdamTable:
     decay) entries and its block map, built once for tensors that are then
     updated in place. Each update sends only the gradient pointers, and
     refuses to launch if a tensor of the state is no longer the one the
-    table points at (a rebound entry, or a parameter moved or cast)."""
+    table points at (a rebound entry, or a parameter moved or cast). The
+    moments are all bf16 or all f32 (``moment_dtype``)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], mu, nu, decay, anchor=None):
         self.names = list(params)
@@ -219,12 +242,17 @@ class AdamTable:
         self.device = first.device
         if self.device.type != "cuda":
             raise ValueError("adam_update: the kernel's table lives on the card")
+        self.moment_dtype = mu[self.names[0]].dtype
+        if self.moment_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"adam_update: moments must be bf16 or f32, not {self.moment_dtype}")
         for n in self.names:
             p, m, v = params[n], mu[n], nu[n]
             a = None if anchor is None else anchor[n]
-            for what, x, dtype in (("param", p, torch.float32), ("mu", m, torch.bfloat16),
-                                   ("nu", v, torch.bfloat16),
-                                   ("anchor", a if a is not None else m, torch.bfloat16)):
+            for what, x, dtype in (("param", p, torch.float32), ("mu", m, self.moment_dtype),
+                                   ("nu", v, self.moment_dtype),
+                                   ("anchor", a, torch.bfloat16)):
+                if x is None:
+                    continue
                 if (x.dtype != dtype or x.device != self.device or x.shape != p.shape
                         or not x.is_contiguous()):
                     raise ValueError(f"adam_update: {what} of {n} must be a contiguous "
@@ -271,7 +299,11 @@ class AdamTable:
 def adam_update(table: AdamTable, grads: Dict[str, torch.Tensor], hyper: _AdamHyper) -> None:
     """One launch of csrc/adam_update.cu on PyTorch's current stream: every
     tensor of ``table`` updated from ``grads`` (kept alive by the caller
-    until the launch is enqueued; the stream orders any reuse)."""
+    until the launch is enqueued; the stream orders any reuse). ``hyper``'s
+    moment mode must be the table's."""
+    if bool(hyper.f32_moments) != (table.moment_dtype == torch.float32):
+        raise ValueError(f"adam_update: {'f32' if hyper.f32_moments else 'bf16'} moment mode "
+                         f"for a table of {table.moment_dtype} moments")
     ptrs = table.grad_pointers(grads)
     params = _AdamParams(tensors=table.tensors.data_ptr(), grads=ptrs.data_ptr(),
                          block_tensor=table.block_tensor.data_ptr(),
@@ -309,6 +341,8 @@ def adam_decode_probe(nu: torch.Tensor) -> torch.Tensor:
 class PretrainOptimizer:
     """bf16 Adam -> weight decay -> schedule -> -lr, over named f32
     parameters, updated in place, with mu, nu (and the anchor) in place.
+    With ``opt_config.use_bfloat16_adam`` off, mu and nu are f32 (optax's
+    ``scale_by_adam``, which needs ``do_bias_correction``).
 
     :param named_params: (name, parameter) pairs, e.g. ``model.named_parameters()``
     :param decay: names of the parameters that take weight decay
@@ -327,8 +361,9 @@ class PretrainOptimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], decay: Iterable[str],
                  opt_config, chain: str = "pretrain"):
-        if not opt_config.use_bfloat16_adam:
-            raise NotImplementedError("only the bf16 Adam of the optax chains is ported")
+        if not (opt_config.use_bfloat16_adam or opt_config.do_bias_correction):
+            raise ValueError("f32 Adam (use_bfloat16_adam off) is optax's scale_by_adam, "
+                             "which always corrects the bias")
         if chain not in CHAINS:
             raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
         self.config = opt_config
@@ -347,8 +382,9 @@ class PretrainOptimizer:
             self.schedule = lr_scale_linearwarmup_lineardecay(
                 opt_config.num_warmup_steps, opt_config.num_train_steps)
             self.anchor = {n: p.detach().to(torch.bfloat16) for n, p in self.params.items()}
-        self.mu = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
+        moment = torch.bfloat16 if opt_config.use_bfloat16_adam else torch.float32
+        self.mu = {n: torch.zeros_like(p, dtype=moment) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p, dtype=moment) for n, p in self.params.items()}
         self.count = 0
         self._table: Optional[AdamTable] = None
 

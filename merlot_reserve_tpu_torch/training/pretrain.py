@@ -29,13 +29,18 @@ the ZeRO-1 state of ``trainer.create_distributed_train_state``: each
 process's batches are its rows of the global batch (its loader reads its
 file shard, ``parallel.sharding.data_shard``), the logged loss terms are
 the global batch's (summed over the data-parallel ranks' parts), and only
-rank 0 writes a tracker, a checkpoint file or the loader's position; every
-process takes part in gathering a checkpoint and reads it at a resume.
+rank 0 writes a tracker or the loader's position. Such a job checkpoints
+per rank (``utils.checkpoint.sharded_manager``: each rank writes its own
+shards, asynchronously, nothing gathered), as the JAX package's loop uses
+orbax on several processes. At a resume the newest checkpoint in
+``output_dir`` is read, sharded or msgpack, sharded first at a tie, at
+whatever layout it was written.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import signal
@@ -112,7 +117,9 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
                     device="cuda", seed: int = 0, mesh: Optional[Mesh] = None,
                     log_every: int = 50, save_every: Optional[int] = None,
-                    tracker=None, fused_builder=None, data_seed: int = 0) -> TrainState:
+                    tracker=None, fused_builder=None, data_seed: int = 0,
+                    on_batch: Optional[Callable[[int, Dict, Dict], None]] = None
+                    ) -> TrainState:
     """Build a ``MerlotReservePretrainer`` (weights from ``seed``) on
     ``device`` and train it up to step ``num_steps`` under ``mesh``,
     resuming from ``output_dir``'s newest checkpoint; returns the final
@@ -136,6 +143,10 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
         step assembles its batch on the device from the raw batch
         (``make_fused_data_train_step``), with draws keyed by
         ``(data_seed, step)``
+    :param on_batch: called as ``on_batch(step, raw, batch)`` before every
+        step with the batch as the device got it and as the step trains on
+        it (with ``fused_builder`` built on the device, else the same dict):
+        ``batch_digest`` of both shows which records and draws a step saw
     """
     num_steps = num_steps or cfg.optimizer.num_train_steps
     save_every = save_every or cfg.device.iterations_per_loop
@@ -169,12 +180,27 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
     state = (create_distributed_train_state(cfg, model, mesh) if mesh.is_process_mesh
              else create_train_state(cfg, model))
     if output_dir:
-        ckpt_lib.load_checkpoint(output_dir, state=state)
+        t_load = time.perf_counter()
+        kind, _ = ckpt_lib.latest_checkpoint(output_dir)
+        if kind == "sharded":
+            ckpt_lib.load_checkpoint_sharded(output_dir, state)
+        elif kind == "msgpack":
+            ckpt_lib.load_checkpoint(output_dir, state=state)
         if state.step:
-            print(f"resumed from step {state.step}", flush=True)
+            print(f"resumed from step {state.step} ({kind}) in "
+                  f"{time.perf_counter() - t_load:.2f} s", flush=True)
 
     metrics_q = MetricsQueue(delay=log_every)
+    # several processes: each writes its own shards (the JAX loop's orbax)
+    manager = (ckpt_lib.sharded_manager(output_dir)
+               if output_dir and distributed.process_count() > 1 else None)
     async_ckpt = ckpt_lib.AsyncCheckpointer()
+
+    def save():
+        if manager is not None:
+            manager.save(state)
+        else:
+            async_ckpt.save(state, output_dir)
 
     def report(ready):
         if ready is not None:
@@ -186,7 +212,7 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
               if cfg.model.use_bfloat16 else {})
     feed = DeviceFeed(batch_iterator, device, narrow=narrow, widen_ints=fused_builder is None)
     step_fn = (train_step if fused_builder is None
-               else make_fused_data_train_step(fused_builder, data_seed))
+               else make_fused_data_train_step(fused_builder, data_seed, on_batch=on_batch))
     batches = iter(feed)
     t_block = time.time()
     with _StopFlag() as stop:
@@ -197,10 +223,13 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
                 print(f"input exhausted after {state.step} of {num_steps} steps", flush=True)
                 break
             with activate_mesh(mesh):
-                state, metrics = step_fn(state, form_global_batch(mesh, batch))
+                batch = form_global_batch(mesh, batch)
+                if on_batch is not None and fused_builder is None:
+                    on_batch(step, batch, batch)
+                state, metrics = step_fn(state, batch)
             report(metrics_q.push(step, metrics))
             if output_dir and (step + 1) % save_every == 0:
-                async_ckpt.save(state, output_dir)
+                save()
                 save_loader_state()
                 # contrastive temperature health print
                 scales = model.contrastive_scales.detach().float().cpu()
@@ -220,9 +249,31 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
     tracker.finish()
     async_ckpt.wait()
     if output_dir:
-        ckpt_lib.save_checkpoint(state, output_dir)
+        t_save = time.perf_counter()
+        if manager is not None:
+            manager.save(state)
+            manager.close()
+        else:
+            ckpt_lib.save_checkpoint(state, output_dir)
         save_loader_state()
+        if writer:
+            print(f"checkpoint of step {state.step} written in "
+                  f"{time.perf_counter() - t_save:.2f} s", flush=True)
+    if device.type == "cuda" and writer:
+        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB",
+              flush=True)
     return state
+
+
+def batch_digest(batch: Dict[str, torch.Tensor]) -> str:
+    """A SHA-1 of a batch's keys, dtypes, shapes and bytes: equal digests,
+    equal batches bit for bit."""
+    h = hashlib.sha1()
+    for key in sorted(batch):
+        t = torch.as_tensor(batch[key]).detach().cpu().contiguous()
+        h.update(f"{key}:{t.dtype}:{tuple(t.shape)};".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 @torch.no_grad()

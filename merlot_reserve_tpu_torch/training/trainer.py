@@ -256,7 +256,8 @@ def model_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             else v for k, v in batch.items()}
 
 
-def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: bool = True):
+def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: bool = True,
+                               on_batch=None):
     """The training step from a raw batch: example assembly on the card
     (``DeviceExampleBuilder.build_batch``), then ``train_step``. The port of
     the JAX package's ``make_jit_fused_data_train_step``.
@@ -273,11 +274,12 @@ def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: 
     draws=None)``; ``draws`` replaces the builder's sampler (a test's hook),
     ``split_at`` and ``gumbel`` are ``train_step``'s. Under a process mesh
     each data-parallel rank takes its rows of the global batch's draws
-    (``RowShardDraws``).
+    (``RowShardDraws``). ``on_batch(step, raw, batch)``, where given, sees
+    each step's raw batch and the batch built from it.
     """
     def step(state: TrainState, raw: Dict[str, torch.Tensor], split_at=None, gumbel=None,
              draws=None):
-        raw = dict(raw)
+        fed, raw = raw, dict(raw)
         images = raw.pop("images", None)
         with record_function("train_step/build"):
             if draws is None:
@@ -291,6 +293,8 @@ def make_fused_data_train_step(builder, data_seed: int = 0, use_bfloat16_grads: 
                 batch["images"] = (images.to(torch.bfloat16) if builder.cfg.model.use_bfloat16
                                    else images)
             batch = model_batch(batch)
+        if on_batch is not None:
+            on_batch(state.step, fed, batch)
         return train_step(state, batch, use_bfloat16_grads, split_at, gumbel)
 
     return step

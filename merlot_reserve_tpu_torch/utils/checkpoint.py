@@ -16,12 +16,31 @@ default writes an orbax directory instead, which ``load_checkpoint``
 refuses with a message naming that flag.
 
 A train state sharded across processes (``training.optimization.
-ShardedOptimizer``) is saved in the same one-file format: every process
+ShardedOptimizer``) can be saved in the same one-file format: every process
 takes part in gathering its shards (``state_to_flax``), and only rank 0
 writes the file. At a resume every process reads the file and keeps its
 share, so a checkpoint of any layout resumes in any other, the one-process
-one included. The orbax half of the JAX module (per-shard parallel writes)
-has no counterpart yet.
+one included.
+
+The sharded half, the counterpart of the JAX module's orbax half
+(``orbax_manager``, ``save_checkpoint_orbax``, ``load_checkpoint_orbax``):
+``sharded_manager``, ``save_checkpoint_sharded`` and
+``load_checkpoint_sharded`` write per-rank shards with
+``torch.distributed.checkpoint`` into a directory ``<path>/<step>/``. Each
+rank writes only the shares it holds (its ZeRO-1 shards of the masters and
+moments, its tp shares, its pp stage's entries), each share once across the
+job and under a key of its own (``params/<flax path>#dp<i>``,
+``mu/<entry>#tp<j>``, ``nu/<entry>``), so nothing is gathered to rank 0;
+``layout.json`` records the split. Each share is stored in the state's
+own dtype (f32 masters, f32 or bf16 moments, the bf16 anchor), as orbax
+stores the JAX train state, so a resume gives back the saved state bit for
+bit; only the msgpack file, the released checkpoints' format, rounds f32
+to f16. A checkpoint appears whole or not at all:
+the ranks write into ``<step>.tmp/`` and rank 0 renames it after a barrier.
+At the layout it was written at each rank reads back only its own shares;
+at another (dp 2 to one process, one process to dp 2, dp 2 to tp 2) every
+rank reads all of them and keeps its share. The format is the port's own:
+orbax's cannot be read without JAX.
 
 The layer-layout converters: the reference checkpoints store one
 ``layer_NN`` subtree per transformer layer; the JAX package's
@@ -31,10 +50,12 @@ stacked along a leading [num_layers] axis.
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +64,7 @@ from merlot_reserve_tpu_torch.parallel import distributed
 from merlot_reserve_tpu_torch.utils import msgpack
 from merlot_reserve_tpu_torch.utils.weights import (
     flax_tensors_from_state_dict,
+    from_flax_layout,
     state_dict_from_flax,
 )
 
@@ -102,7 +124,9 @@ def state_to_flax(state) -> Dict:
 
         {"step": int32,
          "params": the flax parameter tree (f32),
-         "opt_state": {"0": {"count": int32, "mu": tree (bf16), "nu": tree (bf16)},
+         "opt_state": {"0": {"count": int32, "mu": tree, "nu": tree},
+                                 (bf16, or f32 with use_bfloat16_adam off: optax's
+                                  ScaleByAdamState(count, mu, nu))
                        "1": {"inner_state": {}}                  (pretraining:
                                                  add_decayed_weights' MaskedState)
                           or {"orig_params": tree (bf16)}        (finetuning:
@@ -131,6 +155,17 @@ def state_to_flax(state) -> Dict:
                           "1": second, "2": {"count": count.clone()}, "3": {}}}
 
 
+def _check_moments(adam, moments: Dict[str, torch.Tensor]) -> None:
+    """Refuse a file whose Adam moments are not the state's kind: bf16 (the
+    bf16 Adam) or f32 (``use_bfloat16_adam`` off; f16 in the file)."""
+    have = next(_leaves(adam["mu"])).dtype == torch.bfloat16
+    want = next(iter(moments.values())).dtype == torch.bfloat16
+    if have != want:
+        kinds = {True: "bf16 Adam", False: "f32 Adam"}
+        raise ValueError(f"the checkpoint's moments are {kinds[have]}'s, the state's "
+                         f"{kinds[want]}'s (use_bfloat16_adam)")
+
+
 def _load_named(target: Dict[str, torch.Tensor], tree, what: str) -> None:
     sd = state_dict_from_flax(tree, dtype=None)
     missing = sorted(set(target) - set(sd))
@@ -157,6 +192,7 @@ def load_state_from_flax(state, tree: Dict):
     opt_state = tree.get("opt_state")
     if opt_state is not None:
         adam = opt_state["0"]
+        _check_moments(adam, opt.mu)
         _load_named(opt.mu, adam["mu"], "mu")
         _load_named(opt.nu, adam["nu"], "nu")
         opt.count = int(adam["count"])
@@ -191,6 +227,7 @@ def _load_sharded(state, tree: Dict):
     opt_state = tree.get("opt_state")
     if opt_state is not None:
         adam = opt_state["0"]
+        _check_moments(adam, opt.inner.mu)
         kw = dict(mu=_whole_named(shapes, adam["mu"], "mu"),
                   nu=_whole_named(shapes, adam["nu"], "nu"), count=int(adam["count"]))
         has_anchor = "orig_params" in opt_state["1"]
@@ -366,6 +403,325 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# per-rank sharded checkpoints (torch.distributed.checkpoint)
+# ---------------------------------------------------------------------------
+
+LAYOUT_FILE = "layout.json"
+_SHARDED_FORMAT = "merlot_reserve_tpu_torch.sharded/1"
+_KINDS = ("params", "mu", "nu", "anchor")
+
+
+def _state_parts(state):
+    """(optimizer, its masters / moments / anchor by master key, the plan or
+    None) of a port ``TrainState``, sharded or not."""
+    opt = state.optimizer
+    if hasattr(opt, "inner"):  # ShardedOptimizer
+        inner = opt.inner
+        return opt, {"params": inner.params, "mu": inner.mu, "nu": inner.nu,
+                     "anchor": inner.anchor}, opt.plan
+    return opt, {"params": dict(state.model.named_parameters()), "mu": opt.mu, "nu": opt.nu,
+                 "anchor": opt.anchor}, None
+
+
+def _own_pieces(plan, tensors) -> Dict[str, Tuple[str, bool]]:
+    """This rank's masters: master key -> (the key of its share in the
+    checkpoint, whether this rank writes it). Without a plan (one process)
+    every entry is whole and written here. Each share is written by one
+    rank: a ZeRO-1 shard by its dp rank at tp, sp, pp and dcn index 0; an
+    entry outside ZeRO-1 by the dp, sp and dcn index 0 ranks of its pp
+    stage, each tp rank its own share of a tp-split entry."""
+    if plan is None:
+        return {n: (n, True) for n in tensors["params"]}
+    mesh = plan.mesh
+    idx = {a: mesh.axis_index(a) for a in mesh.axis_names}
+    out = {}
+    for path in plan.zero_leaves():
+        out[path] = (f"{path}#dp{idx['dp']}",
+                     idx["tp"] == idx["sp"] == idx["pp"] == idx["dcn"] == 0)
+    zero_names = set(plan.zero_names())
+    for name in plan.full_shapes:
+        if name in zero_names:
+            continue
+        if plan.stage and name in plan.stage and plan.stage[name] != idx["pp"]:
+            continue  # another stage's entry
+        split = plan.tp_kind.get(name) is not None
+        owner = (idx["dp"] == idx["sp"] == idx["dcn"] == 0
+                 and plan.stage.get(name, 0) == idx["pp"] and (split or idx["tp"] == 0))
+        out[name] = (f"{name}#tp{idx['tp']}" if split else name, owner)
+    return out
+
+
+def _layout(state) -> Dict[str, Any]:
+    opt, tensors, plan = _state_parts(state)
+    moments = next(iter(tensors["mu"].values())).dtype
+    layout = {"format": _SHARDED_FORMAT, "step": int(state.step), "count": int(opt.count),
+              "moments": "bf16" if moments == torch.bfloat16 else "f32",
+              "anchor": tensors["anchor"] is not None, "mesh": {}, "zero": {}, "tp": {}}
+    if plan is not None:
+        layout["mesh"] = {a: int(n) for a, n in plan.mesh.shape.items()}
+        layout["zero"] = {p: {"dim": plan.zero_dim[p], "names": plan.leaves[p].names,
+                              "stacked": plan.leaves[p].stacked} for p in plan.zero_leaves()}
+        layout["tp"] = {n: k for n, k in plan.tp_kind.items() if k is not None}
+    return layout
+
+
+def _group(plan):
+    """The process group of a checkpoint's collectives: gloo over the
+    mesh's ranks (the mesh's own group where it is gloo, else one made once:
+    an async save runs its collectives on a thread of its own, beside the
+    step's NCCL ones); None for a state of one process outside any job."""
+    import torch.distributed as dist
+
+    if plan is None or not dist.is_initialized():
+        return None
+    mesh = plan.mesh
+    group = mesh.group(mesh.axis_names)
+    if dist.get_backend(group) == "gloo":
+        return group
+    if getattr(mesh, "_checkpoint_group", None) is None:  # lives as long as the mesh
+        mesh._checkpoint_group = dist.new_group(mesh.group_ranks(mesh.axis_names),
+                                                backend="gloo")
+    return mesh._checkpoint_group
+
+
+def _barrier(group) -> None:
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=group)
+
+
+def _is_writer(group) -> bool:
+    if group is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank(group) == 0
+
+
+def _sharded_steps(path: str) -> List[int]:
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(n) for n in os.listdir(path)
+                  if n.isdigit() and os.path.isfile(os.path.join(path, n, LAYOUT_FILE)))
+
+
+class ShardedCheckpointManager:
+    """Per-rank sharded checkpoints of a ``TrainState`` in ``path``: the
+    counterpart of the JAX package's orbax ``CheckpointManager``. Every rank
+    of the state's mesh calls ``save`` and ``restore`` together.
+
+    ``save`` writes ``<path>/<step>/`` through ``<step>.tmp/``, keeping the
+    newest ``keep``. With ``async_save`` the loop waits only for a snapshot
+    of its shares on the device (copies in their own dtypes, enqueued on
+    the current stream), as ``AsyncCheckpointer`` does; a
+    thread copies it to pinned host memory on a stream of its own and
+    writes it (``torch.distributed.checkpoint.save``, its collectives on a
+    gloo group), and the next ``save``, ``wait()`` or ``close()`` renames
+    the checkpoint into place."""
+
+    def __init__(self, path: str, keep: Optional[int] = None, async_save: bool = True):
+        self.path, self.keep, self.async_save = path, keep, async_save
+        self._pending = None
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def latest_step(self) -> Optional[int]:
+        steps = _sharded_steps(self.path)
+        return steps[-1] if steps else None
+
+    def save(self, state) -> str:
+        """Start (or, without ``async_save``, make) the checkpoint of
+        ``state`` at its step; returns its directory."""
+        import torch.distributed.checkpoint as dcp
+
+        self.wait()
+        _, tensors, plan = _state_parts(state)
+        group = _group(plan)
+        step = int(state.step)
+        tmp, final = (os.path.join(self.path, f"{step}{ext}") for ext in (".tmp", ""))
+        if _is_writer(group):
+            os.makedirs(self.path, exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+        _barrier(group)
+        own = _own_pieces(plan, tensors)
+        snapshot = {f"{kind}/{piece}": tensors[kind][key].detach().clone()
+                    for kind in _KINDS if tensors[kind] is not None
+                    for key, (piece, owner) in own.items() if owner}
+        self._pending = (tmp, final, _layout(state), group)
+        kw = dict(checkpoint_id=tmp, process_group=group, no_dist=group is None)
+        if not self.async_save:
+            dcp.save(snapshot, **kw)
+            self.wait()
+            return final
+        device = next((t.device for t in snapshot.values() if t.is_cuda), None)
+        event = None
+        if device is not None:
+            event = torch.cuda.Event()
+            event.record()
+
+        def write():
+            try:
+                host = snapshot
+                if device is not None:  # on a side stream: behind the snapshot only
+                    with torch.cuda.device(device):
+                        stream = torch.cuda.Stream()
+                        stream.wait_event(event)
+                        with torch.cuda.stream(stream):
+                            host = {k: _to_pinned(t) for k, t in snapshot.items()}
+                        stream.synchronize()
+                dcp.save(host, **kw)
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+        return final
+
+    def wait(self) -> None:
+        """Finish the save in flight: its write, then the layout file and the
+        rename into place (rank 0, after a barrier), then the pruning."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error, self._pending = self._error, None, None
+            raise error
+        if self._pending is None:
+            return
+        tmp, final, layout, group = self._pending
+        self._pending = None
+        _barrier(group)
+        if _is_writer(group):
+            with open(os.path.join(tmp, LAYOUT_FILE), "w") as f:
+                json.dump(layout, f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            steps = _sharded_steps(self.path)
+            for step in steps[:-self.keep] if self.keep else []:
+                shutil.rmtree(os.path.join(self.path, str(step)))
+        _barrier(group)
+
+    close = wait
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.wait()
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load ``<path>/<step>`` (default the newest) into ``state`` in
+        place and return it; None when there is no sharded checkpoint."""
+        import torch.distributed.checkpoint as dcp
+
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        directory = os.path.join(self.path, str(step))
+        with open(os.path.join(directory, LAYOUT_FILE)) as f:
+            layout = json.load(f)
+        opt, tensors, plan = _state_parts(state)
+        mine = _layout(state)
+        for key, what in (("moments", "Adam moments"), ("anchor", "finetuning anchor")):
+            if layout[key] != mine[key]:
+                raise ValueError(f"the checkpoint's {what} ({layout[key]}) are not the "
+                                 f"state's ({mine[key]})")
+        stored = dcp.FileSystemReader(directory).read_metadata().state_dict_metadata
+        same = all(layout[k] == mine[k] for k in ("mesh", "zero", "tp"))
+        own = _own_pieces(plan, tensors)
+        wanted = ([f"{kind}/{piece}" for kind in _KINDS if tensors[kind] is not None
+                   for piece, _ in own.values()] if same else list(stored))
+        bufs = {k: torch.empty(tuple(stored[k].size), dtype=stored[k].properties.dtype)
+                for k in wanted}
+        group = _group(plan)
+        dcp.load(bufs, checkpoint_id=directory, process_group=group, no_dist=group is None)
+        with torch.no_grad():
+            if same:
+                for kind in _KINDS:
+                    if tensors[kind] is not None:
+                        for key, (piece, _) in own.items():
+                            tensors[kind][key].copy_(bufs[f"{kind}/{piece}"])
+                if plan is not None:
+                    opt.inner.count = layout["count"]
+                    opt._write_compute_copies()
+                else:
+                    opt.count = layout["count"]
+            else:
+                whole = {kind: _whole_entries(layout, bufs, kind) for kind in _KINDS
+                         if tensors[kind] is not None}
+                if plan is not None:
+                    opt.load_full_state(**whole, count=layout["count"])
+                else:
+                    for kind, entries in whole.items():
+                        for name, t in tensors[kind].items():
+                            t.copy_(entries[name])
+                    opt.count = layout["count"]
+        state.step = layout["step"]
+        return state
+
+
+def _whole_entries(layout, bufs, kind: str) -> Dict[str, torch.Tensor]:
+    """Every entry's whole tensor of ``kind`` from all ranks' shares."""
+    from merlot_reserve_tpu_torch.parallel.sharding import tp_join
+
+    dp, tp = layout["mesh"].get("dp", 1), layout["mesh"].get("tp", 1)
+    out: Dict[str, torch.Tensor] = {}
+    for path, z in layout["zero"].items():
+        full = torch.cat([bufs[f"{kind}/{path}#dp{i}"] for i in range(dp)], 0)
+        x = full.movedim(0, z["dim"])
+        parts = list(x.unbind(0)) if z["stacked"] else [x]
+        for name, part in zip(z["names"], parts):
+            out[name] = from_flax_layout(name, part)
+    prefix = f"{kind}/"
+    for key in bufs:
+        if not key.startswith(prefix) or "#dp" in key:
+            continue
+        name = key[len(prefix):].split("#tp")[0]
+        if name in out:
+            continue
+        split = layout["tp"].get(name)
+        out[name] = (tp_join(split, [bufs[f"{prefix}{name}#tp{j}"] for j in range(tp)])
+                     if split else bufs[key])
+    return out
+
+
+def sharded_manager(path: str, keep: Optional[int] = None,
+                    async_save: bool = True) -> ShardedCheckpointManager:
+    """A ``ShardedCheckpointManager`` for ``path`` (the counterpart of
+    ``orbax_manager``). Close it, or ``wait()``, before exiting."""
+    return ShardedCheckpointManager(path, keep=keep, async_save=async_save)
+
+
+def save_checkpoint_sharded(state, path: str, keep: Optional[int] = None) -> int:
+    """One per-rank sharded save of ``state`` (every rank of its mesh calls
+    it), in place when it returns; returns the step. A training loop that
+    should not wait for the write keeps a ``sharded_manager`` instead."""
+    with sharded_manager(path, keep=keep, async_save=False) as manager:
+        manager.save(state)
+    return int(state.step)
+
+
+def load_checkpoint_sharded(path: str, state, step: Optional[int] = None):
+    """Restore the newest (or ``step``'s) sharded checkpoint under ``path``
+    into ``state``, at whatever layout ``state`` has; returns the state, or
+    None when ``path`` holds none."""
+    return sharded_manager(path, async_save=False).restore(state, step)
+
+
+def latest_checkpoint(path: str) -> Tuple[Optional[str], int]:
+    """Which format holds the newest checkpoint in ``path``: ("sharded",
+    step), ("msgpack", step), or (None, 0). A sharded one wins a tie."""
+    sharded = _sharded_steps(path)
+    files = [s for s, f in _checkpoints(path) if os.path.isfile(f)]
+    if sharded and (not files or sharded[-1] >= files[-1]):
+        return "sharded", sharded[-1]
+    if files:
+        return "msgpack", files[-1]
+    return None, 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,16 @@ file shard and its share of the global batch, and the state is ZeRO-1.
 
     torchrun --nproc_per_node 8 scripts/pretrain_torch.py base -distributed \
         -train_fns "shards/*.tfrecord" -output_dir out
+
+SIGTERM (a preemption) finishes the step in flight, writes the checkpoint
+(``ckpt_<step>``; per-rank shards in ``<step>/`` under ``-distributed``)
+and ``loader_state.json`` into ``-output_dir`` and exits with 0; the same command then resumes from the
+next record (``scripts/profile_torch_soak.py`` drives the soak recipes so).
 """
 
 import argparse
 import glob
+import json
 import os
 import sys
 
@@ -38,6 +44,12 @@ def main(argv=None):
     ap.add_argument("-batch_size", type=int, default=None,
                     help="override device.batch_size (global batch)")
     ap.add_argument("-seed", type=int, default=None)
+    ap.add_argument("-log_every", type=int, default=50,
+                    help="print each step's losses this many steps after it (0: as it ends)")
+    ap.add_argument("-log_batches", action="store_true",
+                    help="print each step's 'batch <step>: records <sha1> built <sha1>': "
+                         "digests of the batch as fed and as built (with --fused_data, "
+                         "on the card with that step's draws)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("-distributed", action="store_true",
                     help="join the torchrun job first (one process per card; NCCL, or gloo "
@@ -56,7 +68,8 @@ def main(argv=None):
     from merlot_reserve_tpu_torch.data.loader import input_fn_builder
     from merlot_reserve_tpu_torch.parallel import distributed
     from merlot_reserve_tpu_torch.parallel.sharding import data_shard
-    from merlot_reserve_tpu_torch.training.pretrain import config_mesh, run_pretraining
+    from merlot_reserve_tpu_torch.training.pretrain import (batch_digest, config_mesh,
+                                                           run_pretraining)
 
     device = distributed.initialize(args.device) if args.distributed else args.device
 
@@ -89,12 +102,24 @@ def main(argv=None):
                          if not k.startswith("_"))
         print(f"step {step}: {parts}", flush=True)
 
+    def log_batch(step, raw, batch):
+        print(f"batch {step}: records {batch_digest(raw)} built {batch_digest(batch)}",
+              flush=True)
+
     try:
-        run_pretraining(cfg, loader, num_steps=args.num_steps, output_dir=args.output_dir,
-                        log_fn=log_fn if distributed.process_index() == 0 else None,
-                        device=device, seed=args.seed or 0, mesh=mesh,
-                        fused_builder=loader._dev_builder if args.fused_data else None,
-                        data_seed=args.seed or 0)
+        state = run_pretraining(
+            cfg, loader, num_steps=args.num_steps, output_dir=args.output_dir,
+            log_fn=log_fn if distributed.process_index() == 0 else None, device=device,
+            seed=args.seed or 0, mesh=mesh, log_every=args.log_every,
+            fused_builder=loader._dev_builder if args.fused_data else None,
+            data_seed=args.seed or 0,
+            on_batch=log_batch if args.log_batches and distributed.process_index() == 0
+            else None)
+        if distributed.process_index() == 0:  # this process's hand-written kernels
+            from merlot_reserve_tpu_torch import kernels
+
+            print(f"stopped at step {state.step}; kernel launches "
+                  f"{json.dumps(dict(sorted(kernels.LAUNCHES.items())))}", flush=True)
     finally:
         distributed.shutdown()
 

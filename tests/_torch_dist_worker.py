@@ -7,7 +7,9 @@ cases of the job file given as its argument (a ``torch.save``d dict), each
 on a process mesh over the first ranks of the job. Rank 0 writes every
 case's result to the file's ``out`` path. Imports torch and the port only.
 A case is a train step (the default), a forward's collectives
-(``forward_audit``), a checkpoint round trip (``checkpoint``), a zero-shot
+(``forward_audit``), a checkpoint round trip (``checkpoint``), a per-rank
+sharded checkpoint round trip (``sharded_checkpoint``), ``run_pretraining``
+saving and resuming per rank (``loop``), a zero-shot
 evaluation (``zero_shot``) or ``ring:rdma``'s refusal (``rdma_refusal``).
 
     python tests/_torch_dist_worker.py JOB.pt
@@ -53,7 +55,7 @@ def run_step(job, case, mesh):
     """One distributed train step of ``case`` -> (metrics, whole params,
     comm summary, update count, this rank's state bytes, the replicas'
     verdict after it and after a second step)."""
-    cfg = make_config(job, case.get("model", {}))
+    cfg = make_config(job, case.get("model", {}), case.get("optimizer"))
     state = create_distributed_train_state(cfg, full_model(cfg, job["params"]), mesh,
                                            zero1=case.get("zero1", True),
                                            use_bfloat16_grads=job["bf16_grads"])
@@ -154,6 +156,66 @@ def checkpoint(job, case, mesh):
     return out
 
 
+def _whole(state):
+    whole = state.optimizer.full_state()
+    return {"params": whole["params"], "mu": whole["mu"], "nu": whole["nu"],
+            "count": whole["count"], "step": state.step}
+
+
+def sharded_checkpoint(job, case, mesh):
+    """After one step: a per-rank sharded checkpoint written through an
+    async ``sharded_manager`` and the msgpack file of the same state, each
+    read back into a fresh state of this layout; and the sharded
+    checkpoints of other layouts (``read``) read into this one. Each as
+    the whole state every rank gathers."""
+    from merlot_reserve_tpu_torch.utils import checkpoint as ck
+
+    cfg = make_config(job, case.get("model", {}), case.get("optimizer"))
+
+    def fresh():
+        return create_distributed_train_state(cfg, full_model(cfg, job["params"]), mesh)
+
+    state = fresh()
+    batch = local_rows(mesh, batch_to_tensors(job["batch"], "cpu"))
+    with activate_mesh(mesh):
+        state, _ = train_step(state, batch, job["bf16_grads"], job["split_at"], job["gumbel"])
+    with ck.sharded_manager(case["dir"]) as manager:
+        manager.save(state)
+    ck.save_checkpoint(state, case["dir"] + "_msgpack")
+    torch.distributed.barrier(group=mesh.group(mesh.axis_names))  # the file is written
+    out = {"saved": _whole(state),
+           "resumed": _whole(ck.load_checkpoint_sharded(case["dir"], fresh())),
+           "msgpack": _whole(ck.load_checkpoint(case["dir"] + "_msgpack", state=fresh())),
+           "read": {d: _whole(ck.load_checkpoint_sharded(d, fresh())) for d in case["read"]}}
+    return out
+
+
+def loop(job, case, mesh):
+    """``run_pretraining`` on this process mesh with an ``output_dir``: two
+    steps saving every step, then a second run that resumes to three; the
+    directory's listings and the steps each run logged."""
+    import itertools
+
+    from merlot_reserve_tpu_torch.training.pretrain import run_pretraining
+
+    cfg = make_config(job, case.get("model", {}))
+    batch = local_rows(mesh, batch_to_tensors(job["batch"], "cpu"))
+    out, logged = {}, []
+    run_pretraining(cfg, itertools.repeat(batch), num_steps=2, output_dir=case["dir"],
+                    device="cpu", mesh=mesh, save_every=1, log_every=0,
+                    log_fn=lambda s, m: logged.append(s))
+    torch.distributed.barrier(group=mesh.group(mesh.axis_names))
+    out["first"] = (sorted(os.listdir(case["dir"])), list(logged))
+    logged.clear()
+    state = run_pretraining(cfg, itertools.repeat(batch), num_steps=3, output_dir=case["dir"],
+                            device="cpu", mesh=mesh, log_every=0,
+                            log_fn=lambda s, m: logged.append(s))
+    torch.distributed.barrier(group=mesh.group(mesh.axis_names))
+    out["second"] = (sorted(os.listdir(case["dir"])), list(logged))
+    out["step"], out["count"] = state.step, state.optimizer.count
+    return out
+
+
 def zero_shot(job, case, mesh):
     """zero_shot_qa_eval of the job's zero-shot head over its records, on
     this rank's rows of every batch."""
@@ -193,7 +255,9 @@ def main(path):
                    "state_bytes": nbytes, "replicas": replicas}
         else:
             out = {"forward_audit": forward_audit, "checkpoint": checkpoint,
-                   "zero_shot": zero_shot, "rdma_refusal": rdma_refusal}[kind](job, case, mesh)
+                   "sharded_checkpoint": sharded_checkpoint, "loop": loop,
+                   "zero_shot": zero_shot,
+                   "rdma_refusal": rdma_refusal}[kind](job, case, mesh)
         if rank == 0:
             results[name] = out
     if rank == 0:

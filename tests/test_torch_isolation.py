@@ -105,6 +105,8 @@ def test_importing_every_port_module_loads_no_jax():
                          + ["chip_smoke.py", "bench_torch.py"]
                          + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
                              "*_torch.py"))
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+                             "profile_torch_*.py"))
                          + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "demo").glob(
                              "*_torch.py")))
 def test_no_source_imports_jax(path):
@@ -314,3 +316,34 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     res = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True,
                          cwd=tmp_path, env=env, timeout=300)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+SOAK_AND_TRACE_TOOLS = ("scripts.profile_torch_soak", "scripts.profile_step_torch",
+                        "merlot_reserve_tpu_torch.utils.profiling")
+
+
+def test_soak_and_trace_tools_load_no_jax_and_refuse_a_missing_card():
+    """The soak tool, the step profiler and the trace helpers, with the
+    sharded checkpoints' torch.distributed.checkpoint, load no forbidden
+    module; both tools refuse the missing card before they write or build
+    anything."""
+    code = ("import importlib, json, sys\n"
+            f"for m in {SOAK_AND_TRACE_TOOLS!r}: importlib.import_module(m)\n"
+            "import torch.distributed.checkpoint\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(SOAK_AND_TRACE_TOOLS) <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+    if torch.cuda.is_available():
+        return
+    from scripts.profile_step_torch import main as profile_step_main
+    from scripts.profile_torch_soak import main as soak_main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        profile_step_main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        soak_main(["--config", "soak_fused_r5", "--workdir", "/nonexistent/never-written"])

@@ -822,10 +822,11 @@ def test_checkpointed_ring_encoder_recomputes_through_the_ring_on_card(cuda_devi
 
 
 def test_adam_structs_match_the_c_layout():
-    # AdamTensor: 4 pointers, int64, 2 x int32; AdamHyper: 11 floats, 2 x int32;
+    # AdamTensor: 4 pointers, int64, 2 x int32; AdamHyper: 11 floats, 3 x int32;
     # AdamParams: 4 pointers, 2 x int32, AdamHyper (padded to 8)
     assert ctypes.sizeof(topt._AdamTensor) == 48 and topt._AdamTensor.decay.offset == 40
-    assert ctypes.sizeof(topt._AdamHyper) == 52 and topt._AdamHyper.finetune.offset == 48
+    assert ctypes.sizeof(topt._AdamHyper) == 56 and topt._AdamHyper.finetune.offset == 48
+    assert topt._AdamHyper.f32_moments.offset == 52
     assert ctypes.sizeof(topt._AdamParams) == 96 and topt._AdamParams.h.offset == 40
 
 
@@ -847,15 +848,17 @@ _ADAM_SHAPES = {"one": (1,), "w4097": (4097,), "ragged": (2 * topt.CHUNK + 5,),
                 "matrix": (3, 1500), "big": (64, 300)}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("chain", topt.CHAINS)
-def test_adam_update_kernel_matches_plain_loop_bit_for_bit_on_card(cuda_device, chain):
+def _adam_kernel_against_plain(device, chain, f32_moments):
+    """3 updates of ``chain`` through the kernel (one launch each) and the
+    plain loop from the same start; params, mu and nu bit for bit."""
     cfg = dataclasses.replace(load_config("base").optimizer, num_warmup_steps=0,
-                              learning_rate=1e-2, do_bias_correction=chain == "finetune")
+                              learning_rate=1e-2,
+                              do_bias_correction=chain == "finetune" or f32_moments,
+                              use_bfloat16_adam=not f32_moments)
     g = torch.Generator().manual_seed(0)
     start = {n: torch.randn(s, generator=g) * 0.1 for n, s in _ADAM_SHAPES.items()}
     decay = {"w4097", "ragged", "matrix"}
-    opts = [topt.PretrainOptimizer({n: p.clone().to(cuda_device) for n, p in start.items()}
+    opts = [topt.PretrainOptimizer({n: p.clone().to(device) for n, p in start.items()}
                                    .items(), decay, cfg, chain=chain) for _ in range(2)]
     kernel, plain = opts
     if chain == "finetune":  # move the parameters off the anchor
@@ -864,7 +867,7 @@ def test_adam_update_kernel_matches_plain_loop_bit_for_bit_on_card(cuda_device, 
                 for p in opt.params.values():
                     p.add_(0.3)
     for update in range(3):
-        grads = {n: (torch.randn(s, generator=g) * 10.0 ** -(i + update)).to(cuda_device)
+        grads = {n: (torch.randn(s, generator=g) * 10.0 ** -(i + update)).to(device)
                  for i, (n, s) in enumerate(_ADAM_SHAPES.items())}
         grads["ragged"][::5] = 0.0
         before = kernels.LAUNCHES["adam_update"]
@@ -875,12 +878,28 @@ def test_adam_update_kernel_matches_plain_loop_bit_for_bit_on_card(cuda_device, 
                                    plain.anchor)
         plain.count += 1
     torch.cuda.synchronize()
+    bits = torch.int32 if f32_moments else torch.int16
     for n in _ADAM_SHAPES:
         assert torch.equal(kernel.params[n].view(torch.int32), plain.params[n].view(torch.int32)), n
-        assert torch.equal(kernel.mu[n].view(torch.int16), plain.mu[n].view(torch.int16)), n
-        assert torch.equal(kernel.nu[n].view(torch.int16), plain.nu[n].view(torch.int16)), n
+        assert kernel.mu[n].dtype == (torch.float32 if f32_moments else torch.bfloat16)
+        assert torch.equal(kernel.mu[n].view(bits), plain.mu[n].view(bits)), n
+        assert torch.equal(kernel.nu[n].view(bits), plain.nu[n].view(bits)), n
         assert not torch.equal(kernel.params[n].cpu(), start[n] + (0.3 if chain == "finetune"
                                                                     else 0.0)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", topt.CHAINS)
+def test_adam_update_kernel_matches_plain_loop_bit_for_bit_on_card(cuda_device, chain):
+    _adam_kernel_against_plain(cuda_device, chain, f32_moments=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", topt.CHAINS)
+def test_adam_update_f32_moments_match_plain_loop_bit_for_bit_on_card(cuda_device, chain):
+    """The kernel's f32-moment mode (``use_bfloat16_adam`` off) against the
+    plain loop's optax ``scale_by_adam`` arithmetic."""
+    _adam_kernel_against_plain(cuda_device, chain, f32_moments=True)
 
 
 @pytest.mark.cuda
