@@ -187,8 +187,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    real SIGTERM partway and a restart: the preempted process exits with 0
    after writing its checkpoint and the loader's sidecar, the restart
    resumes at the next step from the next record (against an uninterrupted
-   loader), every loss finite, steps 0-10 at the batch-2 signatures, the
+   loader) and runs 2 steps, every loss finite, steps 0-10 at the batch-2 signatures, the
    kernels' launches per step in both processes.
+22. ring across processes: every rank a process of its own on the one card
+   (``distributed.initialize(device="cuda:0")``, gloo; the card time-slices
+   the processes' contexts): the flag round trip between two processes over
+   buffers opened by CUDA IPC; the ring kernel's mode across processes
+   (``ring:rdma`` on a process mesh) at B 8 L 640 n 2 (bf16, f32) and B 8
+   L 2560 n 4, each rank's shard bit for bit the virtual-rank kernel's rows
+   and within the ring tolerance of the plain ring, by TMA and by 16-byte
+   stores; phase 8's long-video batch through ``VideoEmbedService`` under
+   process meshes of sp 2 and sp 4, 12 launches per rank per batch, against
+   phase 8's embeddings; every time labelled time-sliced.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -1334,19 +1344,20 @@ def check_ring(case, n, valid, seg, H, D, generator, timed):
                        f"{r['sdpa_graph_ms'] * 1e3:.1f} / {r['sdpa_ms'] * 1e3:.1f} us: "
                        f"{r['graph_ms'] / r['sdpa_graph_ms']:.2f}x)")
                 del mask, qt, kt, vt
+            if dname == "bf16":
+                r["bounds"] = _ring_bounds(valid, seg, n, H, D, q.element_size())
+                r["bound_ms"] = r["bounds"]["function"]["bound_ms"]
+                r["bound_by"] = r["bounds"]["function"]["bound_by"]
+                msg += (f" (bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, with the "
+                        f"ring's traffic {r['bounds']['ring']['bound_ms'] * 1e3:.1f} us by "
+                        f"{r['bounds']['ring']['bound_by']})")
             if timed and dname == "bf16":
                 r["plain_ms"] = cuda_time_ms(lambda: ring_ops.ring_attention_reference(
                     q, k, v, valid, seg, n), iters=3, warmup=1)
                 r["flash_full_ms"] = graph_time_ms(
                     lambda: attn_ops.flash_forward(q, k, v, valid, seg))
-                r["bounds"] = _ring_bounds(valid, seg, n, H, D, q.element_size())
-                r["bound_ms"] = r["bounds"]["function"]["bound_ms"]
-                r["bound_by"] = r["bounds"]["function"]["bound_by"]
                 msg += (f" (plain ring {r['plain_ms'] * 1e3:.1f} us, flash_fwd over the full L "
-                        f"{r['flash_full_ms'] * 1e3:.1f} us on the device alone; "
-                        f"bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, with the "
-                        f"ring's traffic {r['bounds']['ring']['bound_ms'] * 1e3:.1f} us by "
-                        f"{r['bounds']['ring']['bound_by']})")
+                        f"{r['flash_full_ms'] * 1e3:.1f} us on the device alone)")
             results.append(r)
             print(f"[ring] ring_fwd {case:12s} {dname} n={n} B={B} L={L}: max abs err "
                   f"{r['max_abs_err']:.3e} (max |out| {r['max_abs_out']:.2f}), valid rows "
@@ -1417,7 +1428,10 @@ def _worst_one_minus_cos(a, b, rows):
 
 def phase_slice_sp(card):
     """Long videos through the ring: base widths, ``joint_attention_impl=
-    "ring:rdma"``, 4 virtual sp ranks on the card."""
+    "ring:rdma"``, 4 virtual sp ranks on the card. Returns the record and,
+    for the first long batch and the entry batch, the ring path's and the
+    flash path's embeddings and the valid rows (phase 22 holds its own
+    against them)."""
     import numpy as np
     import torch
 
@@ -1479,7 +1493,7 @@ def phase_slice_sp(card):
     def plain_flash(q, k, v, is_valid, segment_ids):
         return attn_ops.flash_attention_reference(q, k, v, is_valid, segment_ids)[0]
 
-    agreement = {}
+    agreement, arrays = {}, {}
     for name, reqs, sp, kernel_out in (("long", long_reqs[0], 4, long_outs[0]),
                                        ("entry", entry_reqs, 2, entry_out)):
         rows = np.stack([np.asarray(r["tokens"]) != PADDING for r in reqs])
@@ -1496,6 +1510,7 @@ def phase_slice_sp(card):
              "max_abs_diff_ring_vs_flash": float(np.abs(kernel_out - flash_out)[rows].max())}
         a["limit"] = 4 * a["plain_ring_vs_plain"]
         agreement[name] = a
+        arrays[name] = {"ring": kernel_out, "flash": flash_out, "rows": rows}
         print(f"[sp] {name}: worst valid-row 1 - cos: ring kernel vs flash kernel path "
               f"{a['ring_vs_flash']:.3e} (limit 4 x {a['plain_ring_vs_plain']:.3e}, the plain "
               f"ring path vs the plain flash path); ring kernel vs plain flash "
@@ -1533,7 +1548,7 @@ def phase_slice_sp(card):
            "agreement": agreement, "times": times}
     del model, flash_model, service, flash_service
     torch.cuda.empty_cache()
-    return res
+    return res, arrays
 
 
 def _oracle_log_mel(y):
@@ -4373,13 +4388,16 @@ def _l2(a, b=None):
     return total ** 0.5
 
 
-def _run_ranks(mode, world, extra, timeout):
+def _run_ranks(mode, world, extra, timeout, shared=False):
     """``python chip_smoke.py --rank-worker`` as ``world`` ranks of a job on
-    this card (LOCAL_RANK 0 each); (exit codes, the last JSON line of each)."""
+    this card: LOCAL_RANK 0 each, or (``shared``) the ranks of one node that
+    ``distributed.initialize(device="cuda:0")`` puts on the card together;
+    (exit codes, the last JSON line of each)."""
     port = _free_port()
     procs = []
     for rank in range(world):
-        env = dict(os.environ, **_job_env(rank, world, port, local_rank=0, local_world=1))
+        local = (rank, world) if shared else (0, 1)
+        env = dict(os.environ, **_job_env(rank, world, port, *local))
         procs.append(subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", mode,
              json.dumps(extra)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
@@ -4394,12 +4412,16 @@ def _run_ranks(mode, world, extra, timeout):
     for p in procs:
         if p.poll() is None:
             p.kill()
+    logs = ROOT / "chiprun_out" / "ranks"
+    logs.mkdir(parents=True, exist_ok=True)
+    for rank, out in enumerate(outs):  # each rank's whole output, for the record
+        (logs / f"{mode}_{world}_{rank}.log").write_text(out)
     lines = []
-    for out in outs:
+    for p, out in zip(procs, outs):
         found = [x for x in out.strip().splitlines() if x.startswith("{")]
         line = json.loads(found[-1]) if found else {}
-        if not found or "terminate" in out or "killed" in out:
-            line["error"] = out[-800:]
+        if not found or p.returncode != 0 or "terminate" in out or "killed" in out:
+            line["error"] = out[-2000:]
         lines.append(line)
     return [p.returncode for p in procs], lines
 
@@ -4843,7 +4865,8 @@ def phase_soak(card):
     corpus, driven by ``scripts/profile_torch_soak.preempt_and_resume``:
     SIGTERM to the process once it logs step SOAK_SIGNAL_AFTER; it must
     exit with 0 after writing ``ckpt_<n>`` and ``loader_state.json``; the
-    same command resumes at step n and finishes. Then an uninterrupted run
+    same command resumes at step n and stops at n + SOAK_REFERENCE_EXTRA
+    (the schedule stays the recipe's, cut to SOAK_STEPS). Then an uninterrupted run
     of the same command to step n + SOAK_REFERENCE_EXTRA. Checks: every
     batch digest (the records as fed and the batch the card built from them
     with that step's draws) of both processes the uninterrupted run's bit
@@ -4891,7 +4914,10 @@ def phase_soak(card):
               f"{o.num_warmup_steps}, cosine over {SOAK_STEPS} steps), batch 2, "
               f"{len(files)} x {SOAK_RECORDS} structured records ({corpus_s:.1f} s): "
               f"{' '.join(cmd[2:])}", flush=True)
-        run = preempt_and_resume(cmd, str(work / "out"), SOAK_SIGNAL_AFTER, SOAK_TIMEOUT)
+        # the resumed process stops where the uninterrupted run does
+        run = preempt_and_resume(cmd, str(work / "out"), SOAK_SIGNAL_AFTER, SOAK_TIMEOUT,
+                                 resume_cmd=lambda n: command(work / "out",
+                                                              n + SOAK_REFERENCE_EXTRA))
         n, sidecar = run["stopped"], run["sidecar"]
         check(run["checkpoints"] == [n] and SOAK_SIGNAL_AFTER < n < SOAK_STEPS,
               f"after the SIGTERM: checkpoints {run['checkpoints']}")
@@ -4906,7 +4932,7 @@ def phase_soak(card):
                                                  (run["first"], run["second"], third))
         b1, b2, b3 = o1["batches"], o2["batches"], o3["batches"]
         check(sorted(b1) == list(range(n)) and sorted(b3) == list(range(ref_steps))
-              and sorted(b2) == list(range(n, SOAK_STEPS)),
+              and sorted(b2) == list(range(n, ref_steps)),
               f"batch digests logged: preempted {sorted(b1)[-3:]}, resumed "
               f"{sorted(b2)[:3]}..., uninterrupted {sorted(b3)[-3:]}")
         for s in range(ref_steps):
@@ -4915,8 +4941,8 @@ def phase_soak(card):
                   f"process's batch (records, built) {got} is not the uninterrupted run's "
                   f"{b3[s]}")
         got, want = tracked_losses(str(work / "out")), tracked_losses(str(work / "straight"))
-        check(sorted(got) == list(range(SOAK_STEPS)) and sorted(want) == list(range(ref_steps)),
-              f"tracked steps: {sorted(set(range(SOAK_STEPS)) - set(got))} missing, "
+        check(sorted(got) == list(range(ref_steps)) and sorted(want) == list(range(ref_steps)),
+              f"tracked steps: {sorted(set(range(ref_steps)) - set(got))} missing, "
               f"uninterrupted {sorted(want)[-3:]}")
         gaps = {s: {h: abs(got[s][h] - want[s][h]) for h in want[s]} for s in range(ref_steps)}
         spread = max(v for s in range(n - SOAK_SPREAD_STEPS, n) for v in gaps[s].values())
@@ -4929,8 +4955,8 @@ def phase_soak(card):
               f"from the uninterrupted run's, beyond {SOAK_RESUME_FACTOR} x the {spread} the two "
               f"runs differed by at steps {n - SOAK_SPREAD_STEPS}-{n - 1}")
         losses = {**{k: v for k, v in l1.items() if k < n}, **l2}
-        check(sorted(losses) == list(range(SOAK_STEPS)),
-              f"steps logged: {sorted(set(range(SOAK_STEPS)) - set(losses))} missing")
+        check(sorted(losses) == list(range(ref_steps)),
+              f"steps logged: {sorted(set(range(ref_steps)) - set(losses))} missing")
         check(all(math.isfinite(v) for x in losses.values() for v in x.values()),
               "a non-finite soak loss")
         expected = _expected_init_losses(cfg, 2)
@@ -4943,7 +4969,7 @@ def phase_soak(card):
         # one update a step
         launches = []
         per_layer = m.joint_num_layers + m.span_num_layers
-        for text, steps in ((run["first"], n), (run["second"], SOAK_STEPS - n),
+        for text, steps in ((run["first"], n), (run["second"], ref_steps - n),
                             (third, ref_steps)):
             found = re.search(r"kernel launches (\{.*\})", text)
             check(found is not None, "the script printed no kernel launches")
@@ -4953,10 +4979,11 @@ def phase_soak(card):
                 f"{steps} soak steps made {counts}")
             launches.append(counts)
         windows = {f"{a}-{a + 10}": {h: sum(losses[k][h] for k in range(a, min(a + 10,
-                                                                               SOAK_STEPS)))
-                                     / (min(a + 10, SOAK_STEPS) - a) for h in expected}
-                   for a in range(0, SOAK_STEPS, 10)}
-        res = {"config": SOAK_CONFIG, "steps": SOAK_STEPS, "preempted_at": n,
+                                                                               ref_steps)))
+                                     / (min(a + 10, ref_steps) - a) for h in expected}
+                   for a in range(0, ref_steps, 10)}
+        res = {"config": SOAK_CONFIG, "steps": SOAK_STEPS, "steps_run": ref_steps,
+               "preempted_at": n,
                "first_s": run["first_s"], "exit_after_signal_s": run["exit_s"],
                "second_s": run["second_s"], "uninterrupted_s": third_s,
                "write_s": o1.get("write_s"), "load_s": o2.get("load_s"),
@@ -4970,7 +4997,7 @@ def phase_soak(card):
         print(f"[soak] {card}: SIGTERM after step {SOAK_SIGNAL_AFTER}'s log; stopped at step "
               f"{n} ({run['exit_s']:.1f} s after the signal, exit 0, {run['first_s']:.1f} s in "
               f"all), checkpoint written in {o1.get('write_s')} s; resumed at step {n} (loaded "
-              f"in {o2.get('load_s')} s), {SOAK_STEPS} steps done ({run['second_s']:.1f} s); "
+              f"in {o2.get('load_s')} s), to step {ref_steps} ({run['second_s']:.1f} s); "
               f"the uninterrupted run to step {ref_steps} ({third_s:.1f} s): batch digests "
               f"(records and the card's build) of steps 0-{ref_steps - 1} bit for bit, loss "
               f"terms at steps {n}-{ref_steps - 1} within {resume_gap:.2e} (the runs "
@@ -4983,6 +5010,312 @@ def phase_soak(card):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the ring kernel across processes
+# ---------------------------------------------------------------------------
+
+RING_PROBE_ROUNDS = 200
+# (label case, n processes, B, L, dtype) of the ring kernel's mode across
+# processes: the long-video serving shape and the n = 2 shape of phase 7
+RING_PROCS_CASES = (("packed", 2, 8, 640, "bf16"), ("long_video", 4, 8, 2560, "bf16"),
+                    ("packed", 2, 8, 640, "f32"))
+RING_PROCS_TIMED = 10  # launches timed by events in each process
+RING_PROCS_SERVE = (2, 4)  # sp of the long-video serving runs
+RING_PROCS_BATCHES = 2  # batches served at each sp: the first counted and compared
+RING_PROCS_TIMEOUT = 300
+TIME_SLICED = ("time-sliced on one card: the processes' CUDA contexts take turns on the one "
+               "H100 (about 2.25 ms each on an H100 80GB HBM3 at 700 W), so these times are "
+               "no rate of the kernel")
+
+
+def ring_worker(mode, extra):
+    """One process of phase 22's jobs (``--rank-worker ring``), all on
+    cuda:0 through ``distributed.initialize(device="cuda:0")`` (gloo).
+
+    ``extra["probe"]``: the flag round trip, ``ring_ipc_pingpong`` on two
+    buffers opened by CUDA IPC. Else the ring kernel's mode across
+    processes on each of ``extra["cases"]`` (this rank's shard of seeded
+    inputs through ``sequence_parallel_attention(impl="rdma")``, against the
+    virtual-rank ``ring_fwd`` and the plain ring over the whole inputs, the
+    16-byte store route on the same inputs, times by events), then the
+    long-video batch through ``VideoEmbedService`` under a process mesh of
+    each sp in ``extra["serve"]`` (rank 0 saves the embeddings into
+    ``extra["out"]``). Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.models import MerlotReserve
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+    from merlot_reserve_tpu_torch.parallel import distributed
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
+    from merlot_reserve_tpu_torch.serving import VideoEmbedService
+
+    distributed.initialize(device="cuda:0", timeout_s=RING_PROCS_TIMEOUT)
+    rank = distributed.process_index()
+    out = {"rank": rank, "backend": distributed.backend(), "cases": {}, "serve": {}}
+    t0 = time.perf_counter()
+
+    def say(what):  # where each rank got to, in its log
+        print(f"[rank {rank} +{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
+    try:
+        if "probe" in extra:
+            out["probe"] = _ipc_probe(rank, extra["probe"])
+            return 0
+        sizes = sorted({c[1] for c in extra["cases"]} | set(extra["serve"]))
+        meshes = {n: make_mesh(sp=n, ranks=range(n)) for n in sizes}  # collectively
+        for case, n, B, L, dname in extra["cases"]:
+            if meshes[n].coords is not None:
+                key = f"{case} {dname} n{n} B{B} L{L}"
+                _in_step(meshes[n])
+                say(key)
+                out["cases"][key] = _ring_procs_case(meshes[n], case, n, B, L, dname, say)
+        cfg = load_config("base", joint_attention_impl="ring:rdma", seq_shard_axis="sp")
+        model = service = None
+        for n in extra["serve"]:
+            if meshes[n].coords is None:
+                continue
+            if model is None:
+                model = MerlotReserve(cfg, device="cuda", seed=0)
+                service = VideoEmbedService(model, batch_size=8, device="cuda")
+            reqs = [make_requests(cfg, 8, 20 + i, n_seg=LONG_SEGMENTS)
+                    for i in range(RING_PROCS_BATCHES)]
+            _in_step(meshes[n])
+            say(f"serve sp {n}")
+            epochs = {k: r.epoch for k, r in ring_ops._PEER_RINGS.items()}  # the rings it uses
+            torch.cuda.synchronize()
+            kernels.LAUNCHES.clear()
+            with activate_mesh(meshes[n]):
+                first = service.embed(reqs[0])
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            host_ms = []
+            for r in reqs:
+                t = time.perf_counter()
+                with activate_mesh(meshes[n]):
+                    service.embed(r)
+                host_ms.append((time.perf_counter() - t) * 1e3)
+            with torch.inference_mode(), activate_mesh(meshes[n]):
+                inputs = stack_requests(reqs[0], "cuda")
+                device_ms = cuda_time_ms(lambda: model.batch_embed_video(*inputs), iters=2,
+                                         warmup=1)
+            if rank == 0:
+                np.save(Path(extra["out"]) / f"serve_sp{n}.npy", first)
+            out["serve"][n] = {"launches": launches, "host_ms": host_ms,
+                               "device_ms": device_ms,
+                               "peak_bytes": torch.cuda.max_memory_allocated(),
+                               "routes": sorted({r.route for k, r in ring_ops._PEER_RINGS.items()
+                                                 if r.epoch != epochs.get(k)})}
+    finally:
+        distributed.shutdown()
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def _in_step(mesh):
+    """A barrier of the mesh's ranks. A ring kernel that waits on a
+    neighbour busy with other work for longer than RING_TIMEOUT_NS traps:
+    each case and each serving run starts with its ranks in step (the ranks
+    of an sp 2 case run it while the others wait here for the next)."""
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.group(mesh.axis_names))
+
+
+def _ipc_probe(rank, rounds):
+    """Two ranks' buffers (ring_ipc_alloc, exchanged over the job's group,
+    opened by ring_ipc_open), then ``rounds`` round trips of the flag, the
+    kernel launched cooperatively as the ring kernels are."""
+    import torch
+    import torch.distributed as dist
+
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+
+    lib = ring_ops._ring_lib()
+    own, peer = ctypes.c_void_p(), ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(lib.ring_ipc_handle_size())
+    check(lib.ring_ipc_alloc(8192, ctypes.byref(own), handle) == 0, "probe: ring_ipc_alloc")
+    handles = [None, None]
+    dist.all_gather_object(handles, handle.raw)
+    err = lib.ring_ipc_open(ctypes.create_string_buffer(handles[1 - rank], len(handle.raw)),
+                            ctypes.byref(peer))
+    check(err == 0, f"probe: cudaIpcOpenMemHandle failed with cudaError_t {err}")
+    dist.barrier()
+    times = torch.zeros(rounds + 1, dtype=torch.int64, device="cuda")
+    bad = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    err = lib.ring_ipc_pingpong(own, peer, rank, rounds, ring_ops.RING_TIMEOUT_NS,
+                                times.data_ptr(), bad.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    dist.barrier()
+    lib.ring_ipc_close(peer)
+    dist.barrier()
+    lib.ring_ipc_free(own)
+    t = times.tolist()
+    return {"launch": err, "bad_words": int(bad.item()), "rounds": rounds, "host_s": host_s,
+            "device_ns": t[0], "round_trip_us": t[0] / rounds / 1e3,
+            "first_sends_ns": t[1:6]}
+
+
+def _ring_procs_case(mesh, case, n, B, L, dname, say):
+    """This rank's shard through ``sequence_parallel_attention`` under the
+    process mesh (one counted launch), against the virtual-rank kernel and
+    the plain ring over the whole inputs; then the 16-byte store route."""
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+
+    H, D = 12, 64
+    dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(9)  # the same inputs in every process
+    valid, seg = _ring_labels(case, B, L, "cuda")
+    r, lloc = mesh.axis_index("sp"), L // n
+    rows = slice(r * lloc, (r + 1) * lloc)
+    res = {"rank": r}
+    with torch.inference_mode():
+        q, k, v = torch.randn((B, L, 3, H, D), generator=g, device="cuda").to(dtype).unbind(2)
+        shard = [x[:, rows] for x in (q, k, v)]  # strided, as the model hands them over
+        labels = [x[:, rows].contiguous() for x in (valid, seg)]
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        got = ring_ops.sequence_parallel_attention(mesh, *shard, *labels, impl="rdma")
+        torch.cuda.synchronize()
+        say("the entry call's launch ended")
+        res["launches"] = dict(kernels.LAUNCHES)
+        ring = ring_ops.peer_ring(mesh, "sp", shard[0])
+        res["route"] = ring.route
+        virtual = ring_ops.ring_fwd(q, k, v, valid, seg, n)[:, rows]
+        bits = torch.int16 if dname == "bf16" else torch.int32
+        res["same_as_virtual"] = torch.equal(got.view(bits), virtual.contiguous().view(bits))
+        res["max_abs_diff_virtual"] = (got.float() - virtual.float()).abs().max().item()
+        plain = ring_ops.ring_attention_reference(q.float(), k.float(), v.float(), valid, seg,
+                                                  n)[:, rows]
+        err = (got.float() - plain).abs()
+        ok = labels[0] > 0
+        res.update(max_abs_err=err.max().item(), max_abs_out=plain.abs().max().item(),
+                   max_abs_err_valid=err[ok].max().item(),
+                   max_abs_out_valid=plain[ok].abs().max().item())
+        say("the virtual-rank kernel and the plain ring ended")
+        ring.peer_store = True
+        stored = ring.launch(*shard, *labels)
+        res["stores_route"] = ring.route
+        ring.peer_store = False
+        torch.cuda.synchronize()
+        res["stores_same"] = torch.equal(stored.view(bits), got.view(bits))
+        res["ms"] = cuda_time_ms(lambda: ring.launch(*shard, *labels),
+                                 iters=RING_PROCS_TIMED, warmup=2)
+        res["epoch"] = ring.epoch
+    del q, k, v, shard, virtual, plain, err
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ring_procs(card, sp, sp_arrays, joint_layers):
+    """Phase 22: the ring kernel across processes, every process on the one
+    card (time-sliced). (a) The flag round trip between two processes
+    (``ring_ipc_pingpong``): both finish, every payload word arrives. (b)
+    The kernel's mode across processes at RING_PROCS_CASES: each rank's
+    shard bit for bit the virtual-rank kernel's rows of the same inputs, and
+    within RING_REL_TOL of the plain ring; the 16-byte store route bit for
+    bit the TMA route; one counted launch per entry call; the route each
+    took; times by events in each process. (c) Phase 8's long-video batch
+    (8 videos of 40 segments, joint L 2560) through ``VideoEmbedService``
+    under a process mesh at sp 2 and sp 4: ``joint_layers`` launches of the
+    kernel per batch in every rank, no ``flash_fwd`` in the joint tower,
+    rank 0's embeddings against phase 8's (the virtual-rank ring) and its
+    flash path within phase 8's limit; both clocks. Every time here is
+    labelled TIME_SLICED."""
+    import tempfile
+
+    import numpy as np
+
+    codes, lines = _run_ranks("ring", 2, {"probe": RING_PROBE_ROUNDS}, timeout=180,
+                              shared=True)
+    check(codes == [0, 0] and all("probe" in x for x in lines),
+          f"the flag round trip across two processes: {codes} {lines}")
+    probe = [x["probe"] for x in lines]
+    for p in probe:
+        check(p["launch"] == 0 and p["bad_words"] == 0,
+              f"the flag round trip: launch {p['launch']}, {p['bad_words']} payload words wrong")
+    print(f"[ring procs] {card}: two processes on one card, buffers opened by CUDA IPC: "
+          f"{RING_PROBE_ROUNDS} round trips of the flag with 1024 words each way in "
+          f"{probe[0]['device_ns'] / 1e6:.2f} ms ({probe[0]['round_trip_us']:.1f} us each; "
+          f"{TIME_SLICED}); backend {lines[0]['backend']}", flush=True)
+
+    work = Path(tempfile.mkdtemp(prefix="smoke_ring_procs_"))
+    try:
+        world = max(max(c[1] for c in RING_PROCS_CASES), max(RING_PROCS_SERVE))
+        extra = {"cases": RING_PROCS_CASES, "serve": RING_PROCS_SERVE, "out": str(work)}
+        codes, lines = _run_ranks("ring", world, extra, timeout=RING_PROCS_TIMEOUT, shared=True)
+        check(codes == [0] * world and all("cases" in x and "error" not in x for x in lines),
+              f"the ring across processes: exit codes {codes}: {lines}")
+        cases = {}
+        for case, n, B, L, dname in RING_PROCS_CASES:
+            key = f"{case} {dname} n{n} B{B} L{L}"
+            ranks = [x["cases"][key] for x in lines[:n]]
+            for r in ranks:
+                check(r["launches"].get("ring_fwd_procs") == 1 and "ring_fwd" not in r["launches"],
+                      f"{key} rank {r['rank']}: launches {r['launches']}")
+                check(r["same_as_virtual"],
+                      f"{key} rank {r['rank']}: not the virtual-rank kernel's rows bit for bit "
+                      f"(max abs diff {r['max_abs_diff_virtual']})")
+                check(r["stores_same"], f"{key} rank {r['rank']}: the 16-byte store route "
+                                        "differs from the TMA route")
+                for sfx in ("", "_valid"):
+                    e, scale = r[f"max_abs_err{sfx}"], r[f"max_abs_out{sfx}"]
+                    check(math.isfinite(e) and e <= RING_REL_TOL[dname] * scale,
+                          f"{key} rank {r['rank']}: max abs err{sfx} {e} > "
+                          f"{RING_REL_TOL[dname]} x {scale}")
+            cases[key] = {"ranks": ranks, "max_abs_err": max(r["max_abs_err"] for r in ranks),
+                          "routes": sorted({r["route"] for r in ranks}),
+                          "ms_by_rank": [r["ms"] for r in ranks]}
+            print(f"[ring procs] {card}: {key} in {n} processes: every rank's shard bit for bit "
+                  f"the virtual-rank kernel's; max abs err to the plain ring "
+                  f"{cases[key]['max_abs_err']:.3e}; route {cases[key]['routes']}, the 16-byte "
+                  f"stores bit for bit the same; ms per launch by rank "
+                  f"{[round(m, 3) for m in cases[key]['ms_by_rank']]} ({TIME_SLICED})",
+                  flush=True)
+
+        serve = {}
+        phase8 = sp_arrays["long"]
+        rows = phase8["rows"]
+        limit = sp["agreement"]["long"]["limit"]
+        for n in RING_PROCS_SERVE:
+            got = np.load(work / f"serve_sp{n}.npy")
+            check(got.shape == phase8["ring"].shape and np.isfinite(got).all(),
+                  f"sp {n}: embeddings {got.shape}, finite {np.isfinite(got).all()}")
+            per_rank = [x["serve"][str(n)] for x in lines[:n]]
+            for i, r in enumerate(per_rank):
+                check(r["launches"].get("ring_fwd_procs") == joint_layers
+                      and r["launches"].get("flash_fwd", 0) == 0
+                      and r["launches"].get("ring_fwd", 0) == 0,
+                      f"sp {n} rank {i}: launches per batch {r['launches']}")
+            a = {"vs_virtual_ring": _worst_one_minus_cos(got, phase8["ring"], rows),
+                 "vs_flash": _worst_one_minus_cos(got, phase8["flash"], rows),
+                 "max_abs_diff_vs_virtual_ring": float(np.abs(got - phase8["ring"])[rows].max()),
+                 "limit": limit}
+            for k in ("vs_virtual_ring", "vs_flash"):
+                check(a[k] <= limit, f"sp {n}: 1 - cos {k} {a[k]} > phase 8's limit {limit}")
+            serve[n] = {"agreement": a, "ranks": per_rank,
+                        "host_ms_rank0": per_rank[0]["host_ms"],
+                        "device_ms_rank0": per_rank[0]["device_ms"]}
+            print(f"[ring procs] {card}: 8 long videos (joint L {sp['joint_len']}) "
+                  f"at sp {n} in {n} processes: {joint_layers} ring launches per rank per batch; "
+                  f"worst valid-row 1 - cos vs phase 8's virtual ring {a['vs_virtual_ring']:.3e}, "
+                  f"vs its flash path {a['vs_flash']:.3e} (limit {limit:.3e}); rank 0 "
+                  f"{[round(t, 1) for t in per_rank[0]['host_ms']]} ms per batch on the host "
+                  f"clock, {per_rank[0]['device_ms']:.1f} ms by events; routes "
+                  f"{per_rank[0]['routes']} ({TIME_SLICED})", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"probe": probe, "cases": cases, "serve": serve, "clock": TIME_SLICED}
 
 
 def main():
@@ -4999,8 +5332,9 @@ def main():
         print(f"chip_smoke: cannot import the port ({e}); run it from a checkout",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase 20's jobs
-        return rank_worker(sys.argv[2], json.loads(sys.argv[3]))
+    if sys.argv[1:2] == ["--rank-worker"]:  # one rank of phase 20's or 22's jobs
+        worker = ring_worker if sys.argv[2] == "ring" else rank_worker
+        return worker(sys.argv[2], json.loads(sys.argv[3]))
 
     dev = phase_device()
     build = phase_build()
@@ -5011,7 +5345,7 @@ def main():
     train_fwd, train_bwd = phase_kernels([("train_joint", *labels[640]),
                                           ("train_span", *labels[16])], seed=2)
     ring, k_labels, long_fwd = phase_ring_kernels(seed=3)
-    sp = phase_slice_sp(dev["nvidia_smi"])
+    sp, sp_arrays = phase_slice_sp(dev["nvidia_smi"])
     raw = phase_raw_media(dev["nvidia_smi"], seed=4)
     long, long_labels = phase_train_long(dev["nvidia_smi"])
     hop_fwd, hop_bwd = phase_hop_kernels(long_labels[LONG_JOINT_LEN], seed=5)
@@ -5033,10 +5367,13 @@ def main():
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     distributed = phase_distributed(dev["nvidia_smi"], train, long, fixres)
     soak = phase_soak(dev["nvidia_smi"])
+    ring_procs = phase_ring_procs(dev["nvidia_smi"], sp, sp_arrays,
+                                  _dist_cfg().model.joint_num_layers)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
     long_ring = next(r for r in ring if r["case"] == "long_video" and r["dtype"] == "bf16")
+    procs_long = ring_procs["cases"]["long_video bf16 n4 B8 L2560"]
     launches_by_path = {name: {"serving": sl["launches"].get(name, 0),
                                "train": train["launches"].get(name, 0),
                                "serving_sp4_long": sp["launches_long_sp4"].get(name, 0),
@@ -5134,7 +5471,7 @@ def main():
                              *(c for c, _, _ in HOP_CASES))], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
-                         ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms"))
+                         ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "bound_ms", "bound_by"))
     kernels_line = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "merlot_reserve_tpu_torch/csrc/flash_fwd.cu",
@@ -5162,6 +5499,24 @@ def main():
          "event_ms": long_ring["ms"], "plain_ms": long_ring["plain_ms"],
          "bound_ms": long_ring["bound_ms"], "bound_by": long_ring["bound_by"],
          "library_ms": long_ring["sdpa_graph_ms"], "shapes": ring_shapes},
+        {"name": "ring_fwd_procs", "route": "cuda",
+         "source": "merlot_reserve_tpu_torch/csrc/ring_fwd.cu",
+         "replaces": "merlot_reserve_tpu/ops/ring_attention.py:454",
+         "launches": ring_procs["serve"][4]["ranks"][0]["launches"]["ring_fwd_procs"],
+         "launches_by_path": {f"serving_sp{n}_long_processes": [
+             r["launches"]["ring_fwd_procs"] for r in v["ranks"]]
+             for n, v in ring_procs["serve"].items()},
+         "case": "long_video bf16 n=4 B=8 L=2560, one process per rank, four on one card",
+         # the card time-slices the processes: no time of this run is the
+         # kernel's, so none stands under ms, plain_ms or library_ms
+         "max_abs_err": procs_long["max_abs_err"], "ms": None, "plain_ms": None,
+         "library_ms": None, "time_sliced_ms_by_rank": procs_long["ms_by_rank"],
+         "time_sliced_clock": TIME_SLICED,
+         "bound_ms": long_ring["bound_ms"], "bound_by": long_ring["bound_by"],
+         "bound_of": "the whole ring's function on these inputs, the n processes together "
+                     "(phase 7's long_video bf16 row)",
+         "routes": {k: v["routes"] for k, v in ring_procs["cases"].items()},
+         "flag_round_trip_us": ring_procs["probe"][0]["round_trip_us"]},
         {"name": "adam_update", "route": "cuda",
          "source": "merlot_reserve_tpu_torch/csrc/adam_update.cu",
          "replaces": "merlot_reserve_tpu/training/optimization.py:64 (scale_by_bfloat16_adam "
@@ -5194,7 +5549,7 @@ def main():
               "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
               "fixres_bwd_kernels": fixres_bwd, "downstream": down, "created": created,
               "export": exported, "distributed": distributed, "soak": soak,
-              "kernels_line": kernels_line}
+              "ring_procs": ring_procs, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

@@ -13,8 +13,12 @@ K/V with ``torch.distributed`` (``parallel.comm``): the ring's hops are a
 send to rank r + 1 and a receive from r - 1 (the backward's dk/dv travel
 with their shard and come home), Ulysses' two trades are
 ``all_to_all_single``. A mesh over several devices of one process raises.
-The ring kernel ``ring:rdma`` runs only on virtual ranks: its launch across
-cards is not ported (its protocol spins on flags in the peers' memory).
+The ring kernel ``ring:rdma`` runs on virtual ranks in one launch, and
+across processes as one launch per rank (``PeerRing``): each process's
+shard slots sit in device memory that its neighbours open by CUDA IPC,
+and the kernel copies K/V into the right neighbour's slots and raises
+flags in the neighbours' memory, as the TPU kernel's remote DMA and
+semaphores do.
 
 ``sequence_parallel_attention`` picks the strategy (``impl``):
   * 'lax': ``ring_attention``, the online softmax over the rotating shards
@@ -27,7 +31,8 @@ cards is not ported (its protocol spins on flags in the peers' memory).
     accumulators travelling with their shard.
   * 'rdma': ``ring_flash_attention_rdma``, the whole ring in one launch of
     the hand-written kernel ``csrc/ring_fwd.cu`` on a CUDA tensor (the plain
-    ring on a CPU tensor). Forward only, as in the JAX package.
+    ring on a CPU tensor); under a process mesh one launch per rank of the
+    kernel's mode across processes. Forward only, as in the JAX package.
   * 'ulysses' / 'ulysses-flash': the full sequence with H/n heads per rank,
     dense or flash, differentiable.
 """
@@ -53,10 +58,6 @@ RING_KEY_TILE = 128  # keys per tile of the bf16 ring kernel (csrc/ring_fwd.cu k
 # where training under sequence parallelism goes instead of ring:rdma
 _TRAINING_ITEM = ("training under sequence parallelism takes 'ring:flash', whose backward "
                   "ring runs the flash backward hop by hop")
-_RDMA_ACROSS = ("ring:rdma across processes: the launch of csrc/ring_fwd.cu across cards is "
-                "not ported (its ring spins on flags in the peers' memory, and two processes' "
-                "kernels on one card do not run at once without MPS); use 'ring:flash', whose "
-                "hops go through torch.distributed")
 
 
 def parse_sequence_parallel_impl(impl: str):
@@ -490,14 +491,25 @@ def _heads_to_seq(x, mesh, axis):
 def _process_attention(mesh, q, k, v, is_valid, segment_ids, axis, impl):
     """Sequence-parallel attention with one rank per process: q, k, v are
     this rank's [B, L/n, H, D] shard, the labels its [B, L/n] ones."""
-    if impl == "rdma":
-        raise NotImplementedError(_RDMA_ACROSS)
     n = mesh.size(axis)
     B, lloc, H, D = q.shape
     if is_valid is None:
         is_valid = torch.ones((B, lloc), dtype=torch.int32, device=q.device)
     if segment_ids is None:
         segment_ids = torch.zeros((B, lloc), dtype=torch.int32, device=q.device)
+    if impl == "rdma":
+        if attn_ops._records_grad(q, k, v):
+            raise NotImplementedError(f"ring:rdma is forward-only, as in the JAX package; "
+                                      f"{_TRAINING_ITEM}")
+        is_valid, segment_ids = is_valid.to(torch.int32), segment_ids.to(torch.int32)
+        if n == 1:
+            return attn_ops.flash_forward(q, k, v, is_valid, segment_ids)[0]
+        if q.device.type == "cuda":
+            return peer_ring(mesh, axis, q).launch(q, k, v, is_valid, segment_ids)
+        if q.device.type != "cpu":
+            raise ValueError(f"ring: no path for device {q.device}")
+        # on the CPU the plain version: the lax ring, its hops through torch.distributed
+        impl = "lax"
     valid_all = comm.all_gather(is_valid.to(torch.int32).contiguous(), mesh, axis, 1, "sp")
     seg_all = comm.all_gather(segment_ids.to(torch.int32).contiguous(), mesh, axis, 1, "sp")
     if impl == "flash":
@@ -552,10 +564,14 @@ class _RingParams(ctypes.Structure):
         ("is_valid", ctypes.c_void_p), ("segment_ids", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("k_slots", ctypes.c_void_p), ("v_slots", ctypes.c_void_p),
         ("lab_slots", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+        ("right_k_slots", ctypes.c_void_p), ("right_v_slots", ctypes.c_void_p),
+        ("right_lab_slots", ctypes.c_void_p), ("right_flags", ctypes.c_void_p),
+        ("left_flags", ctypes.c_void_p),
         ("q_strides", ctypes.c_int64 * 3), ("k_strides", ctypes.c_int64 * 3),
         ("v_strides", ctypes.c_int64 * 3),
         ("batch", ctypes.c_int32), ("seq_len", ctypes.c_int32), ("heads", ctypes.c_int32),
-        ("n_ranks", ctypes.c_int32), ("grid", ctypes.c_int32), ("scale", ctypes.c_float),
+        ("n_ranks", ctypes.c_int32), ("grid", ctypes.c_int32), ("rank", ctypes.c_int32),
+        ("epoch", ctypes.c_uint32), ("peer_store", ctypes.c_int32), ("scale", ctypes.c_float),
         ("timeout_ns", ctypes.c_int64),
     ]
 
@@ -563,9 +579,21 @@ class _RingParams(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def _ring_lib() -> ctypes.CDLL:
     lib = attn_ops._load_lib("ring_fwd", _RingParams, ("ring_fwd_bf16", "ring_fwd_f32"))
-    lib.ring_fwd_launch_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
-                                         ctypes.POINTER(ctypes.c_int32)]
-    lib.ring_fwd_launch_info.restype = ctypes.c_int
+    signatures = {
+        "ring_fwd_launch_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+                                 ctypes.POINTER(ctypes.c_int32)],
+        "ring_ipc_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p],
+        "ring_ipc_open": [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)],
+        "ring_ipc_close": [ctypes.c_void_p],
+        "ring_ipc_free": [ctypes.c_void_p],
+        "ring_ipc_pingpong": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    }
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.ring_ipc_handle_size.argtypes = []
+    lib.ring_ipc_handle_size.restype = ctypes.c_size_t
     return lib
 
 
@@ -585,13 +613,39 @@ def _launch_info(device: torch.device, f32: bool):
 
 def ring_grid(max_blocks: int, n: int, lloc: int, members: int, group_rows: int = 128) -> int:
     """Blocks to launch for ``members`` = n * B * H ring members of ``lloc``
-    query rows each. The unit is a q-group (``group_rows`` rows of one
-    member, for the whole walk), so a ring is n * ceil(lloc / group_rows)
-    blocks: all units if they fit at once, else the most whole rings that
-    do (0 if not one does)."""
+    query rows each, the n ranks in this launch (1 for a process's rank).
+    The unit is a q-group (``group_rows`` rows of one member, for the whole
+    walk), so a ring is n * ceil(lloc / group_rows) blocks: all units if
+    they fit at once, else the most whole rings that do (0 if not one
+    does)."""
     groups = -(-lloc // group_rows)
     per_ring = n * groups
     return min(members * groups, (max_blocks // per_ring) * per_ring)
+
+
+def _slot_layout(B, H, lloc, ranks, dtype):
+    """Byte offsets of the K slots, V slots, label slots and flags of
+    ``ranks`` ring ranks in one buffer, and its size; each part starts on
+    1024 bytes. Shapes as ``RingParams`` gives them."""
+    members = B * H
+    kv = ranks * 2 * members * lloc * 64 * torch.tensor([], dtype=dtype).element_size()
+    parts = (kv, kv, ranks * 2 * members * 2 * lloc * 4,
+             ranks * members * 2 * (1 + -(-lloc // RING_KEY_TILE)) * 4)
+    offsets, at = [], 0
+    for nbytes in parts:
+        offsets.append(at)
+        at += -(-nbytes // 1024) * 1024
+    return offsets, at
+
+
+def _check_grid(lloc, B, H, max_blocks, group_rows, ranks):
+    """``ring_grid`` for ``ranks`` ranks of B * H members each, which must
+    hold at least one ring."""
+    grid = ring_grid(max_blocks, ranks, lloc, ranks * B * H, group_rows)
+    if grid == 0:
+        raise RuntimeError(f"ring_fwd: {max_blocks} resident blocks cannot hold a ring of "
+                           f"{ranks} x {-(-lloc // group_rows)} q-groups")
+    return grid
 
 
 def ring_fwd(q, k, v, is_valid, segment_ids, n: int):
@@ -614,25 +668,164 @@ def ring_fwd(q, k, v, is_valid, segment_ids, n: int):
         raise ValueError(f"ring_fwd: n must be <= 65535, got {n}")
     f32 = q.dtype == torch.float32
     lloc = L // n
-    max_blocks, group_rows = _launch_info(q.device, f32)
-    grid = ring_grid(max_blocks, n, lloc, n * B * H, group_rows)
-    if grid == 0:
-        raise RuntimeError(f"ring_fwd: {max_blocks} resident blocks cannot hold a ring of "
-                           f"{n} x {-(-lloc // group_rows)} q-groups")
+    grid = _check_grid(lloc, B, H, *_launch_info(q.device, f32), ranks=n)
     dev = q.device
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=dev)
-    k_slots = torch.empty((n, 2, B, H, lloc, D), dtype=q.dtype, device=dev)
-    v_slots = torch.empty_like(k_slots)
-    lab_slots = torch.empty((n, 2, B, H, 2, lloc), dtype=torch.int32, device=dev)
-    # per member's slot: capacity, then the ready count of each 128-key tile
-    flags = torch.zeros((n, B, H, 2, 1 + -(-lloc // RING_KEY_TILE)), dtype=torch.int32,
-                        device=dev)
+    offsets, size = _slot_layout(B, H, lloc, n, q.dtype)
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    k_slots, v_slots, lab_slots, flags = (buf.data_ptr() + o for o in offsets)
+    buf[offsets[3]:].zero_()  # the flags
     params = _RingParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), is_valid.data_ptr(), segment_ids.data_ptr(),
-        out.data_ptr(), k_slots.data_ptr(), v_slots.data_ptr(), lab_slots.data_ptr(),
-        flags.data_ptr(),
-        attn_ops._strides(q), attn_ops._strides(k), attn_ops._strides(v),
-        B, L, H, n, grid, 1.0 / math.sqrt(D), RING_TIMEOUT_NS)
+        out.data_ptr(), k_slots, v_slots, lab_slots, flags, k_slots, v_slots, lab_slots, flags,
+        flags, attn_ops._strides(q), attn_ops._strides(k), attn_ops._strides(v),
+        B, L, H, n, grid, -1, 0, 0, 1.0 / math.sqrt(D), RING_TIMEOUT_NS)
     lib = _ring_lib()
     attn_ops._launch(lib.ring_fwd_f32 if f32 else lib.ring_fwd_bf16, params, dev, "ring_fwd")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the ring kernel across processes
+# ---------------------------------------------------------------------------
+
+
+class PeerRing:
+    """This process's rank of the ring kernel across the processes of one
+    line of a process mesh axis, for one shape: [B, Lloc, H, 64] shards of
+    ``dtype`` on ``device``.
+
+    At construction it allocates its slots and flags in one buffer
+    (``csrc/ring_fwd.cu`` ``ring_ipc_alloc``: device memory outside
+    PyTorch's allocator, zeroed), gathers every rank's IPC handle and grid
+    over the axis's process group, opens the right and left
+    neighbours' buffers (``cudaIpcOpenMemHandle``, which enables peer
+    access where a neighbour's card is another) and waits at a barrier. A
+    handle that will not open, or ranks that would launch different grids,
+    raise. ``launch`` runs the
+    kernel's mode across processes on this rank's shard; its flags count
+    up across launches (``epoch``), so nothing is zeroed between calls and
+    the host never waits on the neighbours. ``close`` (at
+    ``parallel.distributed.shutdown``) unmaps and frees after barriers.
+
+    ``route``: how the copies to the right neighbour went at the last bf16
+    launch, "tma" (TMA stores through a tensor map over its slots) or
+    "stores" (16-byte stores by the producer warp's lanes, when asked for
+    by setting ``peer_store`` before a launch, or when the driver refuses
+    the map); the f32 kernel always stores.
+    """
+
+    def __init__(self, mesh: Mesh, axis: str, B: int, H: int, lloc: int, dtype, device):
+        import torch.distributed as dist
+
+        self.n, self.rank = mesh.size(axis), mesh.axis_index(axis)
+        self.group = mesh.group(axis)
+        self.shape, self.dtype, self.device = (B, H, lloc), dtype, torch.device(device)
+        self.epoch, self.peer_store, self.route = 0, False, None
+        lib = _ring_lib()
+        self._lib = lib
+        f32 = dtype == torch.float32
+        self.grid = _check_grid(lloc, B, H, *_launch_info(self.device, f32), ranks=1)
+        self.offsets, size = _slot_layout(B, H, lloc, 1, dtype)
+        own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(lib.ring_ipc_handle_size())
+        with torch.cuda.device(self.device):
+            err = lib.ring_ipc_alloc(size, ctypes.byref(own), handle)
+        if err != 0:
+            raise RuntimeError(f"ring across processes: cudaMalloc or cudaIpcGetMemHandle of "
+                               f"{size} bytes failed with cudaError_t {err}")
+        self.own, self.peers = own.value, {}
+        everyone = [None] * self.n
+        dist.all_gather_object(everyone, {"handle": handle.raw, "grid": self.grid},
+                               group=self.group)
+        grids = {e["grid"] for e in everyone}
+        if len(grids) != 1:
+            raise RuntimeError(f"ring across processes: the ranks would launch grids {grids}; "
+                               "every rank of a ring must launch the same")
+        for j in ((self.rank + 1) % self.n, (self.rank - 1) % self.n):
+            if j in self.peers:
+                continue
+            ptr = ctypes.c_void_p()
+            with torch.cuda.device(self.device):
+                err = lib.ring_ipc_open(ctypes.create_string_buffer(everyone[j]["handle"],
+                                                                    len(handle.raw)),
+                                        ctypes.byref(ptr))
+            if err != 0:
+                raise RuntimeError(f"ring across processes: rank {self.rank} could not open rank "
+                                   f"{j}'s buffer (cudaIpcOpenMemHandle: cudaError_t {err})")
+            self.peers[j] = ptr.value
+        dist.barrier(group=self.group)
+
+    def _parts(self, base):
+        return [base + o for o in self.offsets]
+
+    def launch(self, q, k, v, is_valid, segment_ids):
+        """The kernel on this rank's [B, Lloc, H, 64] q, k, v (strided views
+        allowed) and int32 [B, Lloc] labels -> out [B, Lloc, H, 64] in q's
+        dtype, on PyTorch's current stream. Every rank of the ring launches
+        the same sequence of calls."""
+        named = (("q", q), ("k", k), ("v", v))
+        is_valid, segment_ids = attn_ops._check_operands(named, is_valid, segment_ids)
+        B, lloc, H, D = q.shape
+        if (B, H, lloc) != self.shape or q.dtype != self.dtype or q.device != self.device:
+            raise ValueError(f"ring across processes: a shard [{B}, {lloc}, {H}] {q.dtype} on "
+                             f"{q.device} for a ring of {self.shape} {self.dtype} on "
+                             f"{self.device}")
+        out = torch.empty((B, lloc, H, D), dtype=q.dtype, device=q.device)
+        own = self._parts(self.own)
+        right = self._parts(self.peers[(self.rank + 1) % self.n])
+        left = self._parts(self.peers[(self.rank - 1) % self.n])
+        params = _RingParams(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), is_valid.data_ptr(),
+            segment_ids.data_ptr(), out.data_ptr(), *own, *right, left[3],
+            attn_ops._strides(q), attn_ops._strides(k), attn_ops._strides(v),
+            B, self.n * lloc, H, self.n, self.grid, self.rank, self.epoch & 0xFFFFFFFF,
+            int(self.peer_store), 1.0 / math.sqrt(D), RING_TIMEOUT_NS)
+        f32 = q.dtype == torch.float32
+        lib = self._lib
+        attn_ops._launch(lib.ring_fwd_f32 if f32 else lib.ring_fwd_bf16, params, q.device,
+                         "ring_fwd_procs")
+        self.epoch += 1
+        self.route = "stores" if f32 or params.peer_store else "tma"
+        return out
+
+    def close(self):
+        """Unmap the neighbours' buffers and free this one, once every rank's
+        kernels have ended (a barrier before each)."""
+        import torch.distributed as dist
+
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+        with torch.cuda.device(self.device):
+            for ptr in self.peers.values():
+                self._lib.ring_ipc_close(ptr)
+        self.peers = {}
+        dist.barrier(group=self.group)
+        with torch.cuda.device(self.device):
+            self._lib.ring_ipc_free(self.own)
+        self.own = None
+
+
+_PEER_RINGS = {}
+
+
+def peer_ring(mesh: Mesh, axis: str, q) -> PeerRing:
+    """The ``PeerRing`` of this rank for ``q``'s [B, Lloc, H, 64] shards on
+    ``axis`` of ``mesh``, made at first use (collectively: every rank of the
+    axis calls this with the same shape) and kept until
+    ``parallel.distributed.shutdown``."""
+    from merlot_reserve_tpu_torch.parallel import distributed
+
+    B, lloc, H, _ = q.shape
+    key = (tuple(mesh.group_ranks(axis)), B, H, lloc, q.dtype, q.device)
+    if key not in _PEER_RINGS:
+        if not _PEER_RINGS:
+            distributed.at_shutdown(close_peer_rings)
+        _PEER_RINGS[key] = PeerRing(mesh, axis, B, H, lloc, q.dtype, q.device)
+    return _PEER_RINGS[key]
+
+
+def close_peer_rings():
+    """Close every ``PeerRing`` of this process, in the order they were made."""
+    for ring in _PEER_RINGS.values():
+        ring.close()
+    _PEER_RINGS.clear()

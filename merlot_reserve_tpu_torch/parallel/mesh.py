@@ -192,12 +192,14 @@ def _dcn(dp: int, dcn_dp: Optional[int]) -> int:
 def _process_mesh(dp, tp, sp, pp, dcn_dp, members) -> Mesh:
     """The (dcn, dp, sp, pp, tp) process mesh over the job ranks
     ``members``, tp innermost; rank r's device is its card
-    ``cuda:r % LOCAL_WORLD_SIZE`` (torchrun's layout) or the CPU."""
+    ``cuda:r % LOCAL_WORLD_SIZE`` (torchrun's layout), the one card that
+    every rank shares (``distributed.shared_card``), or the CPU."""
     dcn = _dcn(dp, dcn_dp)
     own = distributed.device()
     local = distributed.local_world_size()
     devices = np.empty(len(members), dtype=object)
-    devices[:] = [torch.device("cuda", r % local) if own.type == "cuda" else own
+    devices[:] = [torch.device("cuda", r % local)
+                  if own.type == "cuda" and not distributed.shared_card() else own
                   for r in members]
     shape = (dcn, dp // dcn, sp, pp, tp)
     return Mesh(devices.reshape(shape), axis_names=("dcn", "dp", "sp", "pp", "tp"),

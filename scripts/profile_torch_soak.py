@@ -135,11 +135,12 @@ def run_process(cmd, signal_after=None, timeout=TIMEOUT_S):
     return code, "\n".join(lines), end - t0, None if sent is None else end - sent
 
 
-def preempt_and_resume(cmd, out, signal_after, timeout=TIMEOUT_S):
+def preempt_and_resume(cmd, out, signal_after, timeout=TIMEOUT_S, resume_cmd=None):
     """The soak's preemption: ``cmd`` gets SIGTERM once it logs step
     ``signal_after``, must exit with 0 leaving ``ckpt_<n>`` and
-    ``loader_state.json`` in ``out``, and the same command must resume at
-    step n, log step n first and exit with 0. Returns {"first", "second":
+    ``loader_state.json`` in ``out``, and the same command (or
+    ``resume_cmd(n)``, the same run with fewer steps) must resume at step n,
+    log step n first and exit with 0. Returns {"first", "second":
     the two outputs, "stopped": n, "checkpoints": the ckpt_ steps after the
     SIGTERM, "sidecar", "first_s", "exit_s": from the signal to the exit,
     "second_s"}; raises RuntimeError where a step of it failed."""
@@ -153,7 +154,8 @@ def preempt_and_resume(cmd, out, signal_after, timeout=TIMEOUT_S):
         raise RuntimeError(f"no checkpoint and sidecar after the SIGTERM: {os.listdir(out)}")
     with open(sidecar_path) as f:
         sidecar = json.load(f)
-    code, second, second_s, _ = run_process(cmd, timeout=timeout)
+    resumed = cmd if resume_cmd is None else resume_cmd(max(stopped))
+    code, second, second_s, _ = run_process(resumed, timeout=timeout)
     if code != 0:
         raise RuntimeError(f"the resumed process exited with {code}:\n{second[-4000:]}")
     (_, _, o1), (l2, _, o2) = parse_log(first), parse_log(second)

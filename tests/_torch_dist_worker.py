@@ -10,7 +10,9 @@ A case is a train step (the default), a forward's collectives
 (``forward_audit``), a checkpoint round trip (``checkpoint``), a per-rank
 sharded checkpoint round trip (``sharded_checkpoint``), ``run_pretraining``
 saving and resuming per rank (``loop``), a zero-shot
-evaluation (``zero_shot``) or ``ring:rdma``'s refusal (``rdma_refusal``).
+evaluation (``zero_shot``), ``ring:rdma``'s forward and its refusal under
+grad (``rdma_forward``), sequence-parallel attention on this rank's shard
+(``sp_attention``) or a transformer encoder's forward (``encoder``).
 
     python tests/_torch_dist_worker.py JOB.pt
 """
@@ -28,6 +30,7 @@ from merlot_reserve_tpu_torch import load_config  # noqa: E402
 from merlot_reserve_tpu_torch.models.pretrainer import (  # noqa: E402
     MerlotReservePretrainer,
     batch_to_tensors,
+    loss_fn_given_preds,
 )
 from merlot_reserve_tpu_torch.parallel import comm, distributed  # noqa: E402
 from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh  # noqa: E402
@@ -115,17 +118,66 @@ def forward_audit(job, case, mesh):
     return {"comm": comm.summarize_records(records)}
 
 
-def rdma_refusal(job, case, mesh):
-    """The message of ``ring:rdma``'s refusal under a process mesh."""
+def rdma_forward(job, case, mesh):
+    """The full model's forward under ``ring:rdma`` without grad (its
+    losses), and the message of its refusal under grad."""
     cfg = make_config(job, case.get("model", {}))
     model = full_model(cfg, job["params"])
     batch = local_rows(mesh, batch_to_tensors(job["batch"], "cpu"))
+    with torch.no_grad(), activate_mesh(mesh):
+        preds = model(batch, split_at=job["split_at"], gumbel=job["gumbel"])
+        _, losses = loss_fn_given_preds(preds)
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "refused": None}
     try:
-        with torch.no_grad(), activate_mesh(mesh):
+        with activate_mesh(mesh):
             model(batch, split_at=job["split_at"], gumbel=job["gumbel"])
     except NotImplementedError as e:
-        return {"refused": str(e)}
-    return {"refused": None}
+        out["refused"] = str(e)
+    return out
+
+
+def _rank_rows(x, mesh, axis):
+    """This rank's rows (dim 1) of a global [B, L, ...] tensor along ``axis``."""
+    n, r = mesh.size(axis), mesh.axis_index(axis)
+    lloc = x.shape[1] // n
+    return x[:, r * lloc:(r + 1) * lloc].contiguous()
+
+
+def sp_attention(job, case, mesh):
+    """``sequence_parallel_attention`` with ``case['impl']`` on this rank's
+    shard of each of ``case['inputs']`` (global q, k, v, is_valid,
+    segment_ids); the ranks' outputs gathered into the global [B, L, H, D];
+    and the refusal under grad."""
+    from merlot_reserve_tpu_torch.ops.ring_attention import sequence_parallel_attention
+
+    outs = {}
+    for name, inputs in case["inputs"].items():
+        q, k, v, valid, seg = (_rank_rows(torch.as_tensor(x), mesh, "sp") for x in inputs)
+        with torch.no_grad():
+            out = sequence_parallel_attention(mesh, q, k, v, valid, seg, impl=case["impl"])
+        outs[name] = comm.all_gather(out, mesh, "sp", 1)
+    try:
+        q.requires_grad_(True)
+        sequence_parallel_attention(mesh, q, k, v, valid, seg, impl=case["impl"])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    return {"outs": outs, "refused": refused}
+
+
+def encoder(job, case, mesh):
+    """A ``TransformerEncoder`` built from ``case['kwargs']`` with
+    ``case['state']``, run without grad on the global ``case['x']`` and its
+    labels under this mesh (the encoder splits the sequence over the ranks
+    and gathers it back)."""
+    from merlot_reserve_tpu_torch.models.layers import TransformerEncoder
+
+    enc = TransformerEncoder(generator=torch.Generator().manual_seed(0), **case["kwargs"])
+    enc.load_state_dict(case["state"])
+    with torch.no_grad(), activate_mesh(mesh):
+        out = enc(torch.as_tensor(case["x"]), **{k: torch.as_tensor(v)
+                                                 for k, v in case["inputs"].items()})
+    return {"seq": out["seq"]}
 
 
 def checkpoint(job, case, mesh):
@@ -256,8 +308,8 @@ def main(path):
         else:
             out = {"forward_audit": forward_audit, "checkpoint": checkpoint,
                    "sharded_checkpoint": sharded_checkpoint, "loop": loop,
-                   "zero_shot": zero_shot,
-                   "rdma_refusal": rdma_refusal}[kind](job, case, mesh)
+                   "zero_shot": zero_shot, "rdma_forward": rdma_forward,
+                   "sp_attention": sp_attention, "encoder": encoder}[kind](job, case, mesh)
         if rank == 0:
             results[name] = out
     if rank == 0:

@@ -47,6 +47,15 @@ from merlot_reserve_tpu_torch.data.loader import DevicePretrainLoader
 from merlot_reserve_tpu_torch.data.pretrain_pipeline import parse_segment_record
 from merlot_reserve_tpu_torch.ops import masking_device as tdev
 from merlot_reserve_tpu_torch.ops import vision_train as tvt
+from _torch_jax_native import use_jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX side decodes through its own native library, built once and
+    loaded here (tests/_torch_jax_native.py), never through a PIL fallback."""
+    use_jax_native()
+
 
 TINY = dict(hidden_size=128, joint_num_layers=2, vit_num_layers=2, audio_num_layers=2,
             span_num_layers=2, output_grid=(4, 4), use_bfloat16=False)

@@ -44,6 +44,15 @@ from merlot_reserve_tpu_torch.training.trainer import (
 )
 from merlot_reserve_tpu_torch.utils.weights import flax_from_state_dict, state_dict_from_flax
 from test_torch_data_device import JaxDraws
+from _torch_jax_native import use_jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX side decodes through its own native library, built once and
+    loaded here (tests/_torch_jax_native.py), never through a PIL fallback."""
+    use_jax_native()
+
 
 TINY = dict(hidden_size=128, joint_num_layers=2, vit_num_layers=2, audio_num_layers=2,
             span_num_layers=2, output_grid=(4, 4), use_bfloat16=False)

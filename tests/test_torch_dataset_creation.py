@@ -46,6 +46,15 @@ from merlot_reserve_tpu_torch.dataset_creation import filters, offset_model, spe
 from merlot_reserve_tpu_torch.dataset_creation import process as P
 from merlot_reserve_tpu_torch.dataset_creation import text, text_corpus, youtube
 from merlot_reserve_tpu_torch.tokenizer import get_tokenizer
+from _torch_jax_native import use_jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library():
+    """The JAX side decodes through its own native library, built once and
+    loaded here (tests/_torch_jax_native.py), never through a PIL fallback."""
+    use_jax_native()
+
 
 SR = 22050
 LOG_MEL_TOL = 1e-5

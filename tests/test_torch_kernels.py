@@ -88,11 +88,15 @@ def test_params_struct_matches_the_c_layout():
 
 
 def test_ring_params_struct_matches_the_c_layout():
-    # RingParams in csrc/ring_fwd.cu: 10 pointers, 3 x int64[3], 5 x int32, float, int64
+    # RingParams in csrc/ring_fwd.cu: 15 pointers (this rank's slots and
+    # flags, the right neighbour's, the left neighbour's flags), 3 x
+    # int64[3], 8 x int32, float, 4 bytes of padding, int64
     P = tring._RingParams
-    assert ctypes.sizeof(P) == 10 * 8 + 9 * 8 + 5 * 4 + 4 + 8
-    assert P.flags.offset == 72 and P.q_strides.offset == 80 and P.batch.offset == 152
-    assert P.grid.offset == 168 and P.scale.offset == 172 and P.timeout_ns.offset == 176
+    assert ctypes.sizeof(P) == 15 * 8 + 9 * 8 + 8 * 4 + 4 + 4 + 8
+    assert P.flags.offset == 72 and P.right_k_slots.offset == 80
+    assert P.left_flags.offset == 112 and P.q_strides.offset == 120 and P.batch.offset == 192
+    assert P.grid.offset == 208 and P.rank.offset == 212 and P.epoch.offset == 216
+    assert P.peer_store.offset == 220 and P.scale.offset == 224 and P.timeout_ns.offset == 232
 
 
 @pytest.mark.parametrize("max_blocks,n,lloc,members,grid", [
