@@ -47,6 +47,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``activate_mesh(make_mesh(sp=4))`` answers batches of 8 long videos (40
    segments, joint L 2560), and the entry's 8-segment videos at sp = 2;
    checks ring launches, agreement with the ``flash`` path, and times both;
+   then the first long batch through ``DynamicBatcher`` under the caller's
+   mesh (its dispatcher thread runs the batch in the submitter's context):
+   12 ring launches per batch, no ``flash_fwd``, the service's answer;
 9. raw media: the front end (``ops.vision`` resize and patchify,
    ``ops.audio`` log-mel) on the card against the same functions on the
    CPU, at the bench's raw batch and at frames that downscale and upscale,
@@ -105,11 +108,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 15. data to the device: the data library's JPEG codec (libjpeg, or nvJPEG
    where libjpeg is absent) against known pixels; a synthetic corpus of
    16 records at the base shapes, written by the port into a temporary
-   directory; ``run_pretraining`` at full base width, batch 8, 5 steps
-   through each of four feeds, every one through a ``DeviceFeed`` (pinned
-   buffers, a side stream): dummy batches, the host-assembled
-   ``PretrainLoader`` on threads and on spawned processes, and the fused
-   step on raw batches with frames augmented on the card; finite step-0 losses near ln N, the kernels'
+   directory; ``run_pretraining`` at full base width, batch 8, 7 steps
+   through each of two feeds, both through a ``DeviceFeed`` (pinned
+   buffers, a side stream): the host-assembled ``PretrainLoader`` on
+   threads, and the fused step on raw batches with frames augmented on the
+   card (dummy batches are phase 5's feed, the loader on spawned processes
+   feeds phase 18's steps); finite step-0 losses near ln N, the kernels'
    launches per step as worked out from the config; step ms on both
    clocks, examples/s, the busy share under the profiler, the H2D bytes
    and ms per step, peaks; the builder's device ms and launches per batch;
@@ -156,7 +160,6 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    clocks); then the prep scripts' per-annotation functions
    (``prep_vcr_torch.vcr_record``, ``prep_tvqa_torch.tvqa_record``) into
    records that ``finetune_batches`` reads at the synthetic records' shapes.
-   Phase 15 also runs a fourth feed: the host loader on spawned processes.
 19. serving artifacts and checkpoint tools: phase 13's ``ckpt_4`` (or a
    seeded init) into ``export.export_serving_artifact`` on the card at full
    base width (batch 8, 64 options); ``load_serving_artifact`` in a fresh
@@ -176,8 +179,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and the f32 params, mu and nu after it within the one-process runs'
    own distance (``DIST_LOSS_TOL``, ``DIST_STATE_FACTOR``), launches per
    step, the comm audit per step, both clocks; world 1's state saved
-   through the per-rank sharded writer (``sharded_manager``, async) and the
-   msgpack file and read back, the two resumed states bit for bit; two
+   through the per-rank sharded writer (``sharded_manager``, async) and
+   read back, the resumed state bit for bit; two
    processes on the one card (``--rank-worker``): which backend takes
    them, and where gloo takes a layout's collectives, dp 2 and tp 2 held
    against world 1's losses; the memory planner against the measured peaks.
@@ -198,7 +201,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and within the ring tolerance of the plain ring, by TMA and by 16-byte
    stores; phase 8's long-video batch through ``VideoEmbedService`` under
    process meshes of sp 2 and sp 4, 12 launches per rank per batch, against
-   phase 8's embeddings; every time labelled time-sliced.
+   phase 8's embeddings; at sp 4 the same batch again with rank 1 six
+   seconds late (past the 5 s a ring kernel waits on a neighbour): the
+   joint tower's host barrier holds the others, no rank traps, each rank's
+   embeddings are bit for bit its undelayed answer and its first joint
+   layer's shard the virtual-rank kernel's; every time labelled
+   time-sliced.
+23. large serving: phase 4 on the large config (hidden 1024, 16 heads of
+   64, 24 joint and 24 vision layers; random weights from seed 0) at batch
+   8, joint L 640: 24 ``flash_fwd`` per batch, against the plain path.
+24. large zero-shot at the demos' default: a large model's seeded weights
+   written as msgpack and read by ``PretrainedMerlotReserve.from_params(
+   "large", ..., image_grid_size=(18, 32))``; phase 9's zero-shot path on
+   synthetic raw segments at joint L 1312, counted, against the plain
+   path; ms per call and the load seconds.
+25. large pretraining: two arms of 3 ``train_step``s (batch 4 without
+   remat; batch 8 with both remat knobs): step 0 against the plain path at
+   phase 5's bf16 limits, finite losses near ln N, launches and one
+   ``adam_update`` per step, both clocks, each peak beside the memory
+   planner's.
+26. large finetuning at the recipes' batch 32 from phase 25's weights: VCR
+   at 18x32 and TVQA, the whole batch tried first and ``scan_minibatch``
+   where it does not fit; step-0 loss near ln N, launches per step, both
+   clocks, the peak and the joint rows.
+27. kernels at 16 heads: the forward at the large serving (B 8 L 640) and
+   zero-shot (B 1 L 1312) shapes and labels, the forward and backward at
+   the large pretraining's joint (B 48 L 640), bf16 and f32, against their
+   plain versions with times, bounds and SDPA.
+
+Each phase's seconds are printed as ``[time]`` lines.
 
 It prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``; the full record goes to
@@ -212,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -219,6 +251,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -665,10 +698,11 @@ def check_bwd(case, valid, seg, H, D, generator):
     return results
 
 
-def phase_kernels(cases, seed):
+def phase_kernels(cases, seed, heads=12, backward=True):
     """The three kernels against their plain versions, case by case: each
-    case is (name, is_valid, segment_ids) on the card. Returns (forward
-    results, backward results)."""
+    case is (name, is_valid, segment_ids) on the card, at ``heads`` heads of
+    64 (the base config's 12, the large config's 16); the backward only
+    with ``backward``. Returns (forward results, backward results)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -676,8 +710,9 @@ def phase_kernels(cases, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     fwd, bwd = [], []
     for case, valid, seg in cases:
-        fwd += check_fwd(case, valid, seg, 12, 64, g)
-        bwd += check_bwd(case, valid, seg, 12, 64, g)
+        fwd += check_fwd(case, valid, seg, heads, 64, g)
+        if backward:
+            bwd += check_bwd(case, valid, seg, heads, 64, g)
     return fwd, bwd
 
 
@@ -719,24 +754,30 @@ def stack_requests(videos, device):
             stack["subseg_idxs"].long())
 
 
-def phase_slice(card):
+def phase_slice(card, name="base"):
+    """A full-width ``name`` model (random weights from seed 0) behind
+    ``VideoEmbedService`` at batch 8 (joint L 640): a full batch, an
+    underfilled one and 12 concurrent requests through ``DynamicBatcher``;
+    shapes, unit rows, one ``flash_fwd`` per joint layer per batch,
+    agreement with the plain attention path; both clocks and the peak."""
     import numpy as np
     import torch
 
     from merlot_reserve_tpu_torch import kernels, load_config
     from merlot_reserve_tpu_torch.models import MerlotReserve
-    from merlot_reserve_tpu_torch.ops import attention as attn_ops
     from merlot_reserve_tpu_torch.serving import DynamicBatcher, VideoEmbedService
 
-    cfg = load_config("base", joint_attention_impl="flash")
-    check(cfg.model.use_bfloat16, "base config should compute in bf16")
+    tag = f"[slice {name}]"
+    cfg = load_config(name, joint_attention_impl="flash")
+    check(cfg.model.use_bfloat16, f"{name} config should compute in bf16")
     t0 = time.perf_counter()
     model = MerlotReserve(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[slice] base model ({cfg.model.joint_num_layers}/{cfg.model.vit_num_layers}/"
+    print(f"{tag} {name} model ({cfg.model.joint_num_layers}/{cfg.model.vit_num_layers}/"
           f"{cfg.model.audio_num_layers} joint/vit/audio layers, hidden {cfg.model.hidden_size}, "
-          f"{n_params / 1e6:.1f}M params) built in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"{cfg.model.num_heads} heads, {n_params / 1e6:.1f}M params) built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     service = VideoEmbedService(model, batch_size=8, device="cuda")
     full, five, concurrent = make_requests(cfg, 8, 1), make_requests(cfg, 5, 2), make_requests(cfg, 12, 3)
     joint_layers = cfg.model.joint_num_layers
@@ -752,7 +793,7 @@ def phase_slice(card):
     launches = dict(kernels.LAUNCHES)
     batches = service.stats["batches"]
     peak_mem = torch.cuda.max_memory_allocated()
-    print(f"[slice] answered {sum(len(o) for o in outs)} requests in {batches} batches "
+    print(f"{tag} answered {sum(len(o) for o in outs)} requests in {batches} batches "
           f"(dynamic batch fills {batcher.batch_fills}); kernel launches {launches}", flush=True)
     check(launches.get("flash_fwd", 0) == joint_layers * batches,
           f"flash_fwd launches {launches.get('flash_fwd', 0)} != {joint_layers} x {batches} batches")
@@ -763,15 +804,12 @@ def phase_slice(card):
         check(np.abs(norms - 1).max() < 1e-2, f"row norms off 1 by {np.abs(norms - 1).max()}")
 
     # kernel path vs the plain flash version on the same inputs, on the card
-    def plain_flash(q, k, v, is_valid, segment_ids):
-        return attn_ops.flash_attention_reference(q, k, v, is_valid, segment_ids)[0]
-
-    with mock.patch.object(attn_ops, "flash_attention", plain_flash):
+    with _plain_attention():
         plain = service.embed(full)
     a, b = outs[0].reshape(-1, cfg.model.hidden_size), plain.reshape(-1, cfg.model.hidden_size)
     cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
     max_diff = float(np.abs(a - b).max())
-    print(f"[slice] kernel vs plain attention path: min row cosine {cos.min():.6f}, "
+    print(f"{tag} kernel vs plain attention path: min row cosine {cos.min():.6f}, "
           f"max abs diff {max_diff:.3e}", flush=True)
     check(cos.min() >= MIN_COSINE, f"kernel vs plain path cosine {cos.min()} < {MIN_COSINE}")
 
@@ -786,14 +824,15 @@ def phase_slice(card):
         device_ms = cuda_time_ms(lambda: model.batch_embed_video(images, audio, tokens, subseg),
                                  iters=5, warmup=1)
     host_med = float(np.median(host_ms))
-    res = {"batch": 8, "segments_per_video": 8, "batches_answered": batches,
+    res = {"config": name, "heads": cfg.model.num_heads, "params": n_params,
+           "batch": 8, "segments_per_video": 8, "batches_answered": batches,
            "launches": launches, "min_cosine_vs_plain": float(cos.min()),
            "max_abs_diff_vs_plain": max_diff, "service_ms_per_batch_median": host_med,
            "service_ms_per_batch_runs": host_ms, "device_ms_per_batch": device_ms,
            "videos_per_s": 8 / host_med * 1e3, "segments_per_s": 64 / host_med * 1e3,
            "device_videos_per_s": 8 / device_ms * 1e3, "device_segments_per_s": 64 / device_ms * 1e3,
            "max_memory_allocated_bytes": peak_mem}
-    print(f"[slice] {card}: {host_med:.2f} ms per batch of 8 through the service "
+    print(f"{tag} {card}: {host_med:.2f} ms per batch of 8 through the service "
           f"({res['videos_per_s']:.1f} videos/s, {res['segments_per_s']:.1f} segments/s); "
           f"model alone {device_ms:.2f} ms on the device clock "
           f"({res['device_segments_per_s']:.1f} segments/s); "
@@ -837,21 +876,27 @@ def _capture_labels(model, batch):
 
 
 @contextlib.contextmanager
-def _vision_output_grads(model):
+def _vision_output_grads(model, towers=("vision_encoder",)):
     """Yields a dict that a backward through ``model`` fills with the f32
-    gradient reaching the vision tower's two outputs: 'cls' (from the imgs
-    <-> audio head) and 'seq_attnpool' (from the joint tower)."""
-    store = {}
+    gradient reaching the two outputs of each of ``towers`` (by default the
+    vision tower): 'cls' (from the contrastive heads) and 'seq_attnpool'
+    (from the joint tower); another tower's keys carry its name first
+    ('audio_encoder.cls', ...)."""
+    store, handles = {}, []
+    for tower in towers:
+        prefix = "" if tower == "vision_encoder" else f"{tower}."
 
-    def hook(module, args, out):
-        for key in ("cls", "seq_attnpool"):
-            out[key].register_hook(lambda g, key=key: store.__setitem__(key, g.float()))
+        def hook(module, args, out, prefix=prefix):
+            for key in ("cls", "seq_attnpool"):
+                out[key].register_hook(
+                    lambda g, key=prefix + key: store.__setitem__(key, g.float()))
 
-    handle = model.vision_encoder.register_forward_hook(hook)
+        handles.append(getattr(model, tower).register_forward_hook(hook))
     try:
         yield store
     finally:
-        handle.remove()
+        for handle in handles:
+            handle.remove()
 
 
 def _agreement(grads_a, grads_b):
@@ -873,6 +918,52 @@ def _agreement(grads_a, grads_b):
     return {"whole": cosine(list(grads_a)),
             "towers": {t: cosine(names) for t, names in sorted(towers.items())},
             "tensors": {n: cosine([n]) for n in grads_a}}
+
+
+def _compare_paths(run_a, run_b, label):
+    """Two paths' (loss terms, gradients, gradients at the vision tower's
+    outputs) of one step: ``_agreement`` of the gradients, the loss terms'
+    differences, the vision outputs' cosines, and the lowest tensor cosine
+    held (outside ZERO_GRAD; and outside the vision tower), printed after
+    ``label``."""
+    (info_a, grads_a, vis_a), (info_b, grads_b, vis_b) = run_a, run_b
+    res = _agreement(grads_a, grads_b)
+    res["loss_diff"] = {k: abs(float(info_a[k]) - float(info_b[k])) for k in info_a}
+    res["vision_outputs"] = {k: _agreement({k: vis_a[k]}, {k: vis_b[k]})["whole"]
+                             for k in vis_a}
+    held = {n: c for n, c in res["tensors"].items() if n not in ZERO_GRAD}
+    res["lowest_held"] = min(held.items(), key=lambda kv: kv[1])
+    res["lowest_held_outside_vision"] = min(
+        ((n, c) for n, c in held.items() if not n.startswith("vision_encoder.")),
+        key=lambda kv: kv[1])
+    worst = sorted(res["tensors"].items(), key=lambda kv: kv[1])[:6]
+    print(f"{label}: loss diffs "
+          f"{ {k: f'{v:.2e}' for k, v in res['loss_diff'].items() if not k.startswith('_')} }; "
+          f"gradient cosine: whole {res['whole']:.6f}, per tower "
+          f"{ {k: round(v, 6) for k, v in res['towers'].items()} }, at the towers' outputs "
+          f"{ {k: round(v, 6) for k, v in res['vision_outputs'].items()} }, lowest "
+          f"per tensor {[(n, round(c, 5)) for n, c in worst]}", flush=True)
+    return res
+
+
+def _plain_attention():
+    """A patch that sends the flash attention to its plain version (on the
+    same card), for the plain path of a comparison without grad."""
+    from merlot_reserve_tpu_torch.ops import attention as attn_ops
+
+    def plain(q, k, v, is_valid, segment_ids):
+        return attn_ops.flash_attention_reference(q, k, v, is_valid, segment_ids)[0]
+
+    return mock.patch.object(attn_ops, "flash_attention", plain)
+
+
+def _min_row_cos(a, b):
+    """The lowest cosine between the rows of two arrays, in f64."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                     * np.linalg.norm(b, axis=-1))).min())
 
 
 def _plain_flash():
@@ -1143,24 +1234,7 @@ def phase_train(card):
     del model32
 
     def compare(a, b):
-        (info_a, grads_a, vis_a), (info_b, grads_b, vis_b) = runs[a], runs[b]
-        res = _agreement(grads_a, grads_b)
-        res["loss_diff"] = {k: abs(float(info_a[k]) - float(info_b[k])) for k in info_a}
-        res["vision_outputs"] = {k: _agreement({k: vis_a[k]}, {k: vis_b[k]})["whole"]
-                                 for k in vis_a}
-        held = {n: c for n, c in res["tensors"].items() if n not in ZERO_GRAD}
-        res["lowest_held"] = min(held.items(), key=lambda kv: kv[1])
-        res["lowest_held_outside_vision"] = min(
-            ((n, c) for n, c in held.items() if not n.startswith("vision_encoder.")),
-            key=lambda kv: kv[1])
-        worst = sorted(res["tensors"].items(), key=lambda kv: kv[1])[:6]
-        print(f"[train] {a} vs {b}: loss diffs "
-              f"{ {k: f'{v:.2e}' for k, v in res['loss_diff'].items() if not k.startswith('_')} }; "
-              f"gradient cosine: whole {res['whole']:.6f}, per tower "
-              f"{ {k: round(v, 6) for k, v in res['towers'].items()} }, at the vision tower's "
-              f"outputs { {k: round(v, 6) for k, v in res['vision_outputs'].items()} }, lowest "
-              f"per tensor {[(n, round(c, 5)) for n, c in worst]}", flush=True)
-        return res
+        return _compare_paths(runs[a], runs[b], f"[train] {a} vs {b}")
 
     agreement = {"kernel_bf16 vs plain_bf16": compare("kernel_bf16", "plain_bf16"),
                  "kernel_f32 vs plain_f32": compare("kernel_f32", "plain_f32"),
@@ -1428,7 +1502,8 @@ def _worst_one_minus_cos(a, b, rows):
 
 def phase_slice_sp(card):
     """Long videos through the ring: base widths, ``joint_attention_impl=
-    "ring:rdma"``, 4 virtual sp ranks on the card. Returns the record and,
+    "ring:rdma"``, 4 virtual sp ranks on the card, through the service and
+    through ``DynamicBatcher`` under the caller's mesh. Returns the record and,
     for the first long batch and the entry batch, the ring path's and the
     flash path's embeddings and the valid rows (phase 22 holds its own
     against them)."""
@@ -1437,10 +1512,9 @@ def phase_slice_sp(card):
 
     from merlot_reserve_tpu_torch import kernels, load_config
     from merlot_reserve_tpu_torch.models import MerlotReserve
-    from merlot_reserve_tpu_torch.ops import attention as attn_ops
     from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
     from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, make_mesh
-    from merlot_reserve_tpu_torch.serving import VideoEmbedService
+    from merlot_reserve_tpu_torch.serving import DynamicBatcher, VideoEmbedService
     from merlot_reserve_tpu_torch.tokenizer import PADDING
 
     cfg = load_config("base", joint_attention_impl="ring:rdma", seq_shard_axis="sp")
@@ -1490,15 +1564,12 @@ def phase_slice_sp(card):
     # flash model with the plain flash attention, s (one attention in f32,
     # summed in two orders, in a model that rounds to bf16 around it). The
     # kernel paths may sit twice that angle apart: 1 - cos <= 4 s
-    def plain_flash(q, k, v, is_valid, segment_ids):
-        return attn_ops.flash_attention_reference(q, k, v, is_valid, segment_ids)[0]
-
     agreement, arrays = {}, {}
     for name, reqs, sp, kernel_out in (("long", long_reqs[0], 4, long_outs[0]),
                                        ("entry", entry_reqs, 2, entry_out)):
         rows = np.stack([np.asarray(r["tokens"]) != PADDING for r in reqs])
         flash_out = flash_service.embed(reqs)
-        with mock.patch.object(attn_ops, "flash_attention", plain_flash):
+        with _plain_attention():
             plain_out = flash_service.embed(reqs)
         with activate_mesh(make_mesh(sp=sp)), \
                 mock.patch.object(ring_ops, "ring_fwd", ring_ops.ring_attention_reference):
@@ -1519,6 +1590,35 @@ def phase_slice_sp(card):
               f"{a['max_abs_diff_ring_vs_flash']:.3e}", flush=True)
         check(a["ring_vs_flash"] <= a["limit"],
               f"{name}: ring vs flash path 1 - cos {a['ring_vs_flash']} > {a['limit']}")
+
+    # the first long batch again, through DynamicBatcher under the caller's
+    # mesh: its dispatcher thread runs the batch in the submitter's context,
+    # so the joint tower goes through the ring kernel there too
+    kernels.LAUNCHES.clear()
+    with activate_mesh(make_mesh(sp=4)):
+        with DynamicBatcher(service, max_wait_ms=1000.0) as batcher:
+            futures = [batcher.submit(vp) for vp in long_reqs[0]]
+            batched = np.stack([f.result(timeout=600) for f in futures])
+    torch.cuda.synchronize()
+    launches_batcher = dict(kernels.LAUNCHES)
+    fills = list(batcher.batch_fills)
+    rows = np.stack([np.asarray(r["tokens"]) != PADDING for r in long_reqs[0]])
+    batcher_res = {"batch_fills": fills, "launches": launches_batcher,
+                   "vs_service": _worst_one_minus_cos(batched, long_outs[0], rows),
+                   "same_bits_as_service": bool(np.array_equal(batched, long_outs[0])),
+                   "limit": agreement["long"]["limit"]}
+    print(f"[sp] 8 long videos through DynamicBatcher under make_mesh(sp=4): batches "
+          f"{fills}, launches {launches_batcher}; worst valid-row 1 - cos against the "
+          f"service's own answer {batcher_res['vs_service']:.3e} (bit for bit: "
+          f"{batcher_res['same_bits_as_service']})", flush=True)
+    check(launches_batcher.get("ring_fwd", 0) == joint_layers * len(fills),
+          f"the batcher under a mesh: ring_fwd launches {launches_batcher.get('ring_fwd', 0)} "
+          f"!= {joint_layers} x {len(fills)} batches")
+    check(launches_batcher.get("flash_fwd", 0) == 0,
+          "the batcher under a mesh: the joint tower launched flash_fwd")
+    check(batcher_res["vs_service"] <= batcher_res["limit"],
+          f"the batcher under a mesh: 1 - cos {batcher_res['vs_service']} against the service "
+          f"> {batcher_res['limit']}")
 
     # service time per batch, ring:rdma at sp=4 against flash without a mesh
     times = {}
@@ -1545,7 +1645,7 @@ def phase_slice_sp(card):
     res = {"joint_len": joint_len, "segments_per_video": LONG_SEGMENTS,
            "batches": LONG_BATCHES, "launches_long_sp4": launches_long,
            "launches_entry_sp2": launches_entry, "max_memory_allocated_bytes": peak_long,
-           "agreement": agreement, "times": times}
+           "agreement": agreement, "batcher": batcher_res, "times": times}
     del model, flash_model, service, flash_service
     torch.cuda.empty_cache()
     return res, arrays
@@ -1710,14 +1810,9 @@ def phase_raw_media(card, seed):
     xla_feats = zero_shot.extract_mask_features(xla_pre, video_pres)
     check(not kernels.LAUNCHES, f"the xla path launched kernels {dict(kernels.LAUNCHES)}")
 
-    def min_row_cos(a, b):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                                         * np.linalg.norm(b, axis=-1))).min())
-
-    agreement = {"label_space_min_cos": min_row_cos(label_space.float().cpu(),
+    agreement = {"label_space_min_cos": _min_row_cos(label_space.float().cpu(),
                                                     xla_label_space.float().cpu()),
-                 "mask_features_min_cos": min_row_cos(feats, xla_feats),
+                 "mask_features_min_cos": _min_row_cos(feats, xla_feats),
                  "probs_max_abs_diff": float(np.abs(probs - xla_probs).max())}
     print(f"[raw] kernel path vs xla path on the same weights: {agreement}", flush=True)
     check(agreement["label_space_min_cos"] >= ZERO_SHOT_MIN_COSINE
@@ -1919,23 +2014,7 @@ def phase_train_long(card):
     del models
 
     def compare(a, b, runs):
-        (info_a, grads_a, vis_a), (info_b, grads_b, vis_b) = runs[a], runs[b]
-        res = _agreement(grads_a, grads_b)
-        res["loss_diff"] = {k: abs(float(info_a[k]) - float(info_b[k])) for k in info_a}
-        res["vision_outputs"] = {k: _agreement({k: vis_a[k]}, {k: vis_b[k]})["whole"]
-                                 for k in vis_a}
-        held = {n: c for n, c in res["tensors"].items() if n not in ZERO_GRAD}
-        res["lowest_held_outside_vision"] = min(
-            ((n, c) for n, c in held.items() if not n.startswith("vision_encoder.")),
-            key=lambda kv: kv[1])
-        worst = sorted(res["tensors"].items(), key=lambda kv: kv[1])[:6]
-        print(f"[long] {a} vs {b}: loss diffs "
-              f"{ {k: f'{v:.2e}' for k, v in res['loss_diff'].items() if not k.startswith('_')} }; "
-              f"gradient cosine: whole {res['whole']:.6f}, per tower "
-              f"{ {k: round(v, 6) for k, v in res['towers'].items()} }, at the vision tower's "
-              f"outputs { {k: round(v, 6) for k, v in res['vision_outputs'].items()} }, lowest "
-              f"per tensor {[(n, round(c, 5)) for n, c in worst]}", flush=True)
-        return res
+        return _compare_paths(runs[a], runs[b], f"[long] {a} vs {b}")
 
     agreement = {"ring_flash_sp4 vs flash": compare("ring_flash_sp4", "flash", runs),
                  "flash vs flash_again": compare("flash", "flash_again", runs)}
@@ -2577,18 +2656,19 @@ FINETUNE_LOSS_TOL = 0.05  # step-0 loss against ln N of an untrained head
 FINETUNE_ZERO_GRAD = ("joint_transformer.final_ln.bias",)
 
 
-def _finetune_config(task, **model):
-    """The scripts' settings: VCR at output_grid (18, 32) and lang_seq_len
-    144 (scripts/finetune_vcr.py), TVQA at lang_seq_len 256 and 7 segments
+def _finetune_config(task, name="base", **model):
+    """The scripts' settings on the ``name`` config: VCR at output_grid
+    (18, 32) and lang_seq_len 144 (scripts/finetune_vcr.py), TVQA at
+    lang_seq_len 256 and 7 segments at the config's grid
     (scripts/finetune_tvqa.py); bias correction on and eps 1e-6 as both set
     it; lr 1e-5 and no warmup, so the first updates move."""
     from merlot_reserve_tpu_torch import load_config
 
     if task == "vcr":
-        cfg = load_config("base", output_grid=(18, 32), joint_attention_impl="flash", **model)
+        cfg = load_config(name, output_grid=(18, 32), joint_attention_impl="flash", **model)
         cfg = cfg.replace_data(lang_seq_len=144)
     else:
-        cfg = load_config("base", joint_attention_impl="flash", **model)
+        cfg = load_config(name, joint_attention_impl="flash", **model)
         cfg = cfg.replace_data(lang_seq_len=256, num_segments=7)
     return dataclasses.replace(cfg, optimizer=dataclasses.replace(
         cfg.optimizer, learning_rate=1e-5, num_warmup_steps=0, num_train_steps=1000,
@@ -2842,10 +2922,9 @@ def _profile(fn, steps=2):
 
 def phase_data(card, device="cuda"):
     """TFRecords to training steps at full base width: the synthetic corpus
-    written by the port, then ``run_pretraining`` through four feeds
-    (dummy batches, the host-assembled ``PretrainLoader`` on threads and on
-    spawned processes, and the fused step on raw batches with frames
-    augmented on the card), each through a
+    written by the port, then ``run_pretraining`` through two feeds (the
+    host-assembled ``PretrainLoader`` on threads, and the fused step on raw
+    batches with frames augmented on the card), each through a
     ``DeviceFeed``; the builder on the card against the CPU. (``device``:
     "cpu" for a rehearsal at tiny widths with the timers patched.)"""
     import tempfile
@@ -2856,7 +2935,6 @@ def phase_data(card, device="cuda"):
     from merlot_reserve_tpu_torch import kernels, load_config
     from merlot_reserve_tpu_torch.data.device_builder import (BuilderDraws, DeviceExampleBuilder,
                                                               stack_raw_examples)
-    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
     from merlot_reserve_tpu_torch.data.loader import (DeviceFeed, DevicePretrainLoader,
                                                       PretrainLoader)
     from merlot_reserve_tpu_torch.data.native import read_records_native
@@ -2888,11 +2966,10 @@ def phase_data(card, device="cuda"):
         loader_kw = dict(seed=0, num_workers=8, use_bfloat16=m.use_bfloat16,
                          files_per_cycle=DATA_SHARDS, parallel_reads=DATA_SHARDS,
                          shuffle_buffer=DATA_RECORDS_PER_SHARD)
+        # two feeds: the dummy batches are phase 5's step, and the host
+        # loader on spawned processes feeds phase 18's steps
         feeds = {
-            "dummy": (itertools.repeat(make_dummy_batch(cfg, DATA_BATCH, seed=0)), None),
             "host": (PretrainLoader(files, cfg, DATA_BATCH, **loader_kw), None),
-            "host_processes": (PretrainLoader(files, cfg, DATA_BATCH, use_processes=True,
-                                              **loader_kw), None),
             "fused_frames": None,
         }
         fused_loader = DevicePretrainLoader(files, cfg, DATA_BATCH, fused=True,
@@ -3557,7 +3634,7 @@ CREATED_FRAME = (360, 640)
 CREATED_SR = 22050
 CREATED_SHARDS = 2
 CREATED_BATCH, CREATED_STEPS = 8, 6  # the step time: median of steps 2-6
-CREATED_LOADER_BATCHES = 20  # compared and timed per loader, after the first
+CREATED_LOADER_BATCHES = 10  # compared and timed per loader, after the first
 CREATED_LOADER_WINDOW = 5  # the spread: the rate over each 5 of those batches
 CREATED_WORKERS = 8
 EMBED_FRAMES = 64  # timed on the card
@@ -4388,42 +4465,56 @@ def _l2(a, b=None):
     return total ** 0.5
 
 
-def _run_ranks(mode, world, extra, timeout, shared=False):
-    """``python chip_smoke.py --rank-worker`` as ``world`` ranks of a job on
-    this card: LOCAL_RANK 0 each, or (``shared``) the ranks of one node that
-    ``distributed.initialize(device="cuda:0")`` puts on the card together;
-    (exit codes, the last JSON line of each)."""
-    port = _free_port()
-    procs = []
-    for rank in range(world):
-        local = (rank, world) if shared else (0, 1)
-        env = dict(os.environ, **_job_env(rank, world, port, *local))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", mode,
-             json.dumps(extra)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs, deadline = [], time.time() + timeout
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0])
-        except subprocess.TimeoutExpired:
-            p.kill()
-            outs.append(p.communicate()[0] + "\n[killed at the time limit]")
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
+def _run_jobs(jobs, timeout):
+    """Jobs of ``python chip_smoke.py --rank-worker`` on this card, all
+    started at once: each job (mode, world, extra[, shared]) is ``world``
+    ranks with LOCAL_RANK 0 each or (``shared``) the ranks of one node that
+    ``distributed.initialize(device="cuda:0")`` puts on the card together.
+    Returns, per job, (exit codes, the last JSON line of each rank)."""
+    started = []
+    for job in jobs:
+        mode, world, extra, shared = (*job, False)[:4]
+        port = _free_port()
+        procs = []
+        for rank in range(world):
+            local = (rank, world) if shared else (0, 1)
+            env = dict(os.environ, **_job_env(rank, world, port, *local))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", mode,
+                 json.dumps(extra)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        started.append(procs)
+    deadline = time.time() + timeout
     logs = ROOT / "chiprun_out" / "ranks"
     logs.mkdir(parents=True, exist_ok=True)
-    for rank, out in enumerate(outs):  # each rank's whole output, for the record
-        (logs / f"{mode}_{world}_{rank}.log").write_text(out)
-    lines = []
-    for p, out in zip(procs, outs):
-        found = [x for x in out.strip().splitlines() if x.startswith("{")]
-        line = json.loads(found[-1]) if found else {}
-        if not found or p.returncode != 0 or "terminate" in out or "killed" in out:
-            line["error"] = out[-2000:]
-        lines.append(line)
-    return [p.returncode for p in procs], lines
+    results = []
+    for j, procs in enumerate(started):
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[killed at the time limit]")
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for rank, out in enumerate(outs):  # each rank's whole output, for the record
+            (logs / f"{jobs[j][0]}_{len(procs)}_job{j}_{rank}.log").write_text(out)
+        lines = []
+        for p, out in zip(procs, outs):
+            found = [x for x in out.strip().splitlines() if x.startswith("{")]
+            line = json.loads(found[-1]) if found else {}
+            if not found or p.returncode != 0 or "terminate" in out or "killed" in out:
+                line["error"] = out[-2000:]
+            lines.append(line)
+        results.append(([p.returncode for p in procs], lines))
+    return results
+
+
+def _run_ranks(mode, world, extra, timeout, shared=False):
+    """One job of ``_run_jobs``: (exit codes, the last JSON line of each rank)."""
+    return _run_jobs([(mode, world, extra, shared)], timeout)[0]
 
 
 def rank_worker(mode, extra):
@@ -4638,12 +4729,10 @@ SHARDED_STEPS = 2  # warmup 1: the second update moves the state
 def _dist_sharded_resume(card, cfg, batch, mesh):
     """Phase 20 (a), its checkpoint: the world-1 state after SHARDED_STEPS
     steps saved through the per-rank sharded writer (``sharded_manager``,
-    async, its collectives on a gloo group beside NCCL) and through the
-    msgpack file, each read back into a fresh world-1 state: the sharded
-    resume is the saved state bit for bit (f32 masters, bf16 moments), the
-    msgpack resume the saved state with its f32 leaves through f16 (the
-    released checkpoints' format); the loop's blocked ms, the write and load
-    seconds and the bytes of each."""
+    async, its collectives on a gloo group beside NCCL) and read back into a
+    fresh world-1 state: the saved state bit for bit (f32 masters, bf16
+    moments); the loop's blocked ms, the write and load seconds and the
+    bytes. (The msgpack file of the same base state is phase 13's.)"""
     import tempfile
 
     import torch
@@ -4667,54 +4756,37 @@ def _dist_sharded_resume(card, cfg, batch, mesh):
     torch.cuda.synchronize()
     res = {}
     with tempfile.TemporaryDirectory() as d:
-        sharded_dir, msgpack_dir = os.path.join(d, "sharded"), os.path.join(d, "msgpack")
+        sharded_dir = os.path.join(d, "sharded")
         manager = ck.sharded_manager(sharded_dir)
         t0 = time.perf_counter()
         manager.save(state)
         blocked = time.perf_counter() - t0
         manager.close()
         write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ck.save_checkpoint(state, msgpack_dir)
-        msgpack_write_s = time.perf_counter() - t0
         step_dir = os.path.join(sharded_dir, str(state.step))
         files = sorted(os.listdir(step_dir))
         nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in files)
         saved = [{n: t.detach().cpu() for n, t in x.items()} for x in _state_tensors(state)]
         del state
         torch.cuda.empty_cache()
-        resumed = {}
-        for name, load in (("sharded", lambda st: ck.load_checkpoint_sharded(sharded_dir, st)),
-                           ("msgpack", lambda st: ck.load_checkpoint(msgpack_dir, state=st))):
-            st = fresh()
-            t0 = time.perf_counter()
-            load(st)
-            torch.cuda.synchronize()
-            res[f"{name}_load_s"] = time.perf_counter() - t0
-            check(st.step == SHARDED_STEPS and st.optimizer.count == SHARDED_STEPS,
-                  f"{name} resume: step {st.step}, count {st.optimizer.count}")
-            resumed[name] = [{n: t.detach().cpu() for n, t in x.items()}
-                             for x in _state_tensors(st)]
-            del st
-            torch.cuda.empty_cache()
-        res.update(blocked_ms=blocked * 1e3, write_s=write_s, msgpack_write_s=msgpack_write_s,
-                   files=files, bytes=nbytes,
-                   msgpack_bytes=os.path.getsize(os.path.join(msgpack_dir,
-                                                              f"ckpt_{SHARDED_STEPS}")))
+        st = fresh()
+        t0 = time.perf_counter()
+        ck.load_checkpoint_sharded(sharded_dir, st)
+        torch.cuda.synchronize()
+        res["sharded_load_s"] = time.perf_counter() - t0
+        check(st.step == SHARDED_STEPS and st.optimizer.count == SHARDED_STEPS,
+              f"sharded resume: step {st.step}, count {st.optimizer.count}")
+        resumed = [{n: t.detach().cpu() for n, t in x.items()} for x in _state_tensors(st)]
+        del st
+        torch.cuda.empty_cache()
+        res.update(blocked_ms=blocked * 1e3, write_s=write_s, files=files, bytes=nbytes)
     for i, kind in enumerate(("params", "mu", "nu")):
-        check(_same_bits(resumed["sharded"][i], saved[i]),
+        check(_same_bits(resumed[i], saved[i]),
               f"world 1 {kind}: the sharded resume is not the saved state bit for bit")
-        via_f16 = {n: t.half().float() if t.dtype == torch.float32 else t
-                   for n, t in saved[i].items()}
-        check(_same_bits(resumed["msgpack"][i], via_f16),
-              f"world 1 {kind}: the msgpack resume is not the saved state through f16 bit "
-              f"for bit")
     print(f"[dist] {card}: world 1's state after {SHARDED_STEPS} steps through the per-rank "
           f"sharded writer ({res['files']}, {res['bytes']} bytes): the loop blocked "
           f"{res['blocked_ms']:.1f} ms, written in {res['write_s']:.2f} s, read back in "
-          f"{res['sharded_load_s']:.2f} s; msgpack {res['msgpack_bytes']} bytes written in "
-          f"{res['msgpack_write_s']:.2f} s, read in {res['msgpack_load_s']:.2f} s; the sharded "
-          f"resume the saved state bit for bit, the msgpack resume it through f16", flush=True)
+          f"{res['sharded_load_s']:.2f} s; the resume the saved state bit for bit", flush=True)
     return res
 
 
@@ -4725,11 +4797,18 @@ def _dist_two_ranks(card, cfg, dist_arm):
 
     per_step = cfg.model.joint_num_layers + cfg.model.span_num_layers
     probe = {}
-    for backend in ("nccl", "gloo"):
-        codes, lines = _run_ranks("probe", 2, {"backend": backend}, timeout=120)
+    backends = ("nccl", "gloo")
+    torch.cuda.empty_cache()
+    # the probes and the layouts' jobs side by side on the card (the
+    # layouts' seconds are so too); the layouts are held where gloo takes
+    # every collective they issue
+    jobs = _run_jobs([("probe", 2, {"backend": b}) for b in backends]
+                     + [("train", 2, {"layout": layout}) for layout in TWO_RANK_LAYOUTS],
+                     timeout=300)
+    for backend, (codes, lines) in zip(backends, jobs):
         probe[backend] = {"exit_codes": codes, "ranks": lines}
         print(f"[dist] {card}: two ranks on one card over {backend}: {lines}", flush=True)
-    usable = [b for b in ("nccl", "gloo")
+    usable = [b for b in backends
               if all(r.get("init") == "ok" and all(r.get(op) == "ok" for op in TWO_RANK_NEEDS)
                      for r in probe[b]["ranks"])]
     res = {"probe": probe, "backends_for_dp_and_tp": usable, "layouts": {}}
@@ -4741,9 +4820,7 @@ def _dist_two_ranks(card, cfg, dist_arm):
     check(TWO_RANK_LOSS_TOL < step_change / 4,
           f"two ranks: the tolerance {TWO_RANK_LOSS_TOL} does not tell an update from none "
           f"(world 1's total moved {step_change} in its last step)")
-    torch.cuda.empty_cache()
-    for layout in TWO_RANK_LAYOUTS:
-        codes, lines = _run_ranks("train", 2, {"layout": layout}, timeout=300)
+    for layout, (codes, lines) in zip(TWO_RANK_LAYOUTS, jobs[len(backends):]):
         check(codes == [0, 0] and "losses" in lines[0],
               f"{layout} on one card over gloo: {codes} {lines}")
         diffs = [max(abs(a[k] - b[k]) for k in b if not k.startswith("_"))
@@ -4768,7 +4845,8 @@ def _dist_two_ranks(card, cfg, dist_arm):
         print(f"[dist] {card}: {layout}, two ranks on one card over gloo: totals "
               f"{[m_['total'] for m_ in lines[0]['losses']]}, max loss diff to world 1 "
               f"{max(diffs):.3g} (limit {TWO_RANK_LOSS_TOL}; world 1's last step moved the "
-              f"total {step_change:.3g}), {lines[0]['seconds']:.1f} s", flush=True)
+              f"total {step_change:.3g}), {lines[0]['seconds']:.1f} s beside the other jobs",
+              flush=True)
     return res
 
 
@@ -4854,7 +4932,11 @@ SOAK_INIT_TOL = 0.05    # ... within phase 5's limit
 # the checkpoint's f16 round trip of the f32 masters to it
 SOAK_RESUME_FACTOR = 2
 SOAK_SPREAD_STEPS = 10
-SOAK_REFERENCE_EXTRA = 2  # the uninterrupted run goes this many steps past the preemption
+SOAK_REFERENCE_EXTRA = 2  # the resumed process goes this many steps past the preemption
+# the uninterrupted run, started beside the preempted process, stops here:
+# past any step the preempted process can stop at plus SOAK_REFERENCE_EXTRA
+# (it stops about SOAK_LOG_EVERY + 2 steps after SOAK_SIGNAL_AFTER)
+SOAK_REFERENCE_STEPS = 64
 SOAK_TIMEOUT = 600
 
 
@@ -4866,8 +4948,9 @@ def phase_soak(card):
     SIGTERM to the process once it logs step SOAK_SIGNAL_AFTER; it must
     exit with 0 after writing ``ckpt_<n>`` and ``loader_state.json``; the
     same command resumes at step n and stops at n + SOAK_REFERENCE_EXTRA
-    (the schedule stays the recipe's, cut to SOAK_STEPS). Then an uninterrupted run
-    of the same command to step n + SOAK_REFERENCE_EXTRA. Checks: every
+    (the schedule stays the recipe's, cut to SOAK_STEPS); beside both, from
+    the start, an uninterrupted run of the same command to step
+    SOAK_REFERENCE_STEPS. Checks: every
     batch digest (the records as fed and the batch the card built from them
     with that step's draws) of both processes the uninterrupted run's bit
     for bit, the resumed process's first one at step n; its loss terms at
@@ -4914,24 +4997,35 @@ def phase_soak(card):
               f"{o.num_warmup_steps}, cosine over {SOAK_STEPS} steps), batch 2, "
               f"{len(files)} x {SOAK_RECORDS} structured records ({corpus_s:.1f} s): "
               f"{' '.join(cmd[2:])}", flush=True)
-        # the resumed process stops where the uninterrupted run does
-        run = preempt_and_resume(cmd, str(work / "out"), SOAK_SIGNAL_AFTER, SOAK_TIMEOUT,
-                                 resume_cmd=lambda n: command(work / "out",
-                                                              n + SOAK_REFERENCE_EXTRA))
+        # the uninterrupted run of the same command, to SOAK_REFERENCE_STEPS,
+        # beside the preempted and then the resumed process; the resumed
+        # process stops SOAK_REFERENCE_EXTRA steps after its start
+        reference = {}
+        straight = command(work / "straight", SOAK_REFERENCE_STEPS)
+        thread = threading.Thread(target=lambda: reference.update(
+            result=run_process(straight, timeout=SOAK_TIMEOUT)))
+        thread.start()
+        try:
+            run = preempt_and_resume(
+                cmd, str(work / "out"), SOAK_SIGNAL_AFTER, SOAK_TIMEOUT,
+                resume_cmd=lambda n: command(work / "out", n + SOAK_REFERENCE_EXTRA))
+        finally:
+            thread.join()
         n, sidecar = run["stopped"], run["sidecar"]
         check(run["checkpoints"] == [n] and SOAK_SIGNAL_AFTER < n < SOAK_STEPS,
               f"after the SIGTERM: checkpoints {run['checkpoints']}")
         check(sidecar.get("records_consumed") == 2 * n,
               f"the sidecar at step {n}: {sidecar}")
-        # the uninterrupted run of the same command, a little past step n
         ref_steps = n + SOAK_REFERENCE_EXTRA
-        code, third, third_s, _ = run_process(command(work / "straight", ref_steps),
-                                              timeout=SOAK_TIMEOUT)
+        check(ref_steps <= SOAK_REFERENCE_STEPS, f"the preempted process stopped at step {n}, "
+              f"past the uninterrupted run's {SOAK_REFERENCE_STEPS} - {SOAK_REFERENCE_EXTRA}")
+        check("result" in reference, "the uninterrupted process did not finish")
+        code, third, third_s, _ = reference["result"]
         check(code == 0, f"the uninterrupted process: exit {code}: {third[-2000:]}")
         (l1, _, o1), (l2, _, o2), (_, _, o3) = (parse_log(t) for t in
                                                  (run["first"], run["second"], third))
         b1, b2, b3 = o1["batches"], o2["batches"], o3["batches"]
-        check(sorted(b1) == list(range(n)) and sorted(b3) == list(range(ref_steps))
+        check(sorted(b1) == list(range(n)) and sorted(b3) == list(range(SOAK_REFERENCE_STEPS))
               and sorted(b2) == list(range(n, ref_steps)),
               f"batch digests logged: preempted {sorted(b1)[-3:]}, resumed "
               f"{sorted(b2)[:3]}..., uninterrupted {sorted(b3)[-3:]}")
@@ -4941,7 +5035,8 @@ def phase_soak(card):
                   f"process's batch (records, built) {got} is not the uninterrupted run's "
                   f"{b3[s]}")
         got, want = tracked_losses(str(work / "out")), tracked_losses(str(work / "straight"))
-        check(sorted(got) == list(range(ref_steps)) and sorted(want) == list(range(ref_steps)),
+        check(sorted(got) == list(range(ref_steps))
+              and sorted(want) == list(range(SOAK_REFERENCE_STEPS)),
               f"tracked steps: {sorted(set(range(ref_steps)) - set(got))} missing, "
               f"uninterrupted {sorted(want)[-3:]}")
         gaps = {s: {h: abs(got[s][h] - want[s][h]) for h in want[s]} for s in range(ref_steps)}
@@ -4970,7 +5065,7 @@ def phase_soak(card):
         launches = []
         per_layer = m.joint_num_layers + m.span_num_layers
         for text, steps in ((run["first"], n), (run["second"], ref_steps - n),
-                            (third, ref_steps)):
+                            (third, SOAK_REFERENCE_STEPS)):
             found = re.search(r"kernel launches (\{.*\})", text)
             check(found is not None, "the script printed no kernel launches")
             counts = json.loads(found.group(1))
@@ -4998,7 +5093,8 @@ def phase_soak(card):
               f"{n} ({run['exit_s']:.1f} s after the signal, exit 0, {run['first_s']:.1f} s in "
               f"all), checkpoint written in {o1.get('write_s')} s; resumed at step {n} (loaded "
               f"in {o2.get('load_s')} s), to step {ref_steps} ({run['second_s']:.1f} s); "
-              f"the uninterrupted run to step {ref_steps} ({third_s:.1f} s): batch digests "
+              f"the uninterrupted run to step {SOAK_REFERENCE_STEPS} ({third_s:.1f} s, beside "
+              f"both): batch digests "
               f"(records and the card's build) of steps 0-{ref_steps - 1} bit for bit, loss "
               f"terms at steps {n}-{ref_steps - 1} within {resume_gap:.2e} (the runs "
               f"{spread:.2e} apart before {n}); steps 0-10 within {init_gap} of {expected}; peak "
@@ -5025,6 +5121,10 @@ RING_PROCS_TIMED = 10  # launches timed by events in each process
 RING_PROCS_SERVE = (2, 4)  # sp of the long-video serving runs
 RING_PROCS_BATCHES = 2  # batches served at each sp: the first counted and compared
 RING_PROCS_TIMEOUT = 300
+# (sp, rank, seconds): in the serving run at this sp, this rank sleeps this
+# long before a batch that the others start at once, longer than a ring
+# kernel waits on a neighbour (RING_TIMEOUT_NS, 5 s) before it traps
+RING_PROCS_DELAY = (4, 1, 6.0)
 TIME_SLICED = ("time-sliced on one card: the processes' CUDA contexts take turns on the one "
                "H100 (about 2.25 ms each on an H100 80GB HBM3 at 700 W), so these times are "
                "no rate of the kernel")
@@ -5110,6 +5210,10 @@ def ring_worker(mode, extra):
                                "peak_bytes": torch.cuda.max_memory_allocated(),
                                "routes": sorted({r.route for k, r in ring_ops._PEER_RINGS.items()
                                                  if r.epoch != epochs.get(k)})}
+            sp, late_rank, seconds = extra["delay"]
+            if n == sp:
+                out["serve"][n]["delayed"] = _delayed_batch(meshes[n], service, reqs[0], first,
+                                                            late_rank, seconds, say)
     finally:
         distributed.shutdown()
         print(json.dumps(out), flush=True)
@@ -5124,6 +5228,57 @@ def _in_step(mesh):
     import torch.distributed as dist
 
     dist.barrier(group=mesh.group(mesh.axis_names))
+
+
+def _delayed_batch(mesh, service, reqs, first, late_rank, seconds, say):
+    """Phase 22 (d), in each process: rank ``late_rank`` sleeps ``seconds``
+    before the batch ``reqs``, which the other ranks start at once; the
+    joint tower's host barrier holds them until it comes. Returns this
+    rank's launches and barriers in the batch, whether its embeddings are
+    bit for bit its undelayed answer ``first``, and whether the first joint
+    layer's ring output on its shard is bit for bit the virtual-rank
+    kernel's rows over the ranks' gathered inputs."""
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.ops import ring_attention as ring_ops
+    from merlot_reserve_tpu_torch.parallel import comm
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh
+
+    rank, n = mesh.axis_index("sp"), mesh.size("sp")
+    seen = []
+    launch = ring_ops.PeerRing.launch
+
+    def keep_first(ring, q, k, v, is_valid, segment_ids):
+        out = launch(ring, q, k, v, is_valid, segment_ids)
+        if not seen:
+            seen.append([x.contiguous() for x in (q, k, v, is_valid, segment_ids, out)])
+        return out
+
+    _in_step(mesh)
+    if rank == late_rank:
+        say(f"sleeps {seconds} s before its batch")
+        time.sleep(seconds)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    with mock.patch.object(ring_ops.PeerRing, "launch", keep_first), activate_mesh(mesh), \
+            comm.recording() as records:
+        late = service.embed(reqs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    say(f"the delayed batch ended after {wall_s:.1f} s")
+    launches = dict(kernels.LAUNCHES)
+    q, k, v, valid, seg, got = seen[0]
+    whole = [comm.all_gather(x, mesh, "sp", 1) for x in (q, k, v, valid, seg)]
+    lloc = q.shape[1]
+    virtual = ring_ops.ring_fwd(*whole, n)[:, rank * lloc:(rank + 1) * lloc].contiguous()
+    return {"late_rank": late_rank, "seconds": seconds, "wall_s": wall_s,
+            "launches": launches, "barriers": sum(r["op"] == "barrier" for r in records),
+            "same_bits_as_undelayed": bool(np.array_equal(late, first)),
+            "first_layer_same_bits_as_virtual": torch.equal(got.view(torch.int16),
+                                                            virtual.view(torch.int16))}
 
 
 def _ipc_probe(rank, rounds):
@@ -5252,7 +5407,8 @@ def phase_ring_procs(card, sp, sp_arrays, joint_layers):
     work = Path(tempfile.mkdtemp(prefix="smoke_ring_procs_"))
     try:
         world = max(max(c[1] for c in RING_PROCS_CASES), max(RING_PROCS_SERVE))
-        extra = {"cases": RING_PROCS_CASES, "serve": RING_PROCS_SERVE, "out": str(work)}
+        extra = {"cases": RING_PROCS_CASES, "serve": RING_PROCS_SERVE, "out": str(work),
+                 "delay": RING_PROCS_DELAY}
         codes, lines = _run_ranks("ring", world, extra, timeout=RING_PROCS_TIMEOUT, shared=True)
         check(codes == [0] * world and all("cases" in x and "error" not in x for x in lines),
               f"the ring across processes: exit codes {codes}: {lines}")
@@ -5306,6 +5462,22 @@ def phase_ring_procs(card, sp, sp_arrays, joint_layers):
             serve[n] = {"agreement": a, "ranks": per_rank,
                         "host_ms_rank0": per_rank[0]["host_ms"],
                         "device_ms_rank0": per_rank[0]["device_ms"]}
+            if n == RING_PROCS_DELAY[0]:
+                late = [r["delayed"] for r in per_rank]
+                for i, r in enumerate(late):
+                    check(r["barriers"] == 1 and r["launches"].get("ring_fwd_procs") ==
+                          joint_layers and r["same_bits_as_undelayed"]
+                          and r["first_layer_same_bits_as_virtual"],
+                          f"sp {n} rank {i}, rank {RING_PROCS_DELAY[1]} {RING_PROCS_DELAY[2]} s "
+                          f"late: {r}")
+                serve[n]["delayed"] = late
+                print(f"[ring procs] {card}: the same batch at sp {n} with rank "
+                      f"{RING_PROCS_DELAY[1]} starting {RING_PROCS_DELAY[2]} s late (a ring "
+                      f"kernel traps after 5 s of waiting, RING_TIMEOUT_NS): no rank trapped; one "
+                      f"barrier and {joint_layers} ring launches per rank; every rank's "
+                      f"embeddings bit for bit its undelayed answer and its first joint layer's "
+                      f"shard bit for bit the virtual-rank kernel's; batch wall s by rank "
+                      f"{[round(r['wall_s'], 2) for r in late]}", flush=True)
             print(f"[ring procs] {card}: 8 long videos (joint L {sp['joint_len']}) "
                   f"at sp {n} in {n} processes: {joint_layers} ring launches per rank per batch; "
                   f"worst valid-row 1 - cos vs phase 8's virtual ring {a['vs_virtual_ring']:.3e}, "
@@ -5316,6 +5488,514 @@ def phase_ring_procs(card, sp, sp_arrays, joint_layers):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"probe": probe, "cases": cases, "serve": serve, "clock": TIME_SLICED}
+
+
+# ---------------------------------------------------------------------------
+# phases 23-27: the large configuration (hidden 1024, 16 heads of 64, 24
+# joint and 24 vision layers)
+# ---------------------------------------------------------------------------
+
+LARGE_HEADS = 16
+LARGE_ZERO_SHOT_GRID = (18, 32)  # demo/demo_video_torch.py's default --grid
+LARGE_ZERO_SHOT_LEN = 1312  # 160 tokens + 8 segments x 144 pooled tokens at 18x32
+LARGE_ZERO_SHOT_TIMED = 3  # calls timed of each zero-shot function
+# (arm, batch, both remat knobs) of the pretraining arms: batch 4 without
+# remat (the planner's 48.97 GiB; batch 6 68.69 and batch 8 88.41 GiB) and
+# batch 8 with gradient_checkpoint and tower_gradient_checkpoint (17.38 GiB)
+LARGE_TRAIN_ARMS = (("b4", 4, False), ("b8_remat", 8, True))
+LARGE_TRAIN_STEPS = 3
+# step 0 through the kernels against the plain path, as phase 5 holds base,
+# with the audio tower held as phase 5 holds the vision tower: at large and
+# random init its bf16 gradient is a cancellation too, which bf16 rounding
+# anywhere in the step turns (its cosine to the f32 plain path 0.944 on the
+# plain bf16 path and 0.946 on the kernel path, its CLS projection's bias
+# -0.170 and -0.181; the vision tower's 0.766 and 0.744 at batch 8; H100
+# 80GB HBM3, 700 W), and one draw's order of the two paths there is noise.
+# So in bf16: every tensor outside the two modality towers
+# (LARGE_BF16_UNHELD) at TRAIN_MIN_TENSOR_COSINE, the gradient at each
+# tower's pooled tokens (from the joint tower) at
+# TRAIN_MIN_VISION_INPUT_COSINE; against the f32 plain path, the whole
+# gradient and the gradient at each tower's two outputs no farther from it
+# on the kernel path than on the plain bf16 path (TRAIN_VS_F32_MARGIN); and
+# in an f32 copy (arm LARGE_F32_ARM) every tensor, the towers' too, at
+# TRAIN_F32_MIN_COSINE
+LARGE_BF16_UNHELD = ("vision_encoder", "audio_encoder")
+LARGE_F32_ARM = "b4"
+LARGE_FINETUNE_BATCH = 32  # scripts/finetune_{vcr,tvqa}_torch.py's -batch_size
+LARGE_FINETUNE_STEPS = 1  # a scanned step of 32 examples takes seconds
+
+
+def _counted_steps(step, n):
+    """``n`` calls of ``step()``, a training step that updates its state in
+    place and returns (state, metrics), each timed on the host clock and by
+    CUDA events: (metrics as floats, host ms, device ms, kernel launches),
+    one entry per call."""
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+
+    infos, host_ms, device_ms, per_step = [], [], [], []
+    for _ in range(n):
+        before = dict(kernels.LAUNCHES)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        _, info = step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        infos.append({k: float(v) for k, v in info.items()})
+        per_step.append({k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()})
+    return infos, host_ms, device_ms, per_step
+
+
+def phase_large_zero_shot(card, seed):
+    """Phase 24: the demos' zero-shot path at large. A large model's seeded
+    weights written as a msgpack checkpoint (``save_checkpoint``, f16) and
+    read back by ``PretrainedMerlotReserve.from_params("large", ...,
+    image_grid_size=(18, 32))`` (bit for bit through f16); then phase 9's
+    zero-shot path on synthetic raw segments (``segments_from_arrays``,
+    ``preprocess_video`` at 18x32: joint L 1312): ``rank_options`` (the
+    mask-infilling ranking), ``extract_mask_features`` and
+    ``score_label_space``, counted, against the plain attention path on
+    the same weights; ms per call, the load seconds. Returns the record and
+    the joint tower's labels at B 1 L 1312."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from merlot_reserve_tpu_torch import kernels, load_config, preprocess, zero_shot
+    from merlot_reserve_tpu_torch.models import MerlotReserve, PretrainedMerlotReserve
+    from merlot_reserve_tpu_torch.utils.checkpoint import pretrained_params, save_checkpoint
+    from merlot_reserve_tpu_torch.utils.weights import flax_tensors_from_state_dict
+
+    cfg = load_config("large")
+    m = cfg.model
+    ckpt_dir = str(CKPT_DIR / "large")
+    model = MerlotReserve(cfg, device="cuda", seed=seed)
+    t0 = time.perf_counter()
+    path = save_checkpoint({"step": 0, "params": flax_tensors_from_state_dict(
+        dict(model.named_parameters()), m.size_per_head)}, ckpt_dir)
+    write_s, nbytes = time.perf_counter() - t0, os.path.getsize(path)
+    written = {n: p.detach().half() for n, p in model.named_parameters()}  # the file's values
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre = PretrainedMerlotReserve.from_params("large", pretrained_params(ckpt_dir),
+                                              image_grid_size=LARGE_ZERO_SHOT_GRID,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = dict(pre.model.named_parameters())
+    check(loaded.keys() == written.keys()
+          and all(torch.equal(loaded[n], written[n].float()) for n in written),
+          "the large checkpoint did not read back as written (through f16)")
+    del written
+    print(f"[large zero-shot] {sum(p.numel() for p in loaded.values()) / 1e6:.1f}M parameters "
+          f"written as msgpack ({nbytes} bytes) in {write_s:.2f} s, read by from_params at "
+          f"{LARGE_ZERO_SHOT_GRID[0]}x{LARGE_ZERO_SHOT_GRID[1]} in {load_s:.2f} s, bit for bit "
+          f"through f16", flush=True)
+
+    rng = np.random.RandomState(seed)
+    frames, pcm, _, _ = bench_torch.raw_inputs(rng)
+    times = [{"start_time": 5.0 * i, "end_time": 5.0 * (i + 1), "mid_time": 5.0 * i + 2.5}
+             for i in range(frames.shape[1])]
+    prompts = ["the person is <|MASK|> right now", "<|MASK|> is what happens next"]
+
+    def video_pres():
+        out = []
+        for vf, wav, prompt in zip(frames[:2], pcm[:2], prompts):
+            segs = preprocess.segments_from_arrays(vf, wav.reshape(-1), times, device="cuda")
+            for s_ in segs[:-1]:
+                s_["use_text_as_input"] = False
+            segs[-1]["text"] = prompt
+            out.append(preprocess.preprocess_video(segs, LARGE_ZERO_SHOT_GRID, device="cuda"))
+        return out
+
+    def path(pres):
+        probs = zero_shot.rank_options(pre, pres[0], ZERO_SHOT_OPTIONS)
+        feats = zero_shot.extract_mask_features(pre, pres)
+        logits = zero_shot.score_label_space(pre, feats, ZERO_SHOT_OPTIONS)
+        return probs, feats, logits
+
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with _recorded_labels() as path_labels:
+        pres = video_pres()
+        probs, feats, logits = path(pres)
+        torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * (m.joint_num_layers + m.span_num_layers)  # rank_options, features + scores
+    check(launches.get("flash_fwd", 0) == want,
+          f"large zero-shot path: flash_fwd launches {launches.get('flash_fwd', 0)} != {want}")
+    shapes = sorted(path_labels)
+    check(shapes == [(1, LARGE_ZERO_SHOT_LEN), (2, LARGE_ZERO_SHOT_LEN),
+                     (len(ZERO_SHOT_OPTIONS), m.text_span_length + 1)],
+          f"large zero-shot path attention shapes {shapes}")
+    check(probs.shape == (1, len(ZERO_SHOT_OPTIONS)) and np.isfinite(probs).all()
+          and abs(float(probs.sum()) - 1) < 1e-5, f"option probabilities {probs}")
+    check(logits.shape == (2, len(ZERO_SHOT_OPTIONS)) and np.isfinite(logits).all(),
+          f"label-space logits {logits}")
+    kernels.LAUNCHES.clear()
+    label_space = pre.get_label_space(list(ZERO_SHOT_OPTIONS))
+    per_label_space = dict(kernels.LAUNCHES)
+    check(per_label_space.get("flash_fwd", 0) == m.span_num_layers,
+          f"one label-space call launched flash_fwd {per_label_space.get('flash_fwd', 0)} "
+          f"times, not {m.span_num_layers}")
+
+    def timed(fn):
+        runs = []
+        for _ in range(LARGE_ZERO_SHOT_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) * 1e3)
+        return runs
+
+    ms = {"rank_options": timed(lambda: zero_shot.rank_options(pre, pres[0],
+                                                               ZERO_SHOT_OPTIONS)),
+          "extract_mask_features": timed(lambda: zero_shot.extract_mask_features(pre, pres)),
+          "get_label_space": timed(lambda: pre.get_label_space(list(ZERO_SHOT_OPTIONS)))}
+
+    # the plain attention path on the same weights and inputs
+    kernels.LAUNCHES.clear()
+    with _plain_attention():
+        plain_probs, plain_feats, _ = path(pres)
+        plain_label_space = pre.get_label_space(list(ZERO_SHOT_OPTIONS))
+    check(not kernels.LAUNCHES, f"the plain path launched kernels {dict(kernels.LAUNCHES)}")
+
+    agreement = {"label_space_min_cos": _min_row_cos(label_space.float().cpu(),
+                                                    plain_label_space.float().cpu()),
+                 "mask_features_min_cos": _min_row_cos(feats, plain_feats),
+                 "probs_max_abs_diff": float(np.abs(probs - plain_probs).max())}
+    print(f"[large zero-shot] {card}: 2 raw videos of 8 segments at "
+          f"{LARGE_ZERO_SHOT_GRID[0]}x{LARGE_ZERO_SHOT_GRID[1]} (joint L "
+          f"{LARGE_ZERO_SHOT_LEN}) -> preprocess_video, rank_options, extract_mask_features, "
+          f"score_label_space in {path_s:.2f} s; launches {launches}; ms per call "
+          f"{ {k: [round(t, 1) for t in v] for k, v in ms.items()} }; kernel vs plain path "
+          f"{agreement}", flush=True)
+    check(agreement["label_space_min_cos"] >= ZERO_SHOT_MIN_COSINE
+          and agreement["mask_features_min_cos"] >= ZERO_SHOT_MIN_COSINE,
+          f"large zero-shot: kernel vs plain cosine below {ZERO_SHOT_MIN_COSINE}: {agreement}")
+    check(agreement["probs_max_abs_diff"] <= ZERO_SHOT_PROBS_TOL,
+          f"large zero-shot: option probabilities more than {ZERO_SHOT_PROBS_TOL} apart: "
+          f"{agreement}")
+    res = {"grid": list(LARGE_ZERO_SHOT_GRID), "joint_len": LARGE_ZERO_SHOT_LEN,
+           "checkpoint_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+           "launches": launches, "launches_per_label_space": per_label_space,
+           "path_s": path_s, "ms_per_call": ms, "probs": probs.tolist(),
+           "agreement": agreement, "shapes": [list(x) for x in shapes]}
+    labels = path_labels[(1, LARGE_ZERO_SHOT_LEN)]
+    del pre, loaded
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res, labels
+
+
+def phase_large_train(card):
+    """Phase 25: ``MerlotReservePretrainer`` at large through ``train_step``
+    on the dummy batch, warmup 1 and lr 1e-5 as phase 5, in two arms
+    (LARGE_TRAIN_ARMS). Each: step 0 through the kernels against the plain
+    attention path (same weights, batch and draws; phase 5's limits, see
+    LARGE_BF16_UNHELD),
+    then LARGE_TRAIN_STEPS steps: finite losses, step 0 near ln N, the
+    kernels' launches per step from the config, one ``adam_update`` a step,
+    step ms on both clocks, the peak beside ``estimate_train_hbm``'s.
+    Returns the record, the joint tower's labels at the last arm's batch
+    and that arm's trained model (its optimizer dropped)."""
+    import numpy as np
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels, load_config
+    from merlot_reserve_tpu_torch.data.dummy import make_dummy_batch
+    from merlot_reserve_tpu_torch.models.pretrainer import (MerlotReservePretrainer,
+                                                           batch_to_tensors)
+    from merlot_reserve_tpu_torch.parallel import memory
+    from merlot_reserve_tpu_torch.training.trainer import (create_train_state, loss_and_grads,
+                                                          train_step)
+
+    res = {}
+    for arm, B, remat in LARGE_TRAIN_ARMS:
+        cfg = load_config("large", joint_attention_impl="flash", gradient_checkpoint=remat,
+                          tower_gradient_checkpoint=remat)
+        cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+            cfg.optimizer, num_warmup_steps=1, learning_rate=1e-5))
+        m, d = cfg.model, cfg.data
+        batch = make_dummy_batch(cfg, B, seed=0)
+        dev_batch = batch_to_tensors(batch, "cuda")
+        model = MerlotReservePretrainer(cfg, device="cuda", seed=0)
+        print(f"[large train] {arm}: large pretrainer ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+              f"parameters, {m.num_heads} heads), batch {B}, remat {remat}", flush=True)
+
+        # step 0: the kernel path against the plain path, the same draws, in
+        # bf16 and in an f32 copy of the model (both remat knobs on, which
+        # change no number, so that f32 fits)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        split_at = [model.draw_split_at(B * d.num_segment_groups, d.num_segments_per_group, g)
+                    for _ in range(2)]
+        u = torch.rand((B, batch["text_spans"].shape[1]), generator=g, device="cuda")
+        gumbel = -torch.log(-torch.log(u))
+        model32 = MerlotReservePretrainer(cfg.replace_model(
+            use_bfloat16=False, gradient_checkpoint=True, tower_gradient_checkpoint=True),
+            device="meta").to_empty(device="cuda")
+        model32.load_state_dict(model.state_dict())
+        runs = {}
+        paths = (("kernel_bf16", model, True, False), ("plain_bf16", model, True, True),
+                 *((("kernel_f32", model32, False, False),) if arm == LARGE_F32_ARM else ()),
+                 ("plain_f32", model32, False, True))
+        for name, net, bf16, plain in paths:
+            before = dict(kernels.LAUNCHES)
+            with contextlib.ExitStack() as stack:
+                if plain:
+                    for patch in _plain_flash():
+                        stack.enter_context(patch)
+                vision_out = stack.enter_context(_vision_output_grads(net, LARGE_BF16_UNHELD))
+                info, grads = loss_and_grads(net, dev_batch, use_bfloat16_grads=bf16,
+                                             split_at=split_at, gumbel=gumbel)
+            check(plain == (dict(kernels.LAUNCHES) == before),
+                  f"large {arm}: the {name} path launched {'a' if plain else 'no'} kernel")
+            runs[name] = (info, grads, vision_out)
+        del model32, grads, vision_out, info
+        agree = {f"{a} vs {b}": _compare_paths(runs[a], runs[b], f"[large train] {arm} {a} "
+                                               f"vs {b}, step 0")
+                 for a, b in (("kernel_bf16", "plain_bf16"), ("kernel_f32", "plain_f32"),
+                              ("kernel_bf16", "plain_f32"), ("plain_bf16", "plain_f32"))
+                 if a in runs}
+        bf16 = agree["kernel_bf16 vs plain_bf16"]
+        for k in ("imgs_to_audio", "text_to_audio", "stuff_to_span", "total"):
+            check(bf16["loss_diff"][k] <= TRAIN_LOSS_TOL,
+                  f"large {arm}: {k} kernel vs plain {bf16['loss_diff'][k]} > {TRAIN_LOSS_TOL}")
+        check(bf16["whole"] >= TRAIN_MIN_COSINE,
+              f"large {arm}: whole-gradient cosine {bf16['whole']} below {TRAIN_MIN_COSINE}")
+        for key in ("seq_attnpool", "audio_encoder.seq_attnpool"):
+            pooled = bf16["vision_outputs"][key]
+            check(pooled >= TRAIN_MIN_VISION_INPUT_COSINE, f"large {arm}: gradient cosine at "
+                  f"the pooled tokens {key} {pooled} below {TRAIN_MIN_VISION_INPUT_COSINE}")
+        held = {n: c for n, c in bf16["tensors"].items() if n not in ZERO_GRAD
+                and n.split(".")[0] not in LARGE_BF16_UNHELD}
+        low = min(held.items(), key=lambda kv: kv[1])
+        check(low[1] >= TRAIN_MIN_TENSOR_COSINE,
+              f"large {arm}: gradient cosine of {low[0]} {low[1]} below "
+              f"{TRAIN_MIN_TENSOR_COSINE}")
+        # the cancelling parts against the f32 plain path: the kernel bf16
+        # path no farther from it than the plain bf16 path
+        near = {}
+        k32, p32 = agree["kernel_bf16 vs plain_f32"], agree["plain_bf16 vs plain_f32"]
+        for part, kc, pc in (("whole", k32["whole"], p32["whole"]),
+                             *((f"output {o}", k32["vision_outputs"][o],
+                                p32["vision_outputs"][o]) for o in k32["vision_outputs"])):
+            near[part] = {"kernel_bf16": kc, "plain_bf16": pc}
+            check(kc >= pc - TRAIN_VS_F32_MARGIN,
+                  f"large {arm}: {part}: the kernel bf16 path's gradient cosine to the f32 "
+                  f"plain path {kc} is below the plain bf16 path's {pc} by more than "
+                  f"{TRAIN_VS_F32_MARGIN}")
+        print(f"[large train] {arm}: gradient cosine to the f32 plain path, kernel bf16 / plain "
+              f"bf16: { {k: (round(v['kernel_bf16'], 5), round(v['plain_bf16'], 5)) for k, v in near.items()} }",
+              flush=True)
+        if "kernel_f32 vs plain_f32" in agree:
+            f32 = agree["kernel_f32 vs plain_f32"]
+            for k in ("imgs_to_audio", "text_to_audio", "stuff_to_span", "total"):
+                check(f32["loss_diff"][k] <= TRAIN_F32_LOSS_TOL, f"large {arm}: {k} f32 kernel "
+                      f"vs plain {f32['loss_diff'][k]} > {TRAIN_F32_LOSS_TOL}")
+            check(f32["lowest_held"][1] >= TRAIN_F32_MIN_COSINE,
+                  f"large {arm}: f32 gradient cosine of {f32['lowest_held'][0]} "
+                  f"{f32['lowest_held'][1]} below {TRAIN_F32_MIN_COSINE}")
+        del runs
+        torch.cuda.empty_cache()
+
+        # the steps, counted and timed, the peak over them
+        state = create_train_state(cfg, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        infos, host_ms, device_ms, per_step = _counted_steps(
+            lambda: train_step(state, dev_batch), LARGE_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd = _expected_long_launches(cfg, 1)
+        for i, counts in enumerate(per_step):
+            check(counts.get("flash_fwd", 0) == fwd
+                  and all(counts.get(n, 0) == bwd for n in BWD_LAUNCHES)
+                  and counts.get("adam_update", 0) == 1,
+                  f"large {arm} step {i}: launches {counts}, want flash_fwd {fwd}, each "
+                  f"backward launch {bwd}, one adam_update")
+        check(all(math.isfinite(v) for i_ in infos for v in i_.values()),
+              f"large {arm}: non-finite loss")
+        expected = _expected_init_losses(cfg, B)
+        for head, ln_n in expected.items():
+            check(abs(infos[0][head] - ln_n) < 0.05,
+                  f"large {arm}: step-0 {head} loss {infos[0][head]} is not near ln N = {ln_n}")
+        plan = memory.estimate_train_hbm(cfg, B)
+        rows = B * (d.num_segment_groups * (d.num_audio2text_seqs + d.num_text2audio_seqs)
+                    + 1 + d.num_text_seqs)
+        r = {"batch": B, "remat": remat, "joint_rows": rows,
+             "launches_per_step": per_step, "losses": infos,
+             "expected_init_losses": expected, "agreement_step0": {
+                 k: {"whole": v["whole"], "towers": v["towers"], "loss_diff": v["loss_diff"],
+                     "vision_outputs": v["vision_outputs"], "lowest_held": v["lowest_held"]}
+                 for k, v in agree.items()},
+             "lowest_held_bf16": low, "near_f32": near,
+             "step_ms_host": host_ms, "step_ms_device": device_ms,
+             "step_ms_host_median": float(np.median(host_ms[1:])),
+             "step_ms_device_median": float(np.median(device_ms[1:])),
+             "max_memory_allocated_bytes": peak, "planner_bytes": plan["total"],
+             "planner_error": (plan["total"] - peak) / peak}
+        r["examples_per_s"] = B / r["step_ms_host_median"] * 1e3
+        res[arm] = r
+        print(f"[large train] {card}: {arm}: totals {[round(i_['total'], 5) for i_ in infos]}; "
+              f"step ms host {[round(t, 1) for t in host_ms]}, device "
+              f"{[round(t, 1) for t in device_ms]}; launches per step {per_step[-1]}; peak "
+              f"{peak / 2**30:.2f} GiB, planner {plan['total'] / 2**30:.2f} GiB "
+              f"({100 * r['planner_error']:+.1f}%)", flush=True)
+        state.optimizer = None
+        torch.cuda.empty_cache()
+        if arm != LARGE_TRAIN_ARMS[-1][0]:
+            del state, model
+            torch.cuda.empty_cache()
+    labels = _capture_labels(model, dev_batch)
+    res["labels"] = {L: (v.shape[0], int((v > 0).sum()), int(s_.max()))
+                     for L, (v, s_) in labels.items()}
+    del dev_batch, state
+    torch.cuda.empty_cache()
+    return res, labels[d.seq_len], model
+
+
+def phase_large_finetune(card, pretrained):
+    """Phase 26: the finetuning recipes at batch 32 on the large config
+    from ``pretrained`` (phase 25's trained pretrainer): VCR at 18x32 (joint
+    8 rows of 288 an example) and TVQA at 7 segments (10 rows of 676), each
+    ``finetune_train_step`` with ``scan_minibatch``, one example at a time,
+    as the JAX recipe runs large TVQA (the whole batch of 32 runs out of
+    memory on an 80 GB card). First the scanned step's first gradient, that
+    of its first example, through the kernels against the plain path in an
+    f32 copy, every tensor at TRAIN_F32_MIN_COSINE as phase 14 holds base;
+    then the step: its loss at the step's weights within FINETUNE_LOSS_TOL
+    of ln N, the launches from the config, both clocks, the peak and the
+    joint rows. Returns the record and, by task, the joint tower's labels
+    of one example (the shape each scanned launch gets)."""
+    import torch
+
+    from merlot_reserve_tpu_torch import kernels
+    from merlot_reserve_tpu_torch.data.dummy import (TVQA_NUM_ANSWERS, VCR_NUM_ANSWERS,
+                                                     make_dummy_tvqa_batch, make_dummy_vcr_batch)
+    from merlot_reserve_tpu_torch.finetune import models as tm
+    from merlot_reserve_tpu_torch.finetune import train as tt
+    from merlot_reserve_tpu_torch.models.pretrainer import batch_to_tensors
+    from merlot_reserve_tpu_torch.parallel import memory
+    from merlot_reserve_tpu_torch.utils.weights import flax_tensors_from_state_dict, load_flax_params
+
+    tree = flax_tensors_from_state_dict(dict(pretrained.named_parameters()),
+                                        pretrained.config.size_per_head)
+    B = LARGE_FINETUNE_BATCH
+    out, example_labels = {}, {}
+    for task, cls, make_batch, loss_fn, ln_n in (
+            ("vcr", tm.MerlotReserveVCR, make_dummy_vcr_batch, tt.vcr_loss_fn,
+             math.log(VCR_NUM_ANSWERS)),
+            ("tvqa", tm.MerlotReserveTVQA, make_dummy_tvqa_batch, tt.tvqa_loss_fn,
+             2 * math.log(TVQA_NUM_ANSWERS))):
+        cfg = _finetune_config(task, "large")
+        m = cfg.model
+        model = cls(cfg, device="cuda", seed=0)
+        load_flax_params(model, tm.adapt_pretrained_params(tree, m.hidden_size,
+                                                           drop_audio=task == "vcr"))
+        dev_batch = batch_to_tensors(make_batch(cfg, B, seed=0), "cuda")
+        first = {k: v[:1] for k, v in dev_batch.items()}  # the scanned step's first microbatch
+        labels = _capture_labels(model, first)
+        L = max(labels)
+        example_labels[task] = labels[L]
+        rows = B * labels[L][0].shape[0]
+
+        # the scanned step's first gradient, kernel path against plain path,
+        # in an f32 copy
+        model32 = cls(_finetune_config(task, "large", use_bfloat16=False), device="cuda", seed=0)
+        model32.load_state_dict(model.state_dict())
+        grads = {}
+        for path in ("kernel", "plain"):
+            before = dict(kernels.LAUNCHES)
+            named = {n: p.detach().requires_grad_() for n, p in model32.named_parameters()}
+            with contextlib.ExitStack() as stack:
+                if path == "plain":
+                    for patch in _plain_flash():
+                        stack.enter_context(patch)
+                loss, _ = loss_fn(model32, named, first)
+                got = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+            check((path == "plain") == (dict(kernels.LAUNCHES) == before),
+                  f"large {task}: the {path} path launched {'a' if path == 'plain' else 'no'} "
+                  f"kernel")
+            grads[path] = {n: (torch.zeros_like(p) if g is None else g).float()
+                           for (n, p), g in zip(named.items(), got)}
+        del model32, named, got, loss
+        held = [n for n, g in grads["plain"].items()
+                if n not in ZERO_GRAD + FINETUNE_ZERO_GRAD and bool(g.any())]
+        agree = _agreement({n: grads["kernel"][n] for n in held},
+                           {n: grads["plain"][n] for n in held})
+        worst = sorted(agree["tensors"].items(), key=lambda kv: kv[1])[:6]
+        lowest = worst[0]
+        del grads
+        torch.cuda.empty_cache()
+        print(f"[large finetune] {task}: the scanned step's first gradient (example 0, "
+              f"{labels[L][0].shape[0]} joint rows of {L}) in f32, kernel vs plain: whole "
+              f"{agree['whole']:.7f}, per tower { {k: round(v, 7) for k, v in agree['towers'].items()} }, "
+              f"lowest per tensor {[(n, round(c, 7)) for n, c in worst]}", flush=True)
+        check(agree["whole"] >= TRAIN_F32_MIN_COSINE and lowest[1] >= TRAIN_F32_MIN_COSINE,
+              f"large {task}: f32 gradient cosine, whole {agree['whole']}, of {lowest[0]} "
+              f"{lowest[1]}, below {TRAIN_F32_MIN_COSINE}")
+
+        # the step-0 loss: under scan_minibatch the step's own metric sums the
+        # examples' bf16 losses in bf16, as the reference does (about 0.01 a
+        # stream at 32 examples); here the bf16 losses of chunks of 8,
+        # summed in f32, at the same weights
+        used = {n: p.detach().to(torch.bfloat16) for n, p in model.named_parameters()}
+        with torch.no_grad():
+            loss0 = sum(float(loss_fn(model, used, {k: v[i:i + 8] for k, v in
+                                                    dev_batch.items()})[0]) * min(8, B - i)
+                        for i in range(0, B, 8)) / B
+        del used
+        state = tt.create_finetune_state(cfg, model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES.clear()
+        infos, host_ms, device_ms, per_step = _counted_steps(
+            lambda: tt.finetune_train_step(state, dev_batch, loss_fn, scan_minibatch=True),
+            LARGE_FINETUNE_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        # the planner models the pretraining step; a scanned finetuning step
+        # runs one example at a time, so its batch-1 plan is the nearest
+        plan = memory.estimate_train_hbm(cfg, 1)["total"]
+        metric0 = infos[0]["loss"] if task == "vcr" else \
+            infos[0]["loss_audio"] + infos[0]["loss_text"]
+        check(all(math.isfinite(v) for i_ in infos for v in i_.values()),
+              f"large {task}: non-finite")
+        check(abs(loss0 - ln_n) < FINETUNE_LOSS_TOL,
+              f"large {task}: step-0 loss {loss0} (the step's metric {metric0}) is not near "
+              f"ln N = {ln_n}")
+        want = m.joint_num_layers * B
+        for i, counts in enumerate(per_step):
+            check(all(counts.get(n, 0) == want for n in ("flash_fwd", *BWD_LAUNCHES))
+                  and counts.get("adam_update", 0) == 1,
+                  f"large {task} step {i}: launches {counts}, want {want} of flash_fwd and of "
+                  f"each backward launch, one adam_update")
+        out[task] = {"batch": B, "joint_rows": rows, "joint_len": L, "scan_minibatch": True,
+                     "launches_per_step": per_step, "metrics": infos,
+                     "step0_loss": loss0, "step0_metric": metric0, "expected_init_loss": ln_n,
+                     "step_ms_host": host_ms, "step_ms_device": device_ms,
+                     "examples_per_s": B / host_ms[-1] * 1e3,
+                     "max_memory_allocated_bytes": peak, "planner_pretraining_bytes": plan,
+                     "first_gradient_f32_kernel_vs_plain": {
+                         "whole": agree["whole"], "towers": agree["towers"], "lowest": lowest}}
+        print(f"[large finetune] {card}: {task}: {B} examples, joint {rows} rows of {L}; step-0 "
+              f"loss {loss0:.5f} (the step's metric {metric0:.5f}; ln N {ln_n:.5f}); steps "
+              f"{[round(t, 1) for t in host_ms]} ms host, {[round(t, 1) for t in device_ms]} ms "
+              f"device (scan_minibatch); {out[task]['examples_per_s']:.2f} examples/s; peak "
+              f"{peak / 2**30:.2f} GiB (the planner's pretraining step at batch 1 of this "
+              f"config: {plan / 2**30:.2f} GiB); launches per step {per_step[-1]}", flush=True)
+        del state, model, dev_batch, first, labels
+        torch.cuda.empty_cache()
+    return out, example_labels
 
 
 def main():
@@ -5336,39 +6016,82 @@ def main():
         worker = ring_worker if sys.argv[2] == "ring" else rank_worker
         return worker(sys.argv[2], json.loads(sys.argv[3]))
 
+    seconds = {}
+    t_start = time.perf_counter()
     dev = phase_device()
-    build = phase_build()
-    kern, bwd = phase_kernels([(case, *_labels(case, B, L, "cuda"))
-                               for case, B, L in SERVING_CASES], seed=0)
-    sl = phase_slice(dev["nvidia_smi"])
-    train, labels = phase_train(dev["nvidia_smi"])
-    train_fwd, train_bwd = phase_kernels([("train_joint", *labels[640]),
-                                          ("train_span", *labels[16])], seed=2)
-    ring, k_labels, long_fwd = phase_ring_kernels(seed=3)
-    sp, sp_arrays = phase_slice_sp(dev["nvidia_smi"])
-    raw = phase_raw_media(dev["nvidia_smi"], seed=4)
-    long, long_labels = phase_train_long(dev["nvidia_smi"])
-    hop_fwd, hop_bwd = phase_hop_kernels(long_labels[LONG_JOINT_LEN], seed=5)
-    adam = phase_adam(dev["nvidia_smi"], seed=6)
-    ckpt = phase_train_ckpt(dev["nvidia_smi"])
+    card = dev["nvidia_smi"]
+
+    def timed(name, fn, *args, **kwargs):
+        # each phase starts with the earlier phases' garbage collected (a
+        # reference cycle can hold device memory until the collector runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            print(f"[time] phase {name}: {seconds[name]:.1f} s (run so far "
+                  f"{time.perf_counter() - t_start:.1f} s; {held / 2**30:.2f} GiB allocated "
+                  f"at its start)", flush=True)
+
+    build = timed("2 build", phase_build)
+    kern, bwd = timed("3 kernels", phase_kernels, [(case, *_labels(case, B, L, "cuda"))
+                                                   for case, B, L in SERVING_CASES], seed=0)
+    sl = timed("4 slice", phase_slice, card)
+    train, labels = timed("5 train", phase_train, card)
+    train_fwd, train_bwd = timed("6 training kernels", phase_kernels,
+                                 [("train_joint", *labels[640]), ("train_span", *labels[16])],
+                                 seed=2)
+    ring, k_labels, long_fwd = timed("7 ring kernels", phase_ring_kernels, seed=3)
+    sp, sp_arrays = timed("8 sequence-parallel serving", phase_slice_sp, card)
+    raw = timed("9 raw media", phase_raw_media, card, seed=4)
+    long, long_labels = timed("10 long-video training", phase_train_long, card)
+    hop_fwd, hop_bwd = timed("11 hop kernels", phase_hop_kernels, long_labels[LONG_JOINT_LEN],
+                             seed=5)
+    adam = timed("12 adam", phase_adam, card, seed=6)
+    ckpt = timed("13 checkpoints", phase_train_ckpt, card)
     try:
-        ft, ft_labels = phase_finetune(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"))
-        ft_fwd, ft_bwd = phase_kernels([("vcr_joint", *ft_labels["vcr"]),
-                                        ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
-        data = phase_data(dev["nvidia_smi"])
-        fixres, fixres_fwd, fixres_bwd, _ = phase_fixres(dev["nvidia_smi"],
-                                                         str(CKPT_DIR / "pretrain"))
-        down = phase_downstream(dev["nvidia_smi"],
-                                str(CKPT_DIR / "fixres" / f"ckpt_{FIXRES_SCRIPT_STEPS}"))
-        created = phase_created(dev["nvidia_smi"])
-        exported = phase_export(dev["nvidia_smi"], str(CKPT_DIR / "pretrain"),
-                                str(CKPT_DIR / "vcr_finetuned"))
+        ft, ft_labels = timed("14 finetuning", phase_finetune, card, str(CKPT_DIR / "pretrain"))
+        ft_fwd, ft_bwd = timed("14 finetuning kernels", phase_kernels,
+                               [("vcr_joint", *ft_labels["vcr"]),
+                                ("tvqa_joint", *ft_labels["tvqa"])], seed=7)
+        data = timed("15 data", phase_data, card)
+        fixres, fixres_fwd, fixres_bwd, _ = timed("16 fixres", phase_fixres, card,
+                                                  str(CKPT_DIR / "pretrain"))
+        down = timed("17 downstream", phase_downstream, card,
+                     str(CKPT_DIR / "fixres" / f"ckpt_{FIXRES_SCRIPT_STEPS}"))
+        created = timed("18 created records", phase_created, card)
+        exported = timed("19 export", phase_export, card, str(CKPT_DIR / "pretrain"),
+                         str(CKPT_DIR / "vcr_finetuned"))
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    distributed = phase_distributed(dev["nvidia_smi"], train, long, fixres)
-    soak = phase_soak(dev["nvidia_smi"])
-    ring_procs = phase_ring_procs(dev["nvidia_smi"], sp, sp_arrays,
-                                  _dist_cfg().model.joint_num_layers)
+    distributed = timed("20 distributed", phase_distributed, card, train, long, fixres)
+    soak = timed("21 soak", phase_soak, card)
+    ring_procs = timed("22 ring across processes", phase_ring_procs, card, sp, sp_arrays,
+                       _dist_cfg().model.joint_num_layers)
+    try:
+        large_sl = timed("23 large serving", phase_slice, card, "large")
+        large_zs, zs_labels = timed("24 large zero-shot", phase_large_zero_shot, card, seed=10)
+        large_train, large_labels, large_model = timed("25 large pretraining",
+                                                       phase_large_train, card)
+        large_ft, large_ft_labels = timed("26 large finetuning", phase_large_finetune, card,
+                                          large_model)
+        del large_model
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    large_fwd, _ = timed("27 large kernels", phase_kernels,
+                         [("large_serving", *_labels("serving", 8, 640, "cuda")),
+                          ("large_zero_shot", *zs_labels)],
+                         seed=8, heads=LARGE_HEADS, backward=False)
+    joint_fwd, large_bwd = timed("27 large kernels, joint", phase_kernels,
+                                 [("large_joint", *large_labels),
+                                  ("large_vcr_joint", *large_ft_labels["vcr"]),
+                                  ("large_tvqa_joint", *large_ft_labels["tvqa"])],
+                                 seed=9, heads=LARGE_HEADS)
+    large_fwd += joint_fwd
+    seconds["whole"] = time.perf_counter() - t_start
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -5405,8 +6128,19 @@ def main():
                                ["world1_nccl"]["launches"].get(name, 0),
                                "train_f32_adam": adam["f32_path"]["launches"].get(name, 0),
                                **{f"soak_{SOAK_CONFIG}_{arm}": n.get(name, 0)
-                                  for arm, n in soak["launches"].items()}}
+                                  for arm, n in soak["launches"].items()},
+                               "serving_sp4_long_batcher": sp["batcher"]["launches"]
+                               .get(name, 0),
+                               "large_serving": large_sl["launches"].get(name, 0),
+                               "large_zero_shot": large_zs["launches"].get(name, 0),
+                               **{f"large_train_{arm}": sum(c.get(name, 0) for c in
+                                                            r["launches_per_step"])
+                                  for arm, r in large_train.items() if arm != "labels"},
+                               **{f"large_finetune_{t}_b{r['batch']}": sum(
+                                   c.get(name, 0) for c in r["launches_per_step"])
+                                  for t, r in large_ft.items()}}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
+    large_arms = {arm: r for arm, r in large_train.items() if arm != "labels"}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
 
     def bwd_entry(name):
@@ -5453,21 +6187,33 @@ def main():
                     "backward_bound_ms": r["bounds"]["both"]["bound_ms"],
                     "backward_bound_by": r["bounds"]["both"]["bound_by"],
                     "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
-                    for r in fixres_bwd if r["dtype"] == "bf16"}}
+                    for r in fixres_bwd if r["dtype"] == "bf16"},
+                "launches_per_large_train_step": {
+                    arm: r["launches_per_step"][-1].get(name, 0) for arm, r in large_arms.items()},
+                "large_shapes": {f"{r['case']} B{r['B']} L{r['L']} H{r['H']}": {
+                    "ms": r["launch_ms"][name], "bound_ms": r["bounds"][name]["bound_ms"],
+                    "bound_by": r["bounds"][name]["bound_by"], "backward_ms": r["ms"],
+                    "backward_bound_ms": r["bounds"]["both"]["bound_ms"],
+                    "backward_bound_by": r["bounds"]["both"]["bound_by"],
+                    "backward_plain_ms": r["plain_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
+                    "max_abs_err": max(e["max_abs_err"] for e in r["errors"].values())}
+                    for r in large_bwd if r["dtype"] == "bf16"}}
 
     def shapes(records, keys):
         """Per case: the times on both clocks, the bound and the factor over
         SDPA on the graph clock."""
-        return {f"{r['case']} B{r['B']} L{r['L']}" + (f" n{r['n']}" if "n" in r else ""): {
+        return {f"{r['case']} B{r['B']} L{r['L']}" + (f" n{r['n']}" if "n" in r else "")
+                + (f" H{r['H']}" if r.get("H", 12) != 12 else ""): {
             **{k: r.get(k) for k in keys},
             "graph_vs_sdpa": r["graph_ms"] / r["sdpa_graph_ms"]} for r in records}
 
     fwd_keys = ("graph_ms", "ms", "sdpa_graph_ms", "sdpa_ms", "plain_ms", "bound_ms", "bound_by")
     fwd_shapes = shapes([r for r in kern + train_fwd + long_fwd + raw["fwd_kernels"] + hop_fwd
-                         + ft_fwd + fixres_fwd if r["dtype"] == "bf16" and r["case"] in (
+                         + ft_fwd + fixres_fwd + large_fwd if r["dtype"] == "bf16" and r["case"] in (
                              "serving", "train_joint", "train_span", "long_video",
                              "zero_shot_joint", "zero_shot_span", "vcr_joint", "tvqa_joint",
-                             "fixres_joint_a", "fixres_joint_b",
+                             "fixres_joint_a", "fixres_joint_b", "large_serving", "large_joint",
+                             "large_zero_shot", "large_vcr_joint", "large_tvqa_joint",
                              *(c for c, _, _ in HOP_CASES))], fwd_keys)
     ring_shapes = shapes([r for r in ring if r["dtype"] == "bf16" and (r["n"], r["B"], r["L"]) in
                           ((4, 8, 2560), (2, 8, 640), (4, 48, 640))],
@@ -5549,7 +6295,10 @@ def main():
               "data": data, "fixres": fixres, "fixres_fwd_kernels": fixres_fwd,
               "fixres_bwd_kernels": fixres_bwd, "downstream": down, "created": created,
               "export": exported, "distributed": distributed, "soak": soak,
-              "ring_procs": ring_procs, "kernels_line": kernels_line}
+              "ring_procs": ring_procs, "large_serving": large_sl, "large_zero_shot": large_zs,
+              "large_train": large_train, "large_finetune": large_ft,
+              "large_fwd_kernels": large_fwd, "large_bwd_kernels": large_bwd,
+              "phase_seconds": seconds, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))
     print(dev["nvidia_smi"])

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -350,7 +350,10 @@ class TransformerEncoder(nn.Module):
     process mesh this process holds its stage's layers only). When the
     attention is sequence parallel across processes (a 'ring...' or
     'ulysses...' impl under a process mesh), the layers run on this rank's
-    slice of the sequence and the output is gathered after them.
+    slice of the sequence and the output is gathered after them; under
+    'ring:rdma' each rank drains its card's queue and the axis's ranks meet
+    at a host barrier (``parallel.comm.barrier``), once per forward, so that
+    no rank's ring kernel waits on a neighbour still busy with earlier work.
     """
 
     def __init__(self, hidden_size: int, num_layers: int, *, generator: torch.Generator,
@@ -397,17 +400,17 @@ class TransformerEncoder(nn.Module):
             if num_layers else []
         self.final_ln = nn.LayerNorm(hidden_size, eps=1e-5)
 
-    def sequence_split_axis(self, mesh) -> Optional[str]:
-        """The axis this encoder's layers split the sequence over under
-        ``mesh``: that of a sequence-parallel attention impl, when ``mesh``
-        is a process mesh and the axis is larger than 1; else None."""
+    def sequence_split_axis(self, mesh) -> Optional[Tuple[str, str]]:
+        """(inner impl, axis) of a sequence-parallel attention impl that
+        splits this encoder's sequence under ``mesh``, when ``mesh`` is a
+        process mesh and the axis is larger than 1; else None."""
         if (mesh is None or not mesh.is_process_mesh
                 or not self.attention_impl.startswith(("ring", "ulysses"))):
             return None
         from merlot_reserve_tpu_torch.ops.ring_attention import parse_sequence_parallel_impl
 
-        _, axis = parse_sequence_parallel_impl(self.attention_impl)
-        return axis if mesh.shape.get(axis, 1) > 1 else None
+        inner, axis = parse_sequence_parallel_impl(self.attention_impl)
+        return (inner, axis) if mesh.shape.get(axis, 1) > 1 else None
 
     def forward(self, x, *, rotary_coords=None, attention_mask=None, is_valid=None,
                 segment_ids=None):
@@ -473,7 +476,16 @@ class TransformerEncoder(nn.Module):
         remat = self.remat_saves is not None and torch.is_grad_enabled()
         split = self.sequence_split_axis(mesh)
         if split is not None:
+            inner, split = split
             x, layer_kwargs = _split_sequence(x, layer_kwargs, mesh, split)
+            if inner == "rdma":
+                # the ring kernel's waits on a neighbour trap after
+                # RING_TIMEOUT_NS: ranks that reach a batch seconds apart,
+                # on the host or in their card's queue, meet here first,
+                # once per forward, each with its queue drained
+                if x.is_cuda:
+                    torch.cuda.current_stream(x.device).synchronize()
+                comm.barrier(mesh, split, "sp")
         if (self.pipeline_axis and mesh is not None
                 and mesh.shape.get(self.pipeline_axis, 1) > 1):
             from merlot_reserve_tpu_torch.parallel.pipeline import pipeline_transformer

@@ -11,7 +11,8 @@ each one: op, dtype, bytes, axis, the group's ranks, and what it moves
 (the counterpart of ``split_ici_dcn``) splits them by whether a group spans
 nodes (``LOCAL_WORLD_SIZE`` ranks a node). Bytes are
 those of the op's result buffer, as the JAX audit counts them (the tensor a
-send moves, a receive's buffer), not wire bytes.
+send moves, a receive's buffer), not wire bytes; a host ``barrier`` is
+recorded with none.
 
 The differentiable collectives are the autograd functions below:
 ``gather_rows`` (the batch's rows over dp: each rank's loss is its own
@@ -172,6 +173,16 @@ def all_gather_object(obj, mesh, axes, what: str = "") -> list:
     out = [None] * mesh.size(axes)
     dist.all_gather_object(out, obj, group=mesh.group(axes))
     return out
+
+
+def barrier(mesh, axes, what: str = "") -> None:
+    """Wait on the host until every rank of ``axes`` has come here (its
+    record moves no bytes)."""
+    if _RECORDS is not None:
+        _RECORDS.append({"op": "barrier", "dtype": "none", "bytes": 0,
+                         "axis": _axis_label(axes), "what": what,
+                         "ranks": list(mesh.group_ranks(axes))})
+    dist.barrier(group=mesh.group(axes))
 
 
 # ---------------------------------------------------------------------------

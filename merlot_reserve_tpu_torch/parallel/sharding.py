@@ -309,11 +309,11 @@ class ShardPlan:
                 for i, n in enumerate(leaf.names):
                     plan.stage[n] = i // (num_layers // pp)
         for mod_name, mod in model.named_modules():
-            axis = getattr(mod, "sequence_split_axis", lambda m: None)(mesh)
-            if axis is not None:
+            split = getattr(mod, "sequence_split_axis", lambda m: None)(mesh)
+            if split is not None:
                 for n in named:
                     if n.startswith(f"{mod_name}.layers."):
-                        plan.partial[n] = (axis,)
+                        plan.partial[n] = (split[1],)
             if hasattr(mod, "qkv") and hasattr(mod, "num_heads"):
                 plan.heads[f"{mod_name}.qkv.weight"] = mod.num_heads
                 plan.heads[f"{mod_name}.qkv.bias"] = mod.num_heads

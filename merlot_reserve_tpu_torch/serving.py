@@ -7,6 +7,7 @@ padding underfilled requests, so the card always sees the same shapes;
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 import time
@@ -16,6 +17,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from merlot_reserve_tpu_torch.parallel.mesh import current_mesh
 from merlot_reserve_tpu_torch.tokenizer import MASK
 from merlot_reserve_tpu_torch.utils.device import resolve_device
 
@@ -98,7 +100,14 @@ class DynamicBatcher:
     Requests submit from any thread and get a Future; one dispatcher thread
     flushes a batch when ``batch_size`` requests are pending or the oldest
     pending request has waited ``max_wait_ms``. Underfilled flushes pad to
-    the fixed batch (the service does).
+    the fixed batch (the service does). Each request carries a copy of its
+    caller's context (``contextvars``), and a batch runs in its first
+    request's: a model served under ``parallel.mesh.activate_mesh`` keeps
+    its mesh on the dispatcher thread, so a ``ring:*`` joint tower runs
+    sequence parallel there as it does when called directly. Requests
+    submitted under different meshes (or one under none) never share a
+    batch: a request whose mesh differs from the pending batch's flushes
+    that batch and starts the next.
 
     >>> with DynamicBatcher(service, max_wait_ms=5.0) as b:
     ...     futs = [b.submit(vp) for vp in video_pres]
@@ -124,20 +133,25 @@ class DynamicBatcher:
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
-            self._q.put((video_pre, fut))
+            self._q.put((video_pre, fut, contextvars.copy_context()))
         return fut
 
     def _dispatch(self):
+        carried = None  # a request that ended the batch before it (another mesh)
         while True:
-            try:
-                item = self._q.get(timeout=0.1)
-            except queue.Empty:
-                if self._closed:
-                    return
-                continue
+            if carried is not None:
+                item, carried = carried, None
+            else:
+                try:
+                    item = self._q.get(timeout=0.1)
+                except queue.Empty:
+                    if self._closed:
+                        return
+                    continue
             if item is None:
                 return
             pending = [item]
+            mesh = item[2].run(current_mesh)
             deadline = time.monotonic() + self.max_wait
             while len(pending) < self.service.batch_size:
                 remaining = deadline - time.monotonic()
@@ -150,18 +164,22 @@ class DynamicBatcher:
                 if nxt is None:
                     self._flush(pending)
                     return
+                if nxt[2].run(current_mesh) is not mesh:
+                    carried = nxt
+                    break
                 pending.append(nxt)
             self._flush(pending)
 
     def _flush(self, pending):
         self.batch_fills.append(len(pending))
+        context = pending[0][2]
         try:
-            out = self.service.embed([vp for vp, _ in pending])
+            out = context.run(self.service.embed, [vp for vp, _, _ in pending])
         except Exception as e:  # noqa: BLE001 — deliver to the callers, keep the thread
-            for _, fut in pending:
+            for _, fut, _ in pending:
                 fut.set_exception(e)
             return
-        for i, (_, fut) in enumerate(pending):
+        for i, (_, fut, _) in enumerate(pending):
             fut.set_result(out[i])
 
     def close(self):

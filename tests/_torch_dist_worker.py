@@ -169,15 +169,18 @@ def encoder(job, case, mesh):
     """A ``TransformerEncoder`` built from ``case['kwargs']`` with
     ``case['state']``, run without grad on the global ``case['x']`` and its
     labels under this mesh (the encoder splits the sequence over the ranks
-    and gathers it back)."""
+    and gathers it back), ``case['batches']`` times (default once): the
+    first output, and the collectives of all the runs."""
     from merlot_reserve_tpu_torch.models.layers import TransformerEncoder
 
     enc = TransformerEncoder(generator=torch.Generator().manual_seed(0), **case["kwargs"])
     enc.load_state_dict(case["state"])
-    with torch.no_grad(), activate_mesh(mesh):
-        out = enc(torch.as_tensor(case["x"]), **{k: torch.as_tensor(v)
-                                                 for k, v in case["inputs"].items()})
-    return {"seq": out["seq"]}
+    outs = []
+    with torch.no_grad(), activate_mesh(mesh), comm.recording() as records:
+        for _ in range(case.get("batches", 1)):
+            outs.append(enc(torch.as_tensor(case["x"]), **{k: torch.as_tensor(v)
+                                                           for k, v in case["inputs"].items()}))
+    return {"seq": outs[0]["seq"], "comm": comm.summarize_records(records)}
 
 
 def checkpoint(job, case, mesh):

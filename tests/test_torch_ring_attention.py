@@ -35,6 +35,8 @@ from merlot_reserve_tpu_torch.models import layers as tlayers
 from merlot_reserve_tpu_torch.ops import attention as tattn
 from merlot_reserve_tpu_torch.ops import ring_attention as tring
 from merlot_reserve_tpu_torch.parallel import mesh as tmesh
+from merlot_reserve_tpu_torch.serving import DynamicBatcher, VideoEmbedService
+from merlot_reserve_tpu_torch.tokenizer import PADDING
 from merlot_reserve_tpu_torch.utils.weights import load_flax_params
 
 ATOL = 2e-5
@@ -430,10 +432,11 @@ def test_make_mesh_shapes_like_jax(cpu_devices):
         tmesh.make_mesh(sp=3, devices=["cpu"] * 8)
 
 
-def test_embed_video_ring_rdma_matches_jax(cpu_devices):
-    """A tiny-config model with joint_attention_impl='ring:rdma' and
-    seq_shard_axis='sp' under an sp=4 mesh of CPU ranks (joint L 28, 7 rows
-    per rank) against JAX's embed_video on the same weights, every row."""
+@pytest.fixture(scope="module")
+def ring_video(cpu_devices):
+    """One video, JAX's embed_video on it (dense attention) and a tiny-config
+    port model on the same weights with joint_attention_impl='ring:rdma' and
+    seq_shard_axis='sp' (joint L 28, 7 rows per rank at sp 4)."""
     tiny = dict(hidden_size=128, joint_num_layers=2, vit_num_layers=2, audio_num_layers=2,
                 span_num_layers=2, output_grid=(4, 4), use_bfloat16=False)
     rng = np.random.RandomState(0)
@@ -452,15 +455,48 @@ def test_embed_video_ring_rdma_matches_jax(cpu_devices):
     model = MerlotReserve(load_config("base", joint_attention_impl="ring:rdma",
                                       seq_shard_axis="sp", **tiny), device="cpu")
     load_flax_params(model, params)
-    calls = []
+    return video, j, model
+
+
+def _counted_rdma(calls):
+    """``ring_flash_attention_rdma`` patched to note each call's rank count."""
     real = tring.ring_flash_attention_rdma
 
     def counted(*args):
         calls.append(args[-1])
         return real(*args)
 
+    return unittest.mock.patch.object(tring, "ring_flash_attention_rdma", counted)
+
+
+def test_embed_video_ring_rdma_matches_jax(ring_video):
+    """The ring model under an sp=4 mesh of CPU ranks against JAX's
+    embed_video on the same weights, every row."""
+    video, j, model = ring_video
+    calls = []
     with tmesh.activate_mesh(tmesh.make_mesh(sp=4, devices=["cpu"] * 4)), torch.no_grad():
-        with unittest.mock.patch.object(tring, "ring_flash_attention_rdma", counted):
+        with _counted_rdma(calls):
             out = model.embed_video(*map(torch.from_numpy, video)).numpy()
     assert calls == [4, 4]  # every joint layer went through the 4-rank ring
     np.testing.assert_allclose(out, j, atol=1e-4, rtol=0)
+
+
+def test_dynamic_batcher_serves_ring_rdma_under_the_callers_mesh(ring_video):
+    """``DynamicBatcher`` runs each batch in its submitter's context: under
+    the caller's ``activate_mesh`` the dispatcher thread's joint tower goes
+    through the 4-rank ring (before the batcher carried the context, it found
+    no mesh there and ran dense attention), and every answer matches JAX's
+    dense embed_video on its valid rows, as the direct call does."""
+    video, j, model = ring_video
+    service = VideoEmbedService(model, batch_size=2, device="cpu")
+    request = dict(zip(("images", "audio_clips", "tokens", "subseg_idxs"), video))
+    calls = []
+    with tmesh.activate_mesh(tmesh.make_mesh(sp=4, devices=["cpu"] * 4)), _counted_rdma(calls):
+        with DynamicBatcher(service, max_wait_ms=2000.0) as batcher:
+            futures = [batcher.submit(request) for _ in range(3)]
+            outs = [f.result(timeout=120) for f in futures]
+    assert batcher.batch_fills == [2, 1]
+    assert calls == [4] * 2 * len(batcher.batch_fills)  # 2 joint layers a batch, all on the ring
+    rows = video[2] != PADDING
+    for out in outs:
+        np.testing.assert_allclose(out[rows], j[rows], atol=1e-4, rtol=0)

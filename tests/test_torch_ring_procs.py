@@ -9,7 +9,8 @@ sp 2 and sp 4, as tests/test_ring_attention.py runs it, on labels that
 cross the shards (packed segments, padding across a shard boundary, a tail
 of padding, a shard that holds no valid key); and a 2-layer
 ``TransformerEncoder`` with ``attention_impl="ring:rdma"`` under sp 2
-against JAX's under an sp 2 mesh. Also: the ring refuses gradients, and
+against JAX's under an sp 2 mesh, with one host barrier of its ranks per
+forward in the comm audit. Also: the ring refuses gradients, and
 ``parallel.distributed.initialize`` raises for a card that does not exist
 and puts ranks that share a card on gloo.
 
@@ -43,6 +44,7 @@ B, L, H, D = 2, 64, 4, 16
 CASES = ("packed", "blind_shard")
 SPS = (2, 4)
 ENCODER = dict(hidden_size=64, num_layers=2, size_per_head=16, rotary_hsize=8)
+ENCODER_BATCHES = 2
 
 
 def _inputs(name):
@@ -106,7 +108,8 @@ def run(tmp_path_factory, cpu_devices):
     cases = {f"sp{n}": dict(mesh=dict(sp=n), kind="sp_attention", impl="rdma",
                             inputs={name: _inputs(name) for name in CASES}) for n in SPS}
     cases["encoder_sp2"] = dict(mesh=dict(sp=2), kind="encoder", kwargs=kwargs,
-                                state=tenc.state_dict(), x=x, inputs=inputs)
+                                state=tenc.state_dict(), x=x, inputs=inputs,
+                                batches=ENCODER_BATCHES)
     job = {"cases": cases, "out": str(tmp / "out.pt")}
     torch.save(job, tmp / "job.pt")
     _launch(tmp / "job.pt", WORLD)
@@ -139,6 +142,18 @@ def test_encoder_ring_rdma_across_processes_matches_jax_under_sp2(run):
     got = run["port"]["encoder_sp2"]["seq"].numpy()
     np.testing.assert_allclose(got[valid], run["jax_encoder"][valid], atol=ENC_ATOL,
                                rtol=ENC_RTOL)
+
+
+def test_encoder_ring_rdma_barriers_its_ranks_once_per_batch(run):
+    """Each forward of the ``ring:rdma`` encoder on a process mesh meets its
+    sp ranks at one host barrier (``comm.barrier``, in the audit) before its
+    first ring: ranks that reach a batch more than the ring kernel's wait
+    limit apart do not make their neighbours trap."""
+    audit = run["port"]["encoder_sp2"]["comm"]
+    assert audit["barrier"]["count"] == ENCODER_BATCHES
+    assert audit["barrier"]["axes"] == {"sp": ENCODER_BATCHES}
+    assert audit["barrier"]["what"] == {"sp": ENCODER_BATCHES}
+    assert audit["barrier"]["bytes"] == 0
 
 
 def _job_env(monkeypatch, local_rank, local_world):

@@ -3,6 +3,7 @@ batch, micro-batching, futures, drain on close, and error delivery. The
 model is a tiny random port model; outputs are held against the model's own
 batch_embed_video (padding must not change the rows that are kept)."""
 
+import contextvars
 import sys
 import threading
 
@@ -138,3 +139,57 @@ def test_dynamic_batcher_under_concurrent_submitters(model):
     finally:
         sys.setswitchinterval(old)
     assert len(futures) == 24 and sum(batcher.batch_fills) == 24
+
+
+def test_dynamic_batcher_runs_each_batch_in_its_submitters_context(model):
+    """The dispatcher thread runs a batch in a copy of the context its first
+    request was submitted from: context variables set by the caller (the
+    active mesh of ``parallel.mesh.activate_mesh`` is one) reach the
+    service, and each batch sees its own submitter's."""
+    tag = contextvars.ContextVar("tag", default=None)
+    seen = []
+    svc = VideoEmbedService(model, batch_size=2, device="cpu")
+    embed = svc.embed
+    svc.embed = lambda video_pres: (seen.append(tag.get()), embed(video_pres))[1]
+    videos = _videos(2, seed=4)
+
+    def submit_as(name, batcher):
+        tag.set(name)
+        return [batcher.submit(v) for v in videos]
+
+    with DynamicBatcher(svc, max_wait_ms=10_000) as batcher:
+        futures = [f for name in ("first", "second")
+                   for f in contextvars.copy_context().run(submit_as, name, batcher)]
+    assert seen == ["first", "second"] and batcher.batch_fills == [2, 2]
+    assert tag.get() is None  # the caller's own context is untouched
+    np.testing.assert_allclose(np.stack([f.result(timeout=60) for f in futures]),
+                               _direct(model, videos + videos), atol=1e-6, rtol=0)
+
+
+def test_dynamic_batcher_never_batches_requests_of_different_meshes(model):
+    """Requests submitted under different meshes (or under none) are served
+    in batches of their own, each under its submitters' mesh, though the
+    batch has room for them all."""
+    from merlot_reserve_tpu_torch.parallel.mesh import activate_mesh, current_mesh, make_mesh
+
+    first, second = make_mesh(devices=["cpu"]), make_mesh(devices=["cpu"])
+    seen = []
+    svc = VideoEmbedService(model, batch_size=4, device="cpu")
+    embed = svc.embed
+    svc.embed = lambda video_pres: (seen.append((current_mesh(), len(video_pres))),
+                                    embed(video_pres))[1]
+    videos = _videos(4, seed=5)
+
+    def submit_under(mesh, batch, batcher):
+        with activate_mesh(mesh):
+            return [batcher.submit(v) for v in batch]
+
+    with DynamicBatcher(svc, max_wait_ms=10_000) as batcher:
+        futures = (submit_under(first, videos[:2], batcher)
+                   + submit_under(second, videos[2:3], batcher)
+                   + submit_under(None, videos[3:], batcher))
+    assert [(m is first, m is second, n) for m, n in seen] == [
+        (True, False, 2), (False, True, 1), (False, False, 1)]
+    assert seen[2][0] is None and batcher.batch_fills == [2, 1, 1]
+    np.testing.assert_allclose(np.stack([f.result(timeout=60) for f in futures]),
+                               _direct(model, videos), atol=1e-6, rtol=0)
