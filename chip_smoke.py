@@ -228,6 +228,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    zero-shot (B 1 L 1312) shapes and labels, the forward and backward at
    the large pretraining's joint (B 48 L 640), bf16 and f32, against their
    plain versions with times, bounds and SDPA.
+28. pod readiness: ``scripts/pod_readiness_torch.py`` (base, 8 rows a dp
+   rank) runs rank 0 of dp8 and both pipeline stages of dp2 x pp2 x tp2,
+   each a stand-in rank of its job on torch's fake process group, 2 steps
+   each: the launches per step, each peak beside the memory planner's, and
+   dp8's drop below phase 5's one-card peak beside 7/8 of the masters' and
+   moments' bytes.
 
 Each phase's seconds are printed as ``[time]`` lines.
 
@@ -5998,6 +6004,100 @@ def phase_large_finetune(card, pretrained):
     return out, example_labels
 
 
+# ---------------------------------------------------------------------------
+# phase 28: pod readiness, a multi-card layout's step as one stand-in rank
+# ---------------------------------------------------------------------------
+
+POD_LAYOUTS = ("dp8", "dp2pp2tp2")  # rank 0 of dp8; both pipeline stages of dp2pp2tp2
+POD_STEPS = 2
+POD_TIMEOUT = 240
+# each role's peak against the planner's total, the bound the committed
+# stand-in rows are held to (tests/test_torch_pod_readiness.py)
+POD_PLAN_TOL = 0.25
+# dp8's rank 0 against phase 5's one card at the same 8 rows: it holds 1/8
+# of the f32 masters and bf16 moments (8 bytes a parameter) but keeps bf16
+# compute copies and bf16 gradients where one card keeps f32 gradients, so
+# the drop is held within this share of 7/8 of the masters' and moments'
+# bytes (predicted 9 bytes a parameter against 7, PERF.md section 6)
+POD_DROP_TOL = 0.5
+
+
+def _pod_expected_launches(cfg, pp):
+    """A base step's launches on one stage without remat: the joint layers
+    it holds, once per microbatch under pp, and the span tower's."""
+    m = cfg.model
+    joint = (m.joint_num_layers // pp) * (m.pipeline_microbatches if pp > 1 else 1)
+    per = joint + m.span_num_layers
+    return {"flash_fwd": per, **{n: per for n in BWD_LAUNCHES}, "adam_update": 1}
+
+
+def phase_pod_readiness(card, train):
+    """Phase 28: ``scripts/pod_readiness_torch.py`` on the card (base, phase
+    5's 8 rows a dp rank): rank 0 of dp8 and both stages of dp2 x pp2 x tp2,
+    each a stand-in rank on torch's fake process group (its collectives
+    answered at once, its state, activations and kernels real), 2 steps
+    each. Holds each role's launches per step (``flash_fwd``, the three
+    backward launches, one ``adam_update``), its peak against the planner
+    (``POD_PLAN_TOL``), and dp8's drop below phase 5's one-card peak
+    against 7/8 of the masters' and moments' bytes (``POD_DROP_TOL``)."""
+    from merlot_reserve_tpu_torch import load_config
+    from merlot_reserve_tpu_torch.parallel import memory, readiness
+
+    cmd = [sys.executable, str(ROOT / "scripts" / "pod_readiness_torch.py"), "--config", "base",
+           "--batch-per-chip", str(TRAIN_BATCH), "--steps", str(POD_STEPS),
+           "--layouts", ",".join(POD_LAYOUTS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=POD_TIMEOUT, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    logs = ROOT / "chiprun_out" / "ranks"
+    logs.mkdir(parents=True, exist_ok=True)
+    (logs / "pod_readiness.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"pod_readiness_torch.py exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rows = {r["key"]: r for r in (json.loads(x) for x in proc.stdout.splitlines()
+                                  if x.startswith("{"))}
+    check(set(rows) == set(POD_LAYOUTS), f"pod readiness rows {sorted(rows)}")
+    cfg = load_config("base")
+    launches = {}
+    for key, row in rows.items():
+        check(row["run"] == "clean" and row["standin"], f"{key}: {row['run']}")
+        layout = readiness.LAYOUTS[key]
+        want = _pod_expected_launches(readiness.layout_config(cfg, layout), layout.axis("pp"))
+        for role in row["roles"]:
+            name = f"pod_readiness_{key}_rank{role['rank']}"
+            for step, got in enumerate(role["launches_per_step"]):
+                check(all(got.get(k, 0) == v for k, v in want.items()) and not got.get("ring_fwd"),
+                      f"{name} step {step}: launches {got}, want {want}")
+            launches[name] = {k: sum(c.get(k, 0) for c in role["launches_per_step"])
+                              for k in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
+            peak = role["peak_bytes"]
+            plan = readiness.plan(readiness.layout_config(cfg, layout), layout,
+                                  role["rows"])["total"]
+            role["planner_error"] = (plan - peak) / peak
+            print(f"[pod] {card}: {key} rank {role['rank']} ({role['world']} ranks, "
+                  f"{role['rows']} rows): peak {peak / 2**30:.3f} GiB, planner "
+                  f"{plan / 2**30:.3f} GiB ({100 * role['planner_error']:+.1f}%); launches per "
+                  f"step {role['launches_per_step'][-1]}; collectives per step "
+                  f"{role['comm_per_step'][-1]['total_count']} "
+                  f"({role['comm_per_step'][-1]['total_bytes'] / 2**20:.1f} MiB); state built in "
+                  f"{role['build_s']:.2f} s, steps {[round(t, 3) for t in role['step_s']]} s",
+                  flush=True)
+            check(abs(role["planner_error"]) <= POD_PLAN_TOL,
+                  f"{key} rank {role['rank']}: planner {plan} against peak {peak}")
+    dp8 = rows["dp8"]["roles"][0]
+    one_card = train["max_memory_allocated_bytes"]
+    drop = one_card - dp8["peak_bytes"]
+    share = 7 / 8 * 8 * memory.param_count(cfg)
+    print(f"[pod] {card}: dp8 rank 0 peaks {drop / 2**30:.3f} GiB below phase 5's one card "
+          f"({one_card / 2**30:.3f} GiB); 7/8 of the masters' and moments' bytes "
+          f"{share / 2**30:.3f} GiB (ratio {drop / share:.3f}); phase {seconds:.1f} s",
+          flush=True)
+    check(abs(drop / share - 1) <= POD_DROP_TOL,
+          f"dp8 drop {drop} against 7/8 of the masters and moments {share}")
+    return {"rows": rows, "launches": launches, "dp8_drop_bytes": drop,
+            "masters_moments_7_8_bytes": share, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -6091,7 +6191,9 @@ def main():
                                   ("large_tvqa_joint", *large_ft_labels["tvqa"])],
                                  seed=9, heads=LARGE_HEADS)
     large_fwd += joint_fwd
+    pod = timed("28 pod readiness", phase_pod_readiness, card, train)
     seconds["whole"] = time.perf_counter() - t_start
+    print(f"[time] whole run {seconds['whole']:.1f} s", flush=True)
 
     main_case = next(r for r in kern if r["case"] == "serving" and r["dtype"] == "bf16")
     joint = next(r for r in train_bwd if r["case"] == "train_joint" and r["dtype"] == "bf16")
@@ -6138,7 +6240,8 @@ def main():
                                   for arm, r in large_train.items() if arm != "labels"},
                                **{f"large_finetune_{t}_b{r['batch']}": sum(
                                    c.get(name, 0) for c in r["launches_per_step"])
-                                  for t, r in large_ft.items()}}
+                                  for t, r in large_ft.items()},
+                               **{role: n.get(name, 0) for role, n in pod["launches"].items()}}
                         for name in ("flash_fwd", *BWD_LAUNCHES, "ring_fwd", "adam_update")}
     large_arms = {arm: r for arm, r in large_train.items() if arm != "labels"}
     ft_bwd16 = [r for r in ft_bwd if r["dtype"] == "bf16"]
@@ -6298,6 +6401,7 @@ def main():
               "ring_procs": ring_procs, "large_serving": large_sl, "large_zero_shot": large_zs,
               "large_train": large_train, "large_finetune": large_ft,
               "large_fwd_kernels": large_fwd, "large_bwd_kernels": large_bwd,
+              "pod_readiness": pod,
               "phase_seconds": seconds, "kernels_line": kernels_line}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps(kernels_line))

@@ -712,12 +712,17 @@ class PeerRing:
     launch, "tma" (TMA stores through a tensor map over its slots) or
     "stores" (16-byte stores by the producer warp's lanes, when asked for
     by setting ``peer_store`` before a launch, or when the driver refuses
-    the map); the f32 kernel always stores.
+    the map); the f32 kernel always stores. A stand-in rank
+    (``parallel.distributed.initialize_standin``) is refused: its slots
+    need real peers.
     """
 
     def __init__(self, mesh: Mesh, axis: str, B: int, H: int, lloc: int, dtype, device):
         import torch.distributed as dist
 
+        from merlot_reserve_tpu_torch.parallel import distributed
+
+        distributed.refuse_standin("PeerRing (its CUDA IPC slots need real peers)")
         self.n, self.rank = mesh.size(axis), mesh.axis_index(axis)
         self.group = mesh.group(axis)
         self.shape, self.dtype, self.device = (B, H, lloc), dtype, torch.device(device)

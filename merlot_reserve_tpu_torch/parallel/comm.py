@@ -165,11 +165,17 @@ def exchange(send_t: torch.Tensor, recv_t: torch.Tensor, mesh, axes, dst_index: 
 
 def all_gather_object(obj, mesh, axes, what: str = "") -> list:
     """Every rank's picklable ``obj`` along ``axes``, in axis order (its
-    record counts no bytes: the pickles' sizes are not known here)."""
+    record counts no bytes: the pickles' sizes are not known here). A
+    stand-in (``distributed.is_standin``) records what a real rank would
+    and returns its own ``obj`` for every rank: the fake group would hand
+    back whatever its buffers held, to be unpickled."""
     if _RECORDS is not None:
         _RECORDS.append({"op": "all-gather-object", "dtype": "object", "bytes": 0,
                          "axis": _axis_label(axes), "what": what,
                          "ranks": list(mesh.group_ranks(axes))})
+    if distributed.is_standin():
+        mesh.group(axes)
+        return [obj] * mesh.size(axes)
     out = [None] * mesh.size(axes)
     dist.all_gather_object(out, obj, group=mesh.group(axes))
     return out

@@ -14,6 +14,18 @@ falls back from one to the other, and a card that does not exist raises.
 
 Without an initialized group ``process_count()`` is 1 and every path of the
 port is its one-process path.
+
+A *stand-in* (``initialize_standin``) is one process that joins a job of N
+ranks as rank r on torch's fake backend, with no other process and no
+network: every collective is issued, recorded and sized by
+``parallel.comm`` and returns at once, while everything that is the rank's
+own (its share of the parameters, its ZeRO-1 masters and moments, its
+activations, its kernels) is real and on its device. So the rank's peak
+memory, its collectives and its kernel launches are a real rank's; the
+values are not (a fake all-gather's result is whatever its buffer held).
+A stand-in is never passed off as a real job: the training loop,
+checkpoint saves and the ring kernel's peer buffers refuse it
+(``refuse_standin``).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ class _Job:
     device: Optional[torch.device] = None
     local_world_size: int = 1
     shared_card: bool = False
+    standin: bool = False
     at_shutdown: List[Callable[[], None]] = []
 
 
@@ -83,6 +96,68 @@ def initialize(device="cuda", timeout_s: float = 600.0) -> torch.device:
     return dev
 
 
+def _fake_backend():
+    """torch's fake process group (``torch.testing._internal``): importing
+    it registers the "fake" backend. The only import of it in the port."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("initialize_standin: this torch has no fake process group "
+                           "(torch.testing._internal.distributed.fake_pg); a stand-in rank "
+                           "needs it") from e
+    return FakeStore
+
+
+def initialize_standin(world_size: int, rank: int, device="cuda",
+                       local_world_size: int = 8) -> torch.device:
+    """Join a job of ``world_size`` ranks as rank ``rank``, alone: the
+    default group runs on torch's fake backend, so every collective returns
+    at once and no other process or network is needed. Ranks ``r`` and
+    ``s`` share a node when ``r // local_world_size == s // local_world_size``
+    (8 cards an H100 node), which is how ``comm.split_intra_inter`` splits
+    the records. Returns the rank's device: the card (the current one for
+    "cuda", or the one named) unless the caller passes "cpu". Raises when a
+    group is already up, when the card is asked for and there is none, or
+    when this torch has no fake backend."""
+    if is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"initialize_standin: rank {rank} outside a world of {world_size}")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize_standin: device 'cuda' requested but "
+                               "torch.cuda.is_available() is False; pass device='cpu'")
+        dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None
+                           else dev.index)
+        torch.cuda.set_device(dev)
+    elif dev.type != "cpu":
+        raise ValueError(f"initialize_standin: no stand-in on device {dev}")
+    store = _fake_backend()()
+    dist.init_process_group("fake", store=store, rank=rank, world_size=world_size)
+    _Job.device = dev
+    _Job.local_world_size = local_world_size
+    _Job.shared_card = False
+    _Job.standin = True
+    return dev
+
+
+def is_standin() -> bool:
+    """Whether this process is a stand-in rank (``initialize_standin``)."""
+    return _Job.standin and is_initialized()
+
+
+def refuse_standin(what: str) -> None:
+    """Raise when this process is a stand-in: ``what`` expects a real job's
+    result, and a stand-in's values are not one."""
+    if is_standin():
+        raise RuntimeError(
+            f"{what}: this process is a stand-in rank (parallel.distributed."
+            "initialize_standin) on the fake backend, whose collectives move no data; its "
+            "values are meaningless, so it trains no loop, saves no checkpoint and opens no "
+            "peer buffers")
+
+
 def process_index() -> int:
     """This process's rank in the job (0 without a group)."""
     return dist.get_rank() if is_initialized() else 0
@@ -111,7 +186,8 @@ def shared_card() -> bool:
 
 
 def backend() -> Optional[str]:
-    """The default group's backend ("nccl" or "gloo"; None without a group)."""
+    """The default group's backend ("nccl", "gloo", or "fake" for a stand-in;
+    None without a group)."""
     return dist.get_backend() if is_initialized() else None
 
 
@@ -132,3 +208,4 @@ def shutdown() -> None:
     _Job.device = None
     _Job.local_world_size = 1
     _Job.shared_card = False
+    _Job.standin = False

@@ -193,14 +193,15 @@ def _process_mesh(dp, tp, sp, pp, dcn_dp, members) -> Mesh:
     """The (dcn, dp, sp, pp, tp) process mesh over the job ranks
     ``members``, tp innermost; rank r's device is its card
     ``cuda:r % LOCAL_WORLD_SIZE`` (torchrun's layout), the one card that
-    every rank shares (``distributed.shared_card``), or the CPU."""
+    every rank shares (``distributed.shared_card``), or the CPU. A
+    stand-in's other ranks exist only as ranks: every position gets its
+    device."""
     dcn = _dcn(dp, dcn_dp)
     own = distributed.device()
     local = distributed.local_world_size()
+    own_card = own.type != "cuda" or distributed.shared_card() or distributed.is_standin()
     devices = np.empty(len(members), dtype=object)
-    devices[:] = [torch.device("cuda", r % local)
-                  if own.type == "cuda" and not distributed.shared_card() else own
-                  for r in members]
+    devices[:] = [own if own_card else torch.device("cuda", r % local) for r in members]
     shape = (dcn, dp // dcn, sp, pp, tp)
     return Mesh(devices.reshape(shape), axis_names=("dcn", "dp", "sp", "pp", "tp"),
                 ranks=np.asarray(members).reshape(shape))

@@ -523,6 +523,24 @@ class ShardedOptimizer:
 
         return batch_axes(self.plan.mesh)
 
+    def held_bytes(self) -> Dict[str, int]:
+        """This rank's bytes as allocated: the model's compute copies, the
+        f32 masters, each moment, and the alignment padding that the flat
+        buffers of the entries outside ZeRO-1 hold (f32 masters, compute
+        copies)."""
+        def nbytes(tensors):
+            return sum(t.numel() * t.element_size() for t in tensors)
+
+        others = set(self.others)
+        pad = self._flat_master.numel() - sum(self._sizes)
+        return {"compute_copies": nbytes(p for n, p in self.params.items() if n not in others)
+                + nbytes([self._flat_compute]),
+                "masters": nbytes(self.inner.params[p] for p in self.zero_paths)
+                + nbytes([self._flat_master]),
+                "mu": nbytes(self.inner.mu.values()), "nu": nbytes(self.inner.nu.values()),
+                "master_padding": pad * self._flat_master.element_size(),
+                "compute_padding": pad * self._flat_compute.element_size()}
+
     def _split(self, flat: torch.Tensor):
         """The other entries' 1-D views of a flat buffer laid out as the
         masters' (``_offsets``)."""

@@ -134,7 +134,9 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
         none: no checkpoints)
     :param log_fn: called as ``log_fn(step, {name: float})`` for every step,
         ``log_every`` steps after it, and for the rest at the end
-    :param device: the card unless the caller passes "cpu"; never falls back
+    :param device: the card unless the caller passes "cpu"; never falls back.
+        A stand-in rank (``parallel.distributed.initialize_standin``) is
+        refused: its losses would be meaningless
     :param mesh: default ``config_mesh(cfg, device)``
     :param save_every: default ``cfg.device.iterations_per_loop``
     :param tracker: a ``utils.experiment`` tracker; default a ``JsonlTracker``
@@ -148,6 +150,7 @@ def run_pretraining(cfg: MerlotConfig, batch_iterator: Iterable[Dict[str, np.nda
         it (with ``fused_builder`` built on the device, else the same dict):
         ``batch_digest`` of both shows which records and draws a step saw
     """
+    distributed.refuse_standin("run_pretraining")
     num_steps = num_steps or cfg.optimizer.num_train_steps
     save_every = save_every or cfg.device.iterations_per_loop
     output_dir = output_dir or cfg.device.output_dir or None

@@ -262,7 +262,9 @@ def save_checkpoint(state, path: str, keep: Optional[int] = None, overwrite: boo
     flax's msgpack writer does: to ``path/ckpt_tmp`` first, then renamed.
     Keeps the newest ``keep`` checkpoints (default all); with ``overwrite``
     a checkpoint of a later step is removed, without it one of the same or
-    a later step raises. Returns the file's path."""
+    a later step raises. Returns the file's path. A stand-in rank
+    (``parallel.distributed.initialize_standin``) is refused."""
+    distributed.refuse_standin("save_checkpoint")
     tree = state if isinstance(state, dict) else state_to_flax(state)
     if no_optimizer:
         tree = dict(tree, opt_state=None)
@@ -352,6 +354,7 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
 
     def save(self, state, path: str, **kw) -> None:
+        distributed.refuse_standin("AsyncCheckpointer.save")
         self.wait()
         snapshot = _map_leaves(lambda x: x.to(torch.float16) if x.dtype == torch.float32
                                else x.clone(), state_to_flax(state))
@@ -538,6 +541,7 @@ class ShardedCheckpointManager:
         ``state`` at its step; returns its directory."""
         import torch.distributed.checkpoint as dcp
 
+        distributed.refuse_standin("ShardedCheckpointManager.save")
         self.wait()
         _, tensors, plan = _state_parts(state)
         group = _group(plan)

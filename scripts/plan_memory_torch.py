@@ -38,6 +38,9 @@ def main(argv=None):
     ap.add_argument("--pp", type=int, default=1, help="pipeline stages")
     ap.add_argument("--sp", type=int, default=1,
                     help="ranks the joint sequence splits over across processes")
+    ap.add_argument("--sp-impl", default="ring:flash",
+                    choices=["ring:flash", "ulysses:flash"],
+                    help="how the joint sequence splits over sp")
     ap.add_argument("--dense-joint", action="store_true",
                     help="the joint tower on the dense path (default: flash)")
     ap.add_argument("--hbm-gib", type=float, default=80.0, help="device memory per card")
@@ -52,7 +55,8 @@ def main(argv=None):
     for b in args.batch:
         est = memory.estimate_train_hbm(
             cfg, b, remat=args.remat, zero1_dp=args.zero1_dp, pp=args.pp,
-            flash=not args.dense_joint, tp=args.tp, sp=args.sp, tower_remat=args.tower_remat)
+            flash=not args.dense_joint, tp=args.tp, sp=args.sp, tower_remat=args.tower_remat,
+            sp_impl=args.sp_impl)
         gib = {k: round(v / memory.GIB, 3) for k, v in est.items() if k != "params"}
         print(json.dumps({"config": args.config, "batch": b, "params": int(est["params"]),
                           "gib": gib, "fits": est["total"] <= args.hbm_gib * memory.GIB}))

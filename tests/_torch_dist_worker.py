@@ -12,7 +12,8 @@ sharded checkpoint round trip (``sharded_checkpoint``), ``run_pretraining``
 saving and resuming per rank (``loop``), a zero-shot
 evaluation (``zero_shot``), ``ring:rdma``'s forward and its refusal under
 grad (``rdma_forward``), sequence-parallel attention on this rank's shard
-(``sp_attention``) or a transformer encoder's forward (``encoder``).
+(``sp_attention``), a transformer encoder's forward (``encoder``) or every
+rank's collective records of one train step (``records``).
 
     python tests/_torch_dist_worker.py JOB.pt
 """
@@ -105,6 +106,21 @@ def state_bytes(state):
     inner = state.optimizer.inner
     return sum(t.numel() * t.element_size()
                for d in (inner.params, inner.mu, inner.nu) for t in d.values())
+
+
+def records(job, case, mesh):
+    """Every rank's collective records of one train step, in rank order
+    (gathered to each rank)."""
+    cfg = make_config(job, case.get("model", {}))
+    state = create_distributed_train_state(cfg, full_model(cfg, job["params"]), mesh,
+                                           zero1=case.get("zero1", True),
+                                           use_bfloat16_grads=job["bf16_grads"])
+    batch = local_rows(mesh, batch_to_tensors(job["batch"], "cpu"))
+    with activate_mesh(mesh), comm.recording() as recs:
+        train_step(state, batch, job["bf16_grads"], job["split_at"], job["gumbel"])
+    every = [None] * mesh.size(mesh.axis_names)
+    torch.distributed.all_gather_object(every, list(recs), group=mesh.group(mesh.axis_names))
+    return {"records": every}
 
 
 def forward_audit(job, case, mesh):
@@ -312,7 +328,8 @@ def main(path):
             out = {"forward_audit": forward_audit, "checkpoint": checkpoint,
                    "sharded_checkpoint": sharded_checkpoint, "loop": loop,
                    "zero_shot": zero_shot, "rdma_forward": rdma_forward,
-                   "sp_attention": sp_attention, "encoder": encoder}[kind](job, case, mesh)
+                   "sp_attention": sp_attention, "encoder": encoder,
+                   "records": records}[kind](job, case, mesh)
         if rank == 0:
             results[name] = out
     if rank == 0:
